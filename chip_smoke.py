@@ -5,20 +5,29 @@
 Phases, each printing JSON lines; any failure raises and exits non-zero:
   1. device   needs torch.cuda.is_available(); prints the card's name and
               power limit as nvidia-smi reports them
-  2. build    builds every kernel in cuda_ldpc_torch/csrc/ with nvcc
+  2. build    builds every kernel in cuda_ldpc_torch/csrc/ with nvcc, one
+              compiler per source, all at once
   3. parity   each kernel vs its plain PyTorch version on the same CUDA
-              tensors: J4_L24_Z96, J15_L30_Z1280 and PON_LDPC, checks zero /
-              syndrome / none, early stop on and off, alpha 0.8 with beta
-              0.1, 0 iterations, a ragged batch of 11, and the main path's
-              shapes.  hard, ok and iters must be exactly equal.
-  4. main     the main path through the CLI: a J15_L30_Z1280 FER sweep at
-              B=4096, maxIT 50, around the waterfall, with the kernels'
-              launch counts reset before and read after; then PON_LDPC,
-              and J4_L24_Z96 at Eb/N0 3.6 dB whose FER must be statistically
-              compatible with the reference's 33 errors in 2021 frames
+              tensors.  Flooding and layered min-sum (K1, K2): J4_L24_Z96,
+              J15_L30_Z1280 and PON_LDPC, checks zero / syndrome / none,
+              early stop on and off, alpha 0.8 with beta 0.1, 0 iterations,
+              a ragged batch of 11, and the main path's B=4096.  The bp rule
+              in both schedules (K3) on true LLRs: J4_L24_Z96 at B=4096,
+              J15_L30_Z1280 and PON_LDPC at B=512.  hard, ok and iters
+              exactly equal; every mismatch is counted and printed
+  4. main     the main path through the CLI, each sweep with every launch
+              count set to 0 just before it and read just after: J15_L30_Z1280
+              at B=4096, maxIT 50, around the waterfall, flooding and layered
+              min-sum and bp; PON_LDPC flooding and layered min-sum; layered
+              avg_iters no larger than flooding's at each point for bp and
+              for PON_LDPC (reported for J15_L30_Z1280 min-sum); J4_L24_Z96
+              at Eb/N0 3.6 dB, min-sum and bp, whose FERs must be
+              statistically compatible with the reference's 33/2021 and
+              72/32768
   5. timing   J15_L30_Z1280, B=4096, 10 fixed iterations, one batch in
-              flight: the kernel and the plain PyTorch path in turns
-              (plain, kernel, kernel, plain)
+              flight: each kernel and its plain PyTorch version in turns
+              (plain, kernel, kernel, plain), then one kernel call under
+              torch.profiler for its device time per CUDA kernel
 The last lines are the card line, the kernels' JSON and
 {"ok": true, "device": {...}}.
 """
@@ -31,6 +40,23 @@ import statistics
 import sys
 import tempfile
 import time
+
+# Published peaks of one NVIDIA H100 SXM at its full 700 W (NVIDIA's data
+# sheet): HBM3 bandwidth and dense fp32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+# The kernels of the main path: (name, source, TPU kernel it replaces).
+KERNELS = [
+    ("minsum_flooding", "cuda_ldpc_torch/csrc/minsum_flooding.cu",
+     "cuda_ldpc_tpu/ops/pallas_minsum.py:251"),
+    ("minsum_layered", "cuda_ldpc_torch/csrc/minsum_layered.cu",
+     "cuda_ldpc_tpu/ops/pallas_minsum.py:299"),
+    ("bp_flooding", "cuda_ldpc_torch/csrc/minsum_flooding.cu",
+     "cuda_ldpc_tpu/ops/pallas_minsum.py:134"),
+    ("bp_layered", "cuda_ldpc_torch/csrc/minsum_layered.cu",
+     "cuda_ldpc_tpu/ops/pallas_minsum.py:134"),
+]
 
 
 def _emit(phase: str, **kw):
@@ -45,6 +71,34 @@ def _sweep(cli, out_dir: str, argv: list[str]) -> list[dict]:
         raise RuntimeError(f"cli exited {rc}")
     with open(os.path.join(out_dir, "results.jsonl")) as f:
         return [json.loads(line) for line in f]
+
+
+def bound_ms(code, batch: int, iters: int, schedule: str, rule: str,
+             check: str) -> tuple[float, str]:
+    """The least time the card could take for one decode call of
+    ``iters`` iterations without early stop: the larger of the bytes the
+    function must move (chan read once, hard and ok written once) over the
+    HBM rate, and its fp32 operations over the fp32 peak.  Operations are
+    counted from the kernels' code, each add, subtract, compare, min/max,
+    select, multiply, negate, logf or tanhf as one: per edge and iteration,
+    min-sum's CN 6 (q, sign, |q|, two compares, the sign applied) and bp's
+    17 (q, sign, |q|, clip 2, x/2, tanh, log, negate, sum; rest, clip,
+    x/2, tanh, log, negate, sign); beta 2 and alpha 1 more; flooding's VN
+    one add per edge and iteration and its CN skipped on the last
+    iteration; layered's total update 2 per edge.  The zero check costs
+    one compare per message bit, the syndrome check one XOR per edge."""
+    lanes = batch * code.num_edges * code.Z
+    cn = {"minsum": 6, "bp": 17}[rule]
+    if schedule == "flooding":
+        ops = lanes * (iters + cn * (iters - 1))
+    else:
+        ops = lanes * (cn + 2) * iters
+    ops += iters * batch * {"zero": code.k, "syndrome": code.num_edges *
+                            code.Z, "none": 0}[check]
+    nbytes = batch * code.n * (4 + 1) + batch + 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
 
 
 def main() -> int:
@@ -78,13 +132,20 @@ def main() -> int:
                  or "spill" in ln or "Compiling entry" in ln])
 
     # ---- 3. kernel vs plain on the card
-    def chan_for(code, snr_type, snr, batch, seed):
+    codes = {}
+
+    def code_of(name):
+        return codes.setdefault(name, QCBinaryCode.from_registry(name))
+
+    def chan_for(code, snr_type, snr, batch, seed, rule="minsum"):
         sigma = channel.sigma_from_snr(snr, code.rate, snr_type)
         g = torch.Generator(device=dev).manual_seed(seed)
         cw = torch.zeros((code.L, code.Z), device=dev)
-        return channel.bpsk_awgn_llr(g, cw, sigma, batch)
+        chan = channel.bpsk_awgn_llr(g, cw, sigma, batch)
+        # bp needs true LLRs, as the sweep's step gives it
+        return chan.mul_(2.0 / (sigma * sigma)) if rule == "bp" else chan
 
-    cases = [
+    minsum_cases = [
         # code, snr type, snr, batch, iters, check, early stop, alpha, beta
         ("J4_L24_Z96", "ebn0", 3.6, 4096, 50, "zero", True, 1.0, 0.0),
         ("J4_L24_Z96", "ebn0", 3.6, 11, 50, "syndrome", True, 0.8, 0.1),
@@ -98,124 +159,229 @@ def main() -> int:
         ("PON_LDPC", "esn0", 2.6, 512, 50, "syndrome", True, 1.0, 0.0),
         ("PON_LDPC", "esn0", 2.45, 512, 10, "zero", False, 0.8, 0.1),
     ]
-    codes = {}
-    max_err = 0.0
-    for i, (name, st, snr, B, iters, check, early, alpha, beta) in \
-            enumerate(cases):
-        code = codes.setdefault(name, QCBinaryCode.from_registry(name))
-        chan = chan_for(code, st, snr, B, seed=100 + i)
-        kw = dict(alpha=alpha, beta=beta, check=check, early_stop=early)
-        a = cuda_minsum.decode_flooding(chan, code, iters, **kw)
-        b = minsum.decode_flooding(chan, code, iters, **kw)
+    bp_cases = [
+        ("J4_L24_Z96", "ebn0", 3.6, 4096, 50, "zero", True, 1.0, 0.0),
+        ("J4_L24_Z96", "ebn0", 3.3, 11, 20, "syndrome", False, 0.8, 0.1),
+        ("J15_L30_Z1280", "esn0", -1.6, 512, 50, "zero", True, 1.0, 0.0),
+        ("J15_L30_Z1280", "esn0", -1.6, 512, 10, "syndrome", False, 1.0, 0.0),
+        ("PON_LDPC", "esn0", 2.3, 512, 50, "syndrome", True, 1.0, 0.0),
+        ("PON_LDPC", "esn0", 2.3, 512, 10, "none", False, 0.8, 0.1),
+    ]
+    cases = ([("flooding", "minsum", *c) for c in minsum_cases]
+             + [("layered", "minsum", *c) for c in minsum_cases]
+             + [(s, "bp", *c) for s in ("flooding", "layered")
+                for c in bp_cases])
+    max_err = {name: 0.0 for name, _, _ in KERNELS}
+    mismatches = {name: 0 for name, _, _ in KERNELS}
+    for i, (schedule, rule, name, st, snr, B, iters, check, early, alpha,
+            beta) in enumerate(cases):
+        code = code_of(name)
+        chan = chan_for(code, st, snr, B, seed=100 + i, rule=rule)
+        kw = dict(alpha=alpha, beta=beta, check=check, early_stop=early,
+                  rule=rule)
+        a = getattr(cuda_minsum, f"decode_{schedule}")(chan, code, iters, **kw)
+        b = getattr(minsum, f"decode_{schedule}")(chan, code, iters, **kw)
         torch.cuda.synchronize()
-        err = max((a.hard.int() - b.hard.int()).abs().max().item(),
-                  (a.ok.int() - b.ok.int()).abs().max().item(),
-                  abs(int(a.iters) - int(b.iters)))
-        max_err = max(max_err, float(err))
-        _emit("parity", code=name, snr=f"{st} {snr}", batch=B, iters=iters,
-              check=check, early_stop=early, alpha=alpha, beta=beta,
-              kernel_iters=int(a.iters), plain_iters=int(b.iters),
-              frames_ok=int(a.ok.sum()), max_abs_err=err)
-        if err != 0:
+        hard_diff = a.hard != b.hard
+        counts = {"hard": int(hard_diff.sum()),
+                  "hard_in_ok_frames": int(hard_diff[b.ok].sum()),
+                  "ok": int((a.ok != b.ok).sum()),
+                  "iters": abs(int(a.iters) - int(b.iters))}
+        # the largest |kernel - plain| over hard, ok and iters
+        err = max(int(hard_diff.any()), int(counts["ok"] > 0),
+                  counts["iters"])
+        key = f"{rule}_{schedule}"
+        max_err[key] = max(max_err[key], float(err))
+        mismatches[key] += counts["hard"] + counts["ok"]
+        _emit("parity", kernel=key, code=name, snr=f"{st} {snr}", batch=B,
+              iters=iters, check=check, early_stop=early, alpha=alpha,
+              beta=beta, kernel_iters=int(a.iters), plain_iters=int(b.iters),
+              frames_ok=int(a.ok.sum()), mismatches=counts, max_abs_err=err)
+        # exact for both rules: the kernel's logf/tanhf and torch.log /
+        # torch.tanh on the card agree to the last bit
+        if counts["hard"] or counts["ok"] or counts["iters"]:
             raise AssertionError(f"kernel != plain on case {i}: {cases[i]}")
-        del a, b, chan
+        del a, b, chan, hard_diff
     torch.cuda.empty_cache()
 
     # ---- 4. the main path, through the CLI
-    with tempfile.TemporaryDirectory() as tmp:
-        cuda_minsum.LAUNCHES = 0
+    keep = ("snr", "frames", "error_frames", "error_units", "fer", "ber",
+            "avg_iters", "false_frames", "alarm_frames", "info_mbps")
+    launches = {}
+
+    def drive(tmp, label, kernel, argv):
+        """One sweep with every launch count at 0 before it; the counts
+        are read after it, and the named kernel must have launched."""
+        for k in cuda_minsum.LAUNCHES:
+            cuda_minsum.LAUNCHES[k] = 0
         t0 = time.perf_counter()
-        rows = _sweep(cli, os.path.join(tmp, "j15"), [
-            "--code", "J15_L30_Z1280", "--snr=-1.6:0.1:-1.4",
-            "--snr-type", "esn0", "--max-iters", "50", "--batch", "4096",
-            "--least-error-frames", "50", "--least-test-frames", "4096",
-            "--max-frames", "12288"])
-        sweep_s = time.perf_counter() - t0
-        launches = cuda_minsum.LAUNCHES
-        if launches <= 0:
-            raise AssertionError("the J15_L30_Z1280 sweep never launched "
-                                 "the CUDA kernel")
-        keep = ("snr", "frames", "error_frames", "error_units", "fer", "ber",
-                "avg_iters", "false_frames", "alarm_frames", "info_mbps")
-        _emit("main_path", code="J15_L30_Z1280", seconds=sweep_s,
-              launches=launches, rows=[{k: r[k] for k in keep} for r in rows])
-        if len(rows) != 3 or not all(r["frames"] >= 4096 and
-                                     0.0 <= r["fer"] <= 1.0 for r in rows):
+        rows = _sweep(cli, os.path.join(tmp, label), argv)
+        seconds = time.perf_counter() - t0
+        counts = dict(cuda_minsum.LAUNCHES)
+        if counts[kernel] <= 0:
+            raise AssertionError(f"the {label} sweep never launched the "
+                                 f"{kernel} kernel: {counts}")
+        _emit("main_path", sweep=label, seconds=seconds, launches=counts,
+              rows=[{k: r[k] for k in keep} for r in rows])
+        if not all(r["frames"] > 0 and 0.0 <= r["fer"] <= 1.0 for r in rows):
+            raise AssertionError(f"bad {label} rows: {rows}")
+        return rows, counts[kernel]
+
+    slower = []
+
+    def no_slower(label, layered, flooding, required=True):
+        """Layered's avg_iters against flooding's at each point; where
+        ``required``, no larger, and a failure is raised once every sweep
+        has run."""
+        pairs = [(a["snr"], a["avg_iters"], b["avg_iters"])
+                 for a, b in zip(layered, flooding)]
+        holds = len(layered) == len(flooding) and all(la <= fl
+                                                      for _, la, fl in pairs)
+        _emit("layered_vs_flooding", sweep=label, required=required,
+              holds=holds, snr_layered_flooding_avg_iters=pairs,
+              fer_layered_flooding=[(a["fer"], b["fer"])
+                                    for a, b in zip(layered, flooding)])
+        if required and not holds:
+            slower.append((label, pairs))
+
+    j15 = ["--code", "J15_L30_Z1280", "--snr=-1.6:0.1:-1.4", "--snr-type",
+           "esn0", "--max-iters", "50", "--batch", "4096",
+           "--least-error-frames", "50", "--least-test-frames", "4096",
+           "--max-frames", "12288"]
+    pon = ["--code", "PON_LDPC", "--snr", "2.4:0.2:2.6", "--snr-type", "esn0",
+           "--max-iters", "50", "--batch", "4096", "--least-error-frames",
+           "50", "--least-test-frames", "4096", "--max-frames", "12288"]
+    with tempfile.TemporaryDirectory() as tmp:
+        rows, launches["minsum_flooding"] = drive(tmp, "j15", "minsum_flooding",
+                                                  j15)
+        if len(rows) != 3 or not all(r["frames"] >= 4096 for r in rows):
             raise AssertionError(f"bad J15_L30_Z1280 rows: {rows}")
         if not rows[0]["fer"] >= rows[-1]["fer"]:
             raise AssertionError("FER does not fall across the waterfall")
+        lay, launches["minsum_layered"] = drive(
+            tmp, "j15_layered", "minsum_layered", j15 + ["--schedule",
+                                                         "layered"])
+        # Unnormalised min-sum (alpha 1, the reference's rule) in the layered
+        # schedule leaves more J15_L30_Z1280 frames unconverged than
+        # flooding does, which the JAX package's decode_layered does too; a
+        # batch keeps iterating while one frame fails, so the count is
+        # reported here and required of bp and of PON_LDPC.
+        no_slower("j15 min-sum", lay, rows, required=False)
 
-        rows = _sweep(cli, os.path.join(tmp, "pon"), [
-            "--code", "PON_LDPC", "--snr", "2.4:0.2:2.6", "--snr-type", "esn0",
-            "--max-iters", "50", "--batch", "4096",
-            "--least-error-frames", "50", "--least-test-frames", "4096",
-            "--max-frames", "12288"])
-        _emit("main_path", code="PON_LDPC",
-              rows=[{k: r[k] for k in keep} for r in rows])
-        if len(rows) != 2 or not all(0.0 <= r["fer"] <= 1.0 for r in rows):
+        bp, launches["bp_flooding"] = drive(tmp, "j15_bp", "bp_flooding",
+                                            j15 + ["--rule", "bp"])
+        bp_lay, launches["bp_layered"] = drive(
+            tmp, "j15_bp_layered", "bp_layered",
+            j15 + ["--rule", "bp", "--schedule", "layered"])
+        no_slower("j15 bp", bp_lay, bp)
+
+        rows, _ = drive(tmp, "pon", "minsum_flooding", pon)
+        if len(rows) != 2:
             raise AssertionError(f"bad PON_LDPC rows: {rows}")
+        lay, _ = drive(tmp, "pon_layered", "minsum_layered",
+                       pon + ["--schedule", "layered"])
+        no_slower("pon min-sum", lay, rows)
 
-        rows = _sweep(cli, os.path.join(tmp, "j4"), [
-            "--code", "J4_L24_Z96", "--snr", "3.6", "--snr-type", "ebn0",
-            "--max-iters", "50", "--check", "zero", "--batch", "4096",
-            "--least-error-frames", "200", "--least-test-frames", "8192",
-            "--max-frames", "40960"])
-        r = rows[-1]
-        compatible = rates_compatible(r["error_frames"], r["frames"], 33, 2021)
-        _emit("fer_anchor", code="J4_L24_Z96", ebn0=3.6,
-              errors=r["error_frames"], frames=r["frames"], fer=r["fer"],
-              reference="33/2021 = 1.633e-2", compatible=compatible)
-        if not compatible:
-            raise AssertionError("J4_L24_Z96 FER at Eb/N0 3.6 dB is not "
-                                 "compatible with 33/2021")
+        anchors = [
+            ("j4", "minsum_flooding", [], 200, 40960, (33, 2021)),
+            ("j4_bp", "bp_flooding", ["--rule", "bp"], 100, 65536,
+             (72, 32768)),
+        ]
+        for label, kernel, extra, least_errors, max_frames, ref in anchors:
+            rows, _ = drive(tmp, label, kernel, [
+                "--code", "J4_L24_Z96", "--snr", "3.6", "--snr-type", "ebn0",
+                "--max-iters", "50", "--check", "zero", "--batch", "4096",
+                "--least-error-frames", str(least_errors),
+                "--least-test-frames", "8192", "--max-frames",
+                str(max_frames), *extra])
+            r = rows[-1]
+            compatible = rates_compatible(r["error_frames"], r["frames"], *ref)
+            _emit("fer_anchor", sweep=label, code="J4_L24_Z96", ebn0=3.6,
+                  errors=r["error_frames"], frames=r["frames"], fer=r["fer"],
+                  reference=f"{ref[0]}/{ref[1]} = {ref[0] / ref[1]:.4g}",
+                  compatible=compatible)
+            if not compatible:
+                raise AssertionError(f"{label}: J4_L24_Z96 FER at Eb/N0 "
+                                     f"3.6 dB is not compatible with "
+                                     f"{ref[0]}/{ref[1]}")
 
     # ---- 5. timing: 10 fixed iterations, one batch in flight
     code = codes["J15_L30_Z1280"]
     B, iters, reps = 4096, 10, {"kernel": 20, "plain": 5}
-    chans = [chan_for(code, "esn0", -1.5, B, seed=7 + i) for i in range(2)]
-    decoders = {"kernel": cuda_minsum.decode_flooding,
-                "plain": minsum.decode_flooding}
+    timing = {}
+    for name, _, _ in KERNELS:
+        rule, schedule = name.split("_")
+        chans = [chan_for(code, "esn0", -1.5, B, seed=7 + i, rule=rule)
+                 for i in range(2)]
+        decoders = {"kernel": getattr(cuda_minsum, f"decode_{schedule}"),
+                    "plain": getattr(minsum, f"decode_{schedule}")}
 
-    def time_one(which: str) -> float:
-        """Milliseconds per batch, host clock, device synchronised."""
-        decode = decoders[which]
+        def time_one(which: str) -> float:
+            """Milliseconds per batch, host clock, device synchronised."""
+            decode = decoders[which]
 
-        def launch(i):
-            res = decode(chans[i % 2], code, iters, check="zero",
-                         early_stop=False)
-            ev = torch.cuda.Event()
-            ev.record()
-            return res, ev
+            def launch(i):
+                res = decode(chans[i % 2], code, iters, check="zero",
+                             early_stop=False, rule=rule)
+                ev = torch.cuda.Event()
+                ev.record()
+                return res, ev
 
-        launch(0)[1].synchronize()                       # warm up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        prev = launch(0)
-        for i in range(1, reps[which]):
-            nxt = launch(i)
-            prev[1].synchronize()         # wait for batch i-1 while i runs
-            prev = nxt
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / reps[which]
+            launch(0)[1].synchronize()                       # warm up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prev = launch(0)
+            for i in range(1, reps[which]):
+                nxt = launch(i)
+                prev[1].synchronize()     # wait for batch i-1 while i runs
+                prev = nxt
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / reps[which]
 
-    runs = {"kernel": [], "plain": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        runs[which].append(time_one(which))
-    ms = {k: statistics.median(v) for k, v in runs.items()}
-    mbps = {k: B * code.k / (v / 1e3) / 1e6 for k, v in ms.items()}
-    _emit("timing", code=code.name, batch=B, iters=iters, card=card,
-          ms_per_batch=runs, info_mbps=mbps)
+        runs = {"kernel": [], "plain": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            runs[which].append(time_one(which))
+        ms = {k: statistics.median(v) for k, v in runs.items()}
+        bound, bound_by = bound_ms(code, B, iters, schedule, rule, "zero")
+        timing[name] = (ms, bound, bound_by)
+        _emit("timing", kernel=name, code=code.name, batch=B, iters=iters,
+              card=card, ms_per_batch=runs,
+              info_mbps={k: B * code.k / (v / 1e3) / 1e6
+                         for k, v in ms.items()},
+              bound_ms=bound, bound_by=bound_by)
+        # where the kernel's time goes: device time per CUDA kernel of one
+        # decode call, from torch.profiler
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            decoders["kernel"](chans[0], code, iters, check="zero",
+                               early_stop=False, rule=rule)
+            torch.cuda.synchronize()
+        device_ms = {e.key: [e.self_device_time_total / 1e3, e.count]
+                     for e in prof.key_averages()
+                     if e.self_device_time_total > 0}
+        _emit("profile", kernel=name, code=code.name, batch=B, iters=iters,
+              card=card, device_ms_total=sum(v[0] for v in device_ms.values()),
+              device_ms_launches=device_ms)
+        del chans
+        torch.cuda.empty_cache()
 
     # ---- the kernels, the card, and the result
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    if slower:
+        raise AssertionError(f"layered avg_iters above flooding's: {slower}")
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "cuda_ldpc_tpu"))
+    if leaked:
+        raise AssertionError(f"the port imported {leaked[:5]}")
     print(card, flush=True)
     print(json.dumps({"kernels": [{
-        "name": "minsum_flooding", "route": "cuda",
-        "source": "cuda_ldpc_torch/csrc/minsum_flooding.cu",
-        "replaces": "cuda_ldpc_tpu/ops/pallas_minsum.py:251",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms["kernel"], "plain_ms": ms["plain"]}]}), flush=True)
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches[name],
+        "max_abs_err": max_err[name], "mismatches": mismatches[name],
+        "ms": timing[name][0]["kernel"], "plain_ms": timing[name][0]["plain"],
+        "bound_ms": timing[name][1], "bound_by": timing[name][2],
+        "library_ms": None} for name, source, replaces in KERNELS]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,8 +1,10 @@
 """Command-line interface of the port (counterpart of
-cuda_ldpc_tpu/cli.py:68-218, the ``binary`` and ``list-codes`` subcommands).
+cuda_ldpc_tpu/cli.py:21-65 and 68-218, the ``binary`` and ``list-codes``
+subcommands).
 
 Usage:
   python -m cuda_ldpc_torch binary --code J15_L30_Z1280 --snr 2:0.2:3
+  python -m cuda_ldpc_torch binary --schedule layered --rule bp ...
   python -m cuda_ldpc_torch binary --device cpu --code J4_L24_Z96 ...
   python -m cuda_ldpc_torch list-codes
 
@@ -16,9 +18,32 @@ from __future__ import annotations
 import argparse
 import sys
 
-from cuda_ldpc_tpu import cli as tpu_cli
-from cuda_ldpc_tpu import config as cfg
-from cuda_ldpc_tpu.utils import registry
+from cuda_ldpc_torch import config as cfg
+from cuda_ldpc_torch.utils import registry
+
+
+def _parse_snr(spec: str):
+    try:
+        parts = [float(p) for p in spec.split(":")]
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"invalid SNR spec {spec!r}: must be 'x' or 'start:step:stop'")
+    if len(parts) == 1:
+        return parts[0], 1.0, parts[0]
+    if len(parts) == 3:
+        return parts[0], parts[1], parts[2]
+    raise argparse.ArgumentTypeError("SNR spec must be 'x' or 'start:step:stop'")
+
+
+def _sweep_from(args, d: cfg.SweepConfig) -> cfg.SweepConfig:
+    s = cfg.SweepConfig(
+        snr_type=args.snr_type, least_error_frames=args.least_error_frames,
+        least_test_frames=args.least_test_frames, max_frames=args.max_frames,
+        display_step=args.display_step, seed=args.seed,
+        snr_start=d.snr_start, snr_step=d.snr_step, snr_stop=d.snr_stop)
+    if args.snr:
+        s.snr_start, s.snr_step, s.snr_stop = args.snr
+    return s
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -26,7 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
                                  description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    b = sub.add_parser("binary", help="binary QC-LDPC min-sum FER sweep")
+    b = sub.add_parser("binary", help="binary QC-LDPC FER sweep")
     bd = cfg.BinarySimConfig()
     b.add_argument("--code", default="J15_L30_Z1280",
                    choices=registry.BINARY_CODES, metavar="CODE")
@@ -39,7 +64,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "PyTorch on the CPU")
     b.add_argument("--schedule", choices=["flooding", "layered"],
                    default=bd.decoder.schedule)
-    b.add_argument("--rule", choices=["minsum", "bp"], default=bd.decoder.rule)
+    b.add_argument("--rule", choices=["minsum", "bp"], default=bd.decoder.rule,
+                   help="CN update rule: minsum (decoder_method=0) or bp "
+                        "(exact sum-product, on true LLRs 2y/sigma^2 — the "
+                        "reference's declared but unimplemented "
+                        "decoder_method=1, define.cuh:33-34)")
     b.add_argument("--max-iters", type=int, default=bd.decoder.max_iters)
     b.add_argument("--alpha", type=float, default=bd.decoder.alpha,
                    help="normalization factor (reference uses 1.0)")
@@ -61,7 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--tx", choices=["zero", "random"], default=bd.tx)
     b.add_argument("--engine", choices=["batch", "stream"], default=bd.engine)
     d = bd.sweep
-    b.add_argument("--snr", default=None, type=tpu_cli._parse_snr,
+    b.add_argument("--snr", default=None, type=_parse_snr,
                    help=f"start:step:stop (default "
                         f"{d.snr_start}:{d.snr_step}:{d.snr_stop})")
     b.add_argument("--snr-type", choices=["ebn0", "esn0"], default=d.snr_type)
@@ -85,7 +114,13 @@ def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.cmd == "list-codes":
-        return tpu_cli.main(["list-codes"])
+        print("binary QC-LDPC codes:")
+        for c in registry.BINARY_CODES:
+            print("  ", c)
+        print("non-binary GF(q) codes:")
+        for c in registry.NB_CODES:
+            print("  ", c)
+        return 0
 
     from cuda_ldpc_torch import sim as simmod
 
@@ -95,7 +130,7 @@ def main(argv=None) -> int:
             max_iters=args.max_iters, alpha=args.alpha, beta=args.beta,
             rule=args.rule, schedule=args.schedule, check=args.check,
             message_only=not args.count_full_codeword, kernel=args.kernel),
-        sweep=tpu_cli._sweep_from(args, cfg.BinarySimConfig().sweep),
+        sweep=_sweep_from(args, cfg.BinarySimConfig().sweep),
         batch_per_device=args.batch, add_noise=not args.no_noise,
         tx=args.tx, channel=args.channel, engine=args.engine)
     try:

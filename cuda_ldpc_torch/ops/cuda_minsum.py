@@ -1,22 +1,24 @@
-"""Wrapper of the CUDA flooding min-sum kernel, csrc/minsum_flooding.cu
+"""Wrappers of the CUDA decoders, csrc/minsum_flooding.cu (K1 flooding,
+K3 its bp rule) and csrc/minsum_layered.cu (K2 layered, K3 its bp rule)
 (counterpart of cuda_ldpc_tpu/ops/pallas_minsum.py).
 
-Replaces the TPU kernel ``pallas_minsum._kernel`` (flooding, rule='minsum').
-The kernel is bound by global-memory bytes: the c2v messages R [B, E, Z] do
-not fit in shared memory (589 KB per frame on J15_L30_Z1280), so each
-iteration reads R twice and writes it once.  A later change keeps only each
-check node's (min1, min2, argmin, sign bits) to cut those bytes.
+They replace the TPU kernels ``pallas_minsum._kernel`` (flooding) and
+``pallas_minsum._layered_kernel`` (layered), each with ``rule='minsum'`` or
+``rule='bp'`` (``_cn_phase(rule='bp')``).  The kernels are bound by
+global-memory bytes for min-sum: the c2v messages R [B, E, Z] do not fit in
+shared memory (589 KB per frame on J15_L30_Z1280), so each iteration moves
+them through device memory.  bp adds logf/tanhf per edge.
 
-Semantics are ops/minsum.decode_flooding's, bit for bit, including its
-batch-global early stop: ``hard`` and ``ok`` come from the last VN phase and
-``iters`` is the batch's iteration count.  (The TPU kernel stops per 8-frame
-tile and reports the maximum over tiles, so it equals this only for one
-tile or without early stop.)  The stop flag and the count stay on the
-device: a call enqueues every iteration's launches and returns without
-waiting.
+Semantics are ops/minsum.decode_flooding's and decode_layered's, bit for bit
+for min-sum, including their batch-global early stop: ``hard`` and ``ok``
+come from the last iteration and ``iters`` is the batch's iteration count.
+(The TPU kernels stop per 8-frame tile and report the maximum over tiles,
+so they equal this only for one tile or without early stop.)  The stop flag
+and the count stay on the device: a call enqueues every iteration's
+launches and returns without waiting.
 
-A CPU tensor goes to the plain version, ops/minsum.decode_flooding.  A CUDA
-tensor goes to the kernel, or the call raises.
+A CPU tensor goes to the plain version in ops/minsum.py.  A CUDA tensor goes
+to the kernel, or the call raises.
 """
 
 from __future__ import annotations
@@ -27,15 +29,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cuda_ldpc_tpu.models.qc_binary import QCBinaryCode
+from cuda_ldpc_torch.models.qc_binary import QCBinaryCode
 from cuda_ldpc_torch.ops import _build, minsum
-from cuda_ldpc_torch.ops.minsum import CHECKS, DecodeResult
+from cuda_ldpc_torch.ops.minsum import DecodeResult
 
-# Calls that launched the kernel; read and reset by chip_smoke.py to show
-# that the main path went through it.
-LAUNCHES = 0
+# Calls that launched each kernel, by "<rule>_<schedule>"; read and reset by
+# chip_smoke.py to show that the main path went through them.
+LAUNCHES = {"minsum_flooding": 0, "minsum_layered": 0, "bp_flooding": 0,
+            "bp_layered": 0}
 
 _CHECK_CODES = {"none": 0, "zero": 1, "syndrome": 2}
+_RULE_CODES = {"minsum": 0, "bp": 1}
 
 
 class EdgeTables(NamedTuple):
@@ -79,20 +83,17 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def decode_flooding(chan: torch.Tensor, code: QCBinaryCode, num_iters: int,
-                    alpha: float = 1.0, beta: float = 0.0,
-                    check: str = "syndrome",
-                    early_stop: bool = True) -> DecodeResult:
-    """Flooding min-sum decode of chan [B, L, Z] float32; drop-in for
-    ops/minsum.decode_flooding."""
+def _decode(schedule: str, chan: torch.Tensor, code: QCBinaryCode,
+            num_iters: int, alpha: float, beta: float, check: str,
+            early_stop: bool, rule: str) -> DecodeResult:
     if chan.device.type == "cpu":
-        return minsum.decode_flooding(chan, code, num_iters, alpha=alpha,
-                                      beta=beta, check=check,
-                                      early_stop=early_stop)
+        plain = {"flooding": minsum.decode_flooding,
+                 "layered": minsum.decode_layered}[schedule]
+        return plain(chan, code, num_iters, alpha=alpha, beta=beta,
+                     check=check, early_stop=early_stop, rule=rule)
     if chan.device.type != "cuda":
         raise ValueError(f"unsupported device {chan.device}")
-    if check not in CHECKS:
-        raise ValueError(f"unknown check mode {check!r}")
+    minsum.check_args(check, rule)
     if chan.dtype != torch.float32:
         raise TypeError(f"chan must be float32, got {chan.dtype}")
     if chan.dim() != 3 or tuple(chan.shape[1:]) != (code.L, code.Z):
@@ -122,15 +123,39 @@ def decode_flooding(chan: torch.Tensor, code: QCBinaryCode, num_iters: int,
     ok = torch.empty(B, dtype=torch.bool, device=dev)
     ctl = torch.empty(3, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.ldpc_minsum_flooding(
+    if schedule == "flooding":
+        entry, tables = lib.ldpc_minsum_flooding, tab
+    else:                          # the layered kernel needs no column CSR
+        entry, tables = lib.ldpc_minsum_layered, tab[:4]
+    err = entry(
         _ptr(chan), _ptr(T), _ptr(R), _ptr(hard), _ptr(ok), _ptr(ctl),
-        *(_ptr(t) for t in tab), B, L, code.J, E, Z, int(num_iters),
+        *(_ptr(t) for t in tables), B, L, code.J, E, Z, int(num_iters),
         float(alpha), int(alpha != 1.0), float(beta), int(beta != 0.0),
-        _CHECK_CODES[check], int(bool(early_stop)), dev.index,
-        ctypes.c_void_p(stream))
+        _CHECK_CODES[check], int(bool(early_stop)), _RULE_CODES[rule],
+        dev.index, ctypes.c_void_p(stream))
+    name = f"{rule}_{schedule}"
     if err:
-        raise RuntimeError("minsum_flooding launch failed: "
+        raise RuntimeError(f"{name} launch failed: "
                            + lib.ldpc_error_string(err).decode())
-    global LAUNCHES
-    LAUNCHES += 1
+    LAUNCHES[name] += 1
     return DecodeResult(hard, ok, ctl[0])
+
+
+def decode_flooding(chan: torch.Tensor, code: QCBinaryCode, num_iters: int,
+                    alpha: float = 1.0, beta: float = 0.0,
+                    check: str = "syndrome", early_stop: bool = True,
+                    rule: str = "minsum") -> DecodeResult:
+    """Flooding decode of chan [B, L, Z] float32; drop-in for
+    ops/minsum.decode_flooding."""
+    return _decode("flooding", chan, code, num_iters, alpha, beta, check,
+                   early_stop, rule)
+
+
+def decode_layered(chan: torch.Tensor, code: QCBinaryCode, num_iters: int,
+                   alpha: float = 1.0, beta: float = 0.0,
+                   check: str = "syndrome", early_stop: bool = True,
+                   rule: str = "minsum") -> DecodeResult:
+    """Row-layered decode of chan [B, L, Z] float32; drop-in for
+    ops/minsum.decode_layered."""
+    return _decode("layered", chan, code, num_iters, alpha, beta, check,
+                   early_stop, rule)

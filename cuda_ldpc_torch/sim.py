@@ -14,8 +14,8 @@ Noise: the device channel draws each batch from a ``torch.Generator`` on the
 device, seeded by a fixed function of (seed, snr index, batch index), so a
 resumed sweep redraws exactly the noise it would have drawn.  The
 'reference' channel reproduces the CUDA reference's LCG on the host
-(cuda_ldpc_tpu.utils.native / lcg), the same noise the JAX package sees, so
-its rows equal the JAX package's exactly.
+(utils/native.py, utils/lcg.py), the same noise the JAX package sees, so its
+rows equal the JAX package's exactly.
 """
 
 from __future__ import annotations
@@ -30,9 +30,11 @@ from typing import Callable
 import numpy as np
 import torch
 
-from cuda_ldpc_tpu import config as cfg
-from cuda_ldpc_tpu.models.qc_binary import QCBinaryCode
+from cuda_ldpc_torch import config as cfg
+from cuda_ldpc_torch.models.qc_binary import QCBinaryCode
 from cuda_ldpc_torch.ops import channel, cuda_minsum, minsum
+from cuda_ldpc_torch.utils import lcg as pylcg
+from cuda_ldpc_torch.utils import native
 from cuda_ldpc_torch.utils.device import resolve_device
 
 
@@ -266,14 +268,15 @@ def _run_sweep(kind: str, sweep: cfg.SweepConfig, units_per_frame: int,
 
 # What the slice does not run yet, and the ROADMAP.md item that ports it.
 NOT_PORTED = {
-    "rule=bp": "Queue 1 item 3 (minsum._cn_bp) and Queue 2 K3",
-    "schedule=layered": "Queue 1 item 3 (decode_layered) and Queue 2 K2",
     "engine=stream": "Queue 1 item 9 (binary stream engines)",
     "packed": "Queue 1 item 8 (binary packed engine)",
     "tx=random": "Queue 1 item 7 (models/encoder.py)",
     "profile": "Queue 1 item 6 (bench and tracing)",
     "msg_dtype": "Queue 1 item 4 (bfloat16 message storage)",
 }
+
+
+RULE_NAMES = {"minsum": "min-sum", "bp": "sum-product (bp)"}
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -285,10 +288,6 @@ def check_ported(sim: cfg.BinarySimConfig):
     """Raise NotImplementedError, naming the ROADMAP.md item, for a
     configuration the port does not run yet."""
     d = sim.decoder
-    if d.rule != "minsum":
-        raise not_ported("rule=bp")
-    if d.schedule != "flooding":
-        raise not_ported("schedule=layered")
     if d.msg_dtype != "float32":
         raise not_ported("msg_dtype")
     if sim.engine == "stream":
@@ -303,17 +302,24 @@ def check_ported(sim: cfg.BinarySimConfig):
 
 def _pick_binary_decode(dec_cfg: cfg.BinaryDecoderConfig,
                         device: torch.device) -> Callable:
-    """Kernel dispatch: ``auto`` takes the CUDA kernel on a CUDA device and
-    the plain PyTorch version on the CPU; ``cuda`` on the CPU raises."""
+    """Decoder dispatch on schedule x kernel; the rule goes to the decoder
+    as its ``rule`` argument.  ``auto`` takes the CUDA kernel on a CUDA
+    device and the plain PyTorch version on the CPU; ``cuda`` on the CPU
+    raises."""
     want = dec_cfg.kernel
     if want == "cuda" or (want == "auto" and device.type == "cuda"):
         if device.type != "cuda":
             raise ValueError("kernel='cuda' needs a CUDA device, got "
                              f"{device}")
-        return cuda_minsum.decode_flooding
-    if want in ("auto", "torch"):
-        return minsum.decode_flooding
-    raise ValueError(f"unknown kernel {want!r} (expected auto|torch|cuda)")
+        module = cuda_minsum
+    elif want in ("auto", "torch"):
+        module = minsum
+    else:
+        raise ValueError(f"unknown kernel {want!r} (expected auto|torch|cuda)")
+    if dec_cfg.schedule not in ("flooding", "layered"):
+        raise ValueError(f"unknown schedule {dec_cfg.schedule!r} "
+                         "(expected flooding|layered)")
+    return getattr(module, f"decode_{dec_cfg.schedule}")
 
 
 def _counters(res: minsum.DecodeResult, msg_cols: int) -> torch.Tensor:
@@ -330,8 +336,9 @@ def _counters(res: minsum.DecodeResult, msg_cols: int) -> torch.Tensor:
 
 def make_binary_step(code: QCBinaryCode, sim: cfg.BinarySimConfig,
                      device: torch.device):
-    """Batch step: all-zero codeword -> BPSK -> AWGN -> flooding min-sum ->
-    five counters on the device.  Returns (fn(generator, sigma), batch)."""
+    """Batch step: all-zero codeword -> BPSK -> AWGN -> flooding or layered
+    min-sum or bp -> five counters on the device.  Returns
+    (fn(generator, sigma), batch)."""
     check_ported(sim)
     dec = sim.decoder
     B = sim.batch_per_device
@@ -344,8 +351,13 @@ def make_binary_step(code: QCBinaryCode, sim: cfg.BinarySimConfig,
             chan = channel.bpsk_awgn_llr(generator, cw, sigma, B)
         else:
             chan = channel.bpsk(cw).expand(B, -1, -1).contiguous()
+        if dec.rule == "bp":
+            # min-sum is scale-invariant, so it takes the raw samples as the
+            # reference does (LDPC_Decoder.cu:203); sum-product needs the
+            # true LLRs 2y/sigma^2
+            chan = chan.mul_(2.0 / (sigma * sigma))
         res = decode(chan, code, dec.max_iters, alpha=dec.alpha,
-                     beta=dec.beta, check=dec.check)
+                     beta=dec.beta, check=dec.check, rule=dec.rule)
         return _counters(res, msg_cols)
 
     return step, B
@@ -359,6 +371,9 @@ def make_binary_ref_channel_step(code: QCBinaryCode,
     noise, bldpc_实习/LDPC_Encoder.cu:25-56)."""
     check_ported(sim)
     dec = sim.decoder
+    if dec.rule != "minsum":
+        raise ValueError("channel='reference' exists for bit-parity with the "
+                         "reference's min-sum; rule='bp' is unsupported there")
     decode = _pick_binary_decode(dec, device)
     msg_cols = code.L - code.J if dec.message_only else code.L
 
@@ -373,8 +388,6 @@ def make_binary_ref_channel_step(code: QCBinaryCode,
 def _ref_channel_source(code: QCBinaryCode, B: int):
     """Per-SNR-point generator of reference-sequence channel batches: the
     native library when it loads, else the pure-Python LCG (both bit-exact)."""
-    from cuda_ldpc_tpu.utils import lcg as pylcg
-    from cuda_ldpc_tpu.utils import native
     use_native = native.available()
     cw = np.zeros(code.n, dtype=np.uint8)
 
@@ -445,8 +458,8 @@ def run_binary_sweep(sim: cfg.BinarySimConfig,
                      out_dir: str | None = None,
                      checkpoint: str | None = None,
                      quiet: bool = False) -> SweepResult:
-    """Binary QC-LDPC FER sweep on ``device`` (batch engine, flooding
-    min-sum, all-zero codeword)."""
+    """Binary QC-LDPC FER sweep on ``device`` (batch engine, flooding or
+    layered min-sum or bp, all-zero codeword)."""
     device = resolve_device(device)
     code = QCBinaryCode.from_registry(sim.code)
     if sim.channel == "reference":
@@ -460,7 +473,7 @@ def run_binary_sweep(sim: cfg.BinarySimConfig,
     d = sim.decoder
     _write_logo("binary", [
         f" code: {code!r}",
-        f" decoder: {d.schedule} min-sum, maxIT={d.max_iters}, "
+        f" decoder: {d.schedule} {RULE_NAMES[d.rule]}, maxIT={d.max_iters}, "
         f"alpha={d.alpha}, beta={d.beta}, check={d.check}, "
         f"kernel={d.kernel}, dtype={d.msg_dtype}",
         f" tx: {sim.tx}, noise: {sim.add_noise}, batch: {B} ({device})",

@@ -1,19 +1,22 @@
-"""The CUDA flooding min-sum kernel (cuda_ldpc_torch.ops.cuda_minsum) against
-its plain PyTorch version.  Tolerance: none — both do the same fp32 adds,
-compares and multiplies in the same order, so hard, ok and iters must be
-exactly equal.
+"""The CUDA decoders (cuda_ldpc_torch.ops.cuda_minsum: flooding K1, layered
+K2, each with the min-sum rule or the bp rule K3) against their plain
+PyTorch versions.  Tolerance: none — both do the same fp32 adds, compares
+and multiplies in the same order, and for bp the kernel's logf/tanhf agree
+with torch.log/torch.tanh on the card to the last bit, so hard, ok and iters
+must be exactly equal.
 
 The kernel cases need a card and skip without one.  The file imports only
-the JAX package's jax-free host layer, so on a machine with a card and no
-JAX it runs on its own:
+the port, so on a machine with a card and no JAX it runs on its own:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_minsum.py
 """
+
+import stat
 
 import numpy as np
 import pytest
 import torch
 
-from cuda_ldpc_tpu import QCBinaryCode
+from cuda_ldpc_torch import QCBinaryCode
 from cuda_ldpc_torch.ops import _build, channel, cuda_minsum, minsum
 
 TINY = QCBinaryCode(name="tiny", base=np.array([[0, 1, 2, -1],
@@ -49,10 +52,14 @@ def cuda():
 def test_cpu_tensor_takes_the_plain_version():
     code = _code("J4_L24_Z96")
     chan = _chan(code, 0.5, 5, seed=1)
-    before = cuda_minsum.LAUNCHES
-    a = cuda_minsum.decode_flooding(chan, code, 8, check="syndrome")
-    b = minsum.decode_flooding(chan, code, 8, check="syndrome")
-    _assert_same(a, b)
+    before = dict(cuda_minsum.LAUNCHES)
+    for schedule in ("flooding", "layered"):
+        for rule in ("minsum", "bp"):
+            a = getattr(cuda_minsum, f"decode_{schedule}")(
+                chan, code, 8, check="syndrome", rule=rule)
+            b = getattr(minsum, f"decode_{schedule}")(
+                chan, code, 8, check="syndrome", rule=rule)
+            _assert_same(a, b)
     assert cuda_minsum.LAUNCHES == before       # counted only on launch
 
 
@@ -72,12 +79,44 @@ def test_edge_tables_follow_the_code(name):
 
 
 def test_build_targets_sm90a_without_fast_math():
-    cmd = _build.build_command(_build.BUILD_DIR / "x.so")
+    src = _build.sources()[0]
+    cmd = _build.compile_command(src, _build.BUILD_DIR / "x.o")
     assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
-    assert "--use_fast_math" not in cmd and "-shared" in cmd
-    assert [p.name for p in _build.sources()] == ["minsum_flooding.cu"]
+    assert "--use_fast_math" not in cmd and "-c" in cmd
+    assert "-shared" in _build.link_command([], _build.BUILD_DIR / "x.so")
+    assert [p.name for p in _build.sources()] == ["minsum_flooding.cu",
+                                                  "minsum_layered.cu"]
     assert _build.lib_path().parent.parent == _build.BUILD_DIR
     assert len(_build.source_hash()) == 16
+
+
+@pytest.mark.parametrize("fail", [False, True])
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch, fail):
+    """One compiler process per source, then one link, with every command
+    and its output in build.log; a failed compile raises with that log and
+    leaves no library.  The compiler is a stand-in script that writes the
+    file named after -o."""
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    + ('case "$*" in *layered*) echo broken; exit 3;; esac\n'
+                       if fail else "")
+                    + 'while [ "$1" != -o ]; do shift; done; '
+                      'echo built > "$2"; echo "ptxas info: $2"\n')
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    if fail:
+        with pytest.raises(RuntimeError, match="broken"):
+            _build.build()
+        assert not _build.lib_path().exists()
+    else:
+        assert _build.build() == _build.lib_path()
+        assert _build.lib_path().read_text() == "built\n"
+    log = (_build.lib_path().parent / "build.log").read_text()
+    assert sum(" -c " in ln for ln in log.splitlines()) == 2
+    assert ("-shared" in log) != fail
+    assert not [p for p in _build.lib_path().parent.iterdir()
+                if p.suffix in (".o", ".tmp")]
 
 
 # --------------------------------------------------------------- card side
@@ -107,7 +146,7 @@ def test_kernel_matches_plain_on_card(cuda, name, sigma, batch, iters, check,
                                       early, alpha, beta):
     code = _code(name)
     chan = _chan(code, sigma, batch, seed=batch + iters, device=cuda)
-    before = cuda_minsum.LAUNCHES
+    before = cuda_minsum.LAUNCHES["minsum_flooding"]
     a = cuda_minsum.decode_flooding(chan, code, iters, alpha=alpha, beta=beta,
                                     check=check, early_stop=early)
     b = minsum.decode_flooding(chan, code, iters, alpha=alpha, beta=beta,
@@ -116,7 +155,8 @@ def test_kernel_matches_plain_on_card(cuda, name, sigma, batch, iters, check,
     _assert_same(a, b)
     assert a.hard.dtype == torch.int8 and a.ok.dtype == torch.bool
     assert a.iters.dtype == torch.int32
-    assert cuda_minsum.LAUNCHES == before + (iters > 0 and batch > 0)
+    assert cuda_minsum.LAUNCHES["minsum_flooding"] == \
+        before + (iters > 0 and batch > 0)
 
 
 @pytest.mark.cuda
@@ -132,3 +172,44 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         cuda_minsum.decode_flooding(chan[:, :20].contiguous(), code, 2)
     with pytest.raises(ValueError, match="check"):
         cuda_minsum.decode_flooding(chan, code, 2, check="parity")
+
+
+# schedule, rule, code, sigma, batch, iters, check, early stop, alpha, beta
+RULE_CASES = [
+    ("layered", "minsum", "J4_L24_Z96", 0.50, 64, 20, "zero", True, 1.0, 0.0),
+    ("layered", "minsum", "J4_L24_Z96", 0.55, 11, 10, "syndrome", False, 0.8,
+     0.1),
+    ("layered", "minsum", "tiny", 0.50, 11, 10, "none", True, 1.0, 0.0),
+    ("layered", "minsum", "J15_L30_Z1280", 0.75, 16, 30, "zero", True, 1.0,
+     0.0),
+    ("layered", "minsum", "PON_LDPC", 0.72, 16, 30, "syndrome", True, 1.0,
+     0.0),
+    ("layered", "minsum", "J4_L24_Z96", 0.50, 11, 0, "zero", True, 1.0, 0.0),
+    ("flooding", "bp", "J4_L24_Z96", 0.60, 64, 20, "zero", True, 1.0, 0.0),
+    ("flooding", "bp", "PON_LDPC", 0.72, 16, 20, "syndrome", False, 0.8, 0.1),
+    ("layered", "bp", "J4_L24_Z96", 0.60, 64, 20, "syndrome", True, 1.0, 0.0),
+    ("layered", "bp", "J15_L30_Z1280", 0.75, 16, 20, "zero", True, 1.0, 0.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "schedule,rule,name,sigma,batch,iters,check,early,alpha,beta", RULE_CASES,
+    ids=[f"{c[0]}-{c[1]}-{c[2]}-{c[6]}-early{int(c[7])}-a{c[8]}b{c[9]}"
+         f"-it{c[5]}-B{c[4]}" for c in RULE_CASES])
+def test_layered_and_bp_kernels_match_plain_on_card(
+        cuda, schedule, rule, name, sigma, batch, iters, check, early, alpha,
+        beta):
+    code = _code(name)
+    chan = _chan(code, sigma, batch, seed=batch + iters, device=cuda)
+    if rule == "bp":
+        chan = chan * (2.0 / sigma**2)
+    key = f"{rule}_{schedule}"
+    before = cuda_minsum.LAUNCHES[key]
+    kw = dict(alpha=alpha, beta=beta, check=check, early_stop=early,
+              rule=rule)
+    a = getattr(cuda_minsum, f"decode_{schedule}")(chan, code, iters, **kw)
+    b = getattr(minsum, f"decode_{schedule}")(chan, code, iters, **kw)
+    torch.cuda.synchronize()
+    _assert_same(a, b)
+    assert cuda_minsum.LAUNCHES[key] == before + (iters > 0)

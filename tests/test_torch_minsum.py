@@ -1,6 +1,8 @@
 """Plain PyTorch flooding min-sum (cuda_ldpc_torch.ops.minsum) vs the JAX
 package on the same numpy LLRs.  Tolerance: none — hard, ok and iters must
-be exactly equal, since both add, compare and scale in the same fp32 order."""
+be exactly equal, since both add, compare and scale in the same fp32 order.
+Each package decodes with its own code object, the port's built from the
+JAX code's base matrix and Z."""
 
 import functools
 
@@ -13,6 +15,7 @@ import torch
 from cuda_ldpc_tpu import QCBinaryCode
 from cuda_ldpc_tpu.ops import minsum as jax_minsum
 from cuda_ldpc_tpu.ops import pallas_minsum
+from cuda_ldpc_torch import QCBinaryCode as PortCode
 from cuda_ldpc_torch.ops import minsum
 
 # A hand-made Z=4 code (J=2, L=4): every shift, a null block in each row.
@@ -22,6 +25,20 @@ TINY = QCBinaryCode(name="tiny", base=np.array([[0, 1, 2, -1],
 
 def _code(name):
     return TINY if name == "tiny" else QCBinaryCode.from_registry(name)
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny tensors gain nothing from torch's thread pool, and its spinning
+    threads slow the other test workers sharing the CPU."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _port(code):
+    """The port's code for a JAX package code."""
+    return PortCode(name=code.name, base=code.base, Z=code.Z)
 
 
 def _llrs(code, sigma, batch, seed):
@@ -64,7 +81,7 @@ def test_decode_flooding_matches_jax(name, sigma, batch, iters, check, early,
     a = jax_minsum.decode_flooding(jnp.asarray(chan), code, iters,
                                    alpha=alpha, beta=beta, check=check,
                                    early_stop=early)
-    b = minsum.decode_flooding(torch.from_numpy(chan), code, iters,
+    b = minsum.decode_flooding(torch.from_numpy(chan), _port(code), iters,
                                alpha=alpha, beta=beta, check=check,
                                early_stop=early)
     _assert_same(a, b)
@@ -81,7 +98,7 @@ def test_decode_flooding_matches_pallas_interpret():
     a = pallas_minsum.decode_flooding(jnp.asarray(chan), code, 3,
                                       check="syndrome", early_stop=True,
                                       interpret=True)
-    b = minsum.decode_flooding(torch.from_numpy(chan), code, 3,
+    b = minsum.decode_flooding(torch.from_numpy(chan), _port(code), 3,
                                check="syndrome", early_stop=True)
     _assert_same(a, b)
 
@@ -112,15 +129,16 @@ def test_checks_match_jax(name):
     for ours, theirs in [(minsum.zero_ok, jax_minsum.zero_ok),
                          (minsum.syndrome_ok, jax_minsum.syndrome_ok)]:
         ref = jax.jit(functools.partial(theirs, code))(jnp.asarray(hard))
-        np.testing.assert_array_equal(ours(code, ht).numpy(), np.asarray(ref))
-    assert minsum.zero_ok(code, ht)[:3].all()
-    assert minsum.syndrome_ok(code, ht)[:3].all()
+        np.testing.assert_array_equal(ours(_port(code), ht).numpy(),
+                                      np.asarray(ref))
+    assert minsum.zero_ok(_port(code), ht)[:3].all()
+    assert minsum.syndrome_ok(_port(code), ht)[:3].all()
 
 
 def test_unknown_check_raises():
     with pytest.raises(ValueError, match="check"):
-        minsum.decode_flooding(torch.zeros(1, TINY.L, TINY.Z), TINY, 2,
-                               check="parity")
+        minsum.decode_flooding(torch.zeros(1, TINY.L, TINY.Z), _port(TINY),
+                               2, check="parity")
 
 
 @pytest.mark.parametrize("early", [True, False])
@@ -130,6 +148,6 @@ def test_empty_batch_matches_jax(early):
     chan = np.zeros((0, TINY.L, TINY.Z), np.float32)
     a = jax_minsum.decode_flooding(jnp.asarray(chan), TINY, 3, check="zero",
                                    early_stop=early)
-    b = minsum.decode_flooding(torch.from_numpy(chan), TINY, 3, check="zero",
-                               early_stop=early)
+    b = minsum.decode_flooding(torch.from_numpy(chan), _port(TINY), 3,
+                               check="zero", early_stop=early)
     _assert_same(a, b)

@@ -12,17 +12,28 @@ import jax
 import pytest
 import torch
 
-from cuda_ldpc_tpu import config as cfg
+from cuda_ldpc_tpu import config as jax_cfg
 from cuda_ldpc_tpu import sim as jax_sim
+from cuda_ldpc_tpu.models.qc_binary import QCBinaryCode as JaxCode
 from cuda_ldpc_tpu.parallel import get_mesh
 from cuda_ldpc_tpu.utils import stats as jax_stats
-from cuda_ldpc_torch import cli, sim
-from cuda_ldpc_torch.ops import minsum
+from cuda_ldpc_torch import QCBinaryCode, cli, sim
+from cuda_ldpc_torch import config as cfg
+from cuda_ldpc_torch.ops import channel, cuda_minsum, minsum
 from cuda_ldpc_torch.utils import device, stats
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 COUNTERS = ["snr", "frames", "error_frames", "error_units", "iter_sum",
             "false_frames", "alarm_frames", "fer", "ber", "avg_iters"]
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny tensors gain nothing from torch's thread pool, and its spinning
+    threads slow the other test workers sharing the CPU."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _counters(rows):
@@ -39,14 +50,16 @@ def test_snr_stats_rows_match_jax(kind):
     assert a.to_dict(kind) == b.to_dict(kind)
 
 
-def _ref_cfg():
-    return cfg.BinarySimConfig(
+def _ref_cfg(c=cfg, **decoder):
+    """The reference-channel sweep, as config module ``c`` (the port's or
+    the JAX package's) spells it."""
+    return c.BinarySimConfig(
         code="J4_L24_Z96",
-        decoder=cfg.BinaryDecoderConfig(max_iters=20, check="zero"),
-        sweep=cfg.SweepConfig(snr_start=3.0, snr_step=0.6, snr_stop=3.6,
-                              snr_type="ebn0", least_error_frames=5,
-                              least_test_frames=128, max_frames=256,
-                              display_step=10**6, seed=7),
+        decoder=c.BinaryDecoderConfig(max_iters=20, check="zero", **decoder),
+        sweep=c.SweepConfig(snr_start=3.0, snr_step=0.6, snr_stop=3.6,
+                            snr_type="ebn0", least_error_frames=5,
+                            least_test_frames=128, max_frames=256,
+                            display_step=10**6, seed=7),
         batch_per_device=64, channel="reference")
 
 
@@ -54,12 +67,63 @@ def test_reference_channel_sweep_rows_match_jax():
     """The slice as a whole: reference-LCG noise -> flooding min-sum ->
     counters -> stop rule -> rows, against the JAX package on one device."""
     ours = sim.run_binary_sweep(_ref_cfg(), device="cpu", quiet=True)
-    theirs = jax_sim.run_binary_sweep(_ref_cfg(),
+    theirs = jax_sim.run_binary_sweep(_ref_cfg(jax_cfg),
                                       mesh=get_mesh(jax.devices()[:1]),
                                       quiet=True)
     assert len(ours.rows) == 2
     assert _counters(ours.rows) == _counters(theirs.rows)
     assert ours.rows[0]["error_frames"] > 0      # the rows carry errors
+
+
+def test_layered_reference_channel_sweep_rows_match_jax():
+    """The same sweep through the layered schedule: every counter of every
+    row equal to the JAX package's."""
+    ours = sim.run_binary_sweep(_ref_cfg(schedule="layered"), device="cpu",
+                                quiet=True)
+    theirs = jax_sim.run_binary_sweep(_ref_cfg(jax_cfg, schedule="layered"),
+                                      mesh=get_mesh(jax.devices()[:1]),
+                                      quiet=True)
+    assert len(ours.rows) == 2
+    assert _counters(ours.rows) == _counters(theirs.rows)
+    assert ours.rows[0]["error_frames"] > 0
+
+
+def test_both_packages_refuse_bp_on_the_reference_channel():
+    code = QCBinaryCode.from_registry("J4_L24_Z96")
+    with pytest.raises(ValueError, match="bp"):
+        sim.run_binary_sweep(_ref_cfg(rule="bp"), device="cpu", quiet=True)
+    with pytest.raises(ValueError, match="bp"):
+        sim.make_binary_ref_channel_step(code, _ref_cfg(rule="bp"),
+                                         torch.device("cpu"))
+    with pytest.raises(ValueError, match="bp"):
+        jax_sim.make_binary_ref_channel_step(
+            JaxCode.from_registry("J4_L24_Z96"), _ref_cfg(jax_cfg, rule="bp"),
+            mesh=get_mesh(jax.devices()[:1]))
+
+
+@pytest.mark.parametrize("rule", ["minsum", "bp"])
+def test_binary_step_scales_bp_to_true_llrs(monkeypatch, rule):
+    """The step hands the decoder the channel samples for min-sum and
+    2y/sigma^2 for bp, with the rule, as the JAX package's step does."""
+    seen = {}
+
+    def fake_decode(chan, code, num_iters, **kw):
+        seen["chan"], seen["kw"] = chan.clone(), kw
+        return minsum.decode_flooding(chan, code, 0)
+
+    monkeypatch.setattr(sim, "_pick_binary_decode", lambda dec, dev:
+                        fake_decode)
+    code = QCBinaryCode.from_registry("J4_L24_Z96")
+    simcfg = cfg.BinarySimConfig(code=code.name, batch_per_device=3,
+                                 decoder=cfg.BinaryDecoderConfig(rule=rule))
+    step, B = sim.make_binary_step(code, simcfg, torch.device("cpu"))
+    sigma = 0.7
+    step(torch.Generator().manual_seed(5), sigma)
+    y = channel.bpsk_awgn_llr(torch.Generator().manual_seed(5),
+                              torch.zeros(code.L, code.Z), sigma, B)
+    want = y * (2.0 / (sigma * sigma)) if rule == "bp" else y
+    assert torch.equal(seen["chan"], want)
+    assert seen["kw"]["rule"] == rule
 
 
 def _kill_cfg(channel):
@@ -116,10 +180,20 @@ def test_pick_binary_decode():
     for kernel in ("auto", "torch"):
         dec = cfg.BinaryDecoderConfig(kernel=kernel)
         assert sim._pick_binary_decode(dec, cpu) is minsum.decode_flooding
+        dec = cfg.BinaryDecoderConfig(kernel=kernel, schedule="layered")
+        assert sim._pick_binary_decode(dec, cpu) is minsum.decode_layered
+    cuda = torch.device("cuda", 0)        # dispatch only, nothing launched
+    for schedule in ("flooding", "layered"):
+        dec = cfg.BinaryDecoderConfig(schedule=schedule)
+        assert (sim._pick_binary_decode(dec, cuda)
+                is getattr(cuda_minsum, f"decode_{schedule}"))
     with pytest.raises(ValueError, match="CUDA"):
         sim._pick_binary_decode(cfg.BinaryDecoderConfig(kernel="cuda"), cpu)
     with pytest.raises(ValueError, match="kernel"):
         sim._pick_binary_decode(cfg.BinaryDecoderConfig(kernel="pallas"), cpu)
+    with pytest.raises(ValueError, match="schedule"):
+        sim._pick_binary_decode(cfg.BinaryDecoderConfig(schedule="shuffled"),
+                                cpu)
 
 
 def test_cuda_device_without_card_raises(monkeypatch):
@@ -142,7 +216,8 @@ def test_clopper_pearson_matches_jax(errors, frames):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--rule", "bp"], ["--schedule", "layered"], ["--packed"],
+    ["--rule", "bp", "--packed"], ["--schedule", "layered", "--engine",
+                                   "stream"], ["--packed"],
     ["--engine", "stream"], ["--tx", "random"], ["--profile", "trace"],
 ])
 def test_cli_rejects_unported_options(argv, capsys):
@@ -174,6 +249,24 @@ def test_cli_binary_on_cpu_writes_results(tmp_path):
             (out / "results.jsonl").read_text().splitlines()]
     assert [r["snr"] for r in rows] == [3.0, 3.6]
     assert all(r["kind"] == "binary" and r["frames"] >= 16 for r in rows)
+
+
+@pytest.mark.parametrize("argv", [["--schedule", "layered"],
+                                  ["--rule", "bp"],
+                                  ["--rule", "bp", "--schedule", "layered"]])
+def test_cli_runs_layered_and_bp_on_cpu(tmp_path, argv):
+    out = tmp_path / "res"
+    assert cli.main(["binary", "--device", "cpu", "--code", "J4_L24_Z96",
+                     "--batch", "16", "--max-iters", "5", "--snr", "3.6",
+                     "--snr-type", "ebn0", "--least-error-frames", "1",
+                     "--least-test-frames", "16", "--max-frames", "32",
+                     "--out-dir", str(out), "--quiet", *argv]) == 0
+    text = (out / "results.txt").read_text()
+    assert ("layered" in text) == ("layered" in argv)
+    assert ("sum-product" in text) == ("bp" in argv)
+    rows = [json.loads(x) for x in
+            (out / "results.jsonl").read_text().splitlines()]
+    assert [r["snr"] for r in rows] == [3.6] and rows[0]["frames"] >= 16
 
 
 def test_port_imports_no_jax(tmp_path):
