@@ -9,21 +9,26 @@ finds each counterpart.  Everything that touches tensors is PyTorch, with an
 explicit ``device`` and explicit ``torch.Generator``s.
 
 Layout:
-    models/    qc_binary (QC-LDPC code structure)
-    ops/       channel, minsum (plain PyTorch: flooding and layered, min-sum
-               and sum-product), cuda_minsum (kernel wrappers), _build (nvcc
-               + ctypes loader)
+    models/    qc_binary (QC-LDPC code structure), nb_code (GF(q) code
+               structure)
+    ops/       channel, demod (GF(q) symbol LLRs), minsum (plain PyTorch:
+               flooding and layered, min-sum and sum-product), nb_decode
+               (plain PyTorch: GF(q) FFT-QSPA, flooding, layered and
+               grouped layered), cuda_minsum, cuda_qspa and cuda_qspa_qc
+               (kernel wrappers), _build (nvcc + ctypes loader)
     csrc/      CUDA C++ kernel sources, built at first use
-    utils/     registry + io (code assets), lcg + native (the reference's
-               channel), device resolution, binomial confidence intervals
+    utils/     registry + io (code assets), gf (GF(2^m) tables),
+               constellations, lcg + native (the reference's channel),
+               device resolution, binomial confidence intervals
     config.py  sweep and decoder configuration
-    sim.py     Monte-Carlo SNR sweeps (binary batch engine)
+    sim.py     Monte-Carlo SNR sweeps (binary and GF(q) batch engines)
     cli.py     python -m cuda_ldpc_torch
 """
 
+from cuda_ldpc_torch.models.nb_code import NBCode
 from cuda_ldpc_torch.models.qc_binary import QCBinaryCode
 from cuda_ldpc_torch.utils import registry
 
 __version__ = "0.1.0"
 
-__all__ = ["QCBinaryCode", "registry", "__version__"]
+__all__ = ["NBCode", "QCBinaryCode", "registry", "__version__"]

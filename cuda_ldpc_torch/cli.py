@@ -1,11 +1,12 @@
 """Command-line interface of the port (counterpart of
-cuda_ldpc_tpu/cli.py:21-65 and 68-218, the ``binary`` and ``list-codes``
+cuda_ldpc_tpu/cli.py:21-222: the ``binary``, ``nb`` and ``list-codes``
 subcommands).
 
 Usage:
   python -m cuda_ldpc_torch binary --code J15_L30_Z1280 --snr 2:0.2:3
   python -m cuda_ldpc_torch binary --schedule layered --rule bp ...
   python -m cuda_ldpc_torch binary --device cpu --code J4_L24_Z96 ...
+  python -m cuda_ldpc_torch nb --code BDS.576.288.GF.64 --method layered_qspa ...
   python -m cuda_ldpc_torch list-codes
 
 Options the port does not run yet are still parsed, so that their values
@@ -35,6 +36,31 @@ def _parse_snr(spec: str):
     raise argparse.ArgumentTypeError("SNR spec must be 'x' or 'start:step:stop'")
 
 
+def _add_sweep_args(p, d: cfg.SweepConfig):
+    p.add_argument("--device", default="cuda",
+                   help="cpu, cuda or cuda:N (no fallback: cuda without a "
+                        "card is an error)")
+    p.add_argument("--kernel", choices=["auto", "torch", "cuda"],
+                   default="auto",
+                   help="auto: the CUDA kernel on a CUDA device, plain "
+                        "PyTorch on the CPU")
+    p.add_argument("--snr", default=None, type=_parse_snr,
+                   help=f"start:step:stop (default "
+                        f"{d.snr_start}:{d.snr_step}:{d.snr_stop})")
+    p.add_argument("--snr-type", choices=["ebn0", "esn0"], default=d.snr_type)
+    p.add_argument("--least-error-frames", type=int,
+                   default=d.least_error_frames)
+    p.add_argument("--least-test-frames", type=int, default=d.least_test_frames)
+    p.add_argument("--max-frames", type=int, default=d.max_frames)
+    p.add_argument("--display-step", type=int, default=d.display_step)
+    p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--out-dir", default="results")
+    p.add_argument("--checkpoint", default=None,
+                   help="JSON checkpoint path for resumable sweeps")
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--profile", default=None, metavar="DIR")
+
+
 def _sweep_from(args, d: cfg.SweepConfig) -> cfg.SweepConfig:
     s = cfg.SweepConfig(
         snr_type=args.snr_type, least_error_frames=args.least_error_frames,
@@ -55,13 +81,6 @@ def build_parser() -> argparse.ArgumentParser:
     bd = cfg.BinarySimConfig()
     b.add_argument("--code", default="J15_L30_Z1280",
                    choices=registry.BINARY_CODES, metavar="CODE")
-    b.add_argument("--device", default="cuda",
-                   help="cpu, cuda or cuda:N (no fallback: cuda without a "
-                        "card is an error)")
-    b.add_argument("--kernel", choices=["auto", "torch", "cuda"],
-                   default="auto",
-                   help="auto: the CUDA kernel on a CUDA device, plain "
-                        "PyTorch on the CPU")
     b.add_argument("--schedule", choices=["flooding", "layered"],
                    default=bd.decoder.schedule)
     b.add_argument("--rule", choices=["minsum", "bp"], default=bd.decoder.rule,
@@ -89,22 +108,30 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--packed", action="store_true")
     b.add_argument("--tx", choices=["zero", "random"], default=bd.tx)
     b.add_argument("--engine", choices=["batch", "stream"], default=bd.engine)
-    d = bd.sweep
-    b.add_argument("--snr", default=None, type=_parse_snr,
-                   help=f"start:step:stop (default "
-                        f"{d.snr_start}:{d.snr_step}:{d.snr_stop})")
-    b.add_argument("--snr-type", choices=["ebn0", "esn0"], default=d.snr_type)
-    b.add_argument("--least-error-frames", type=int,
-                   default=d.least_error_frames)
-    b.add_argument("--least-test-frames", type=int, default=d.least_test_frames)
-    b.add_argument("--max-frames", type=int, default=d.max_frames)
-    b.add_argument("--display-step", type=int, default=d.display_step)
-    b.add_argument("--seed", type=int, default=d.seed)
-    b.add_argument("--out-dir", default="results")
-    b.add_argument("--checkpoint", default=None,
-                   help="JSON checkpoint path for resumable sweeps")
-    b.add_argument("--quiet", action="store_true")
-    b.add_argument("--profile", default=None, metavar="DIR")
+    _add_sweep_args(b, bd.sweep)
+
+    n = sub.add_parser("nb", help="non-binary GF(q) LDPC FER sweep")
+    nd = cfg.NBSimConfig()
+    n.add_argument("--code", default=nd.code, choices=registry.NB_CODES,
+                   metavar="CODE")
+    n.add_argument("--method", default=nd.decoder.method,
+                   choices=["ems", "ems_full", "qspa", "layered_qspa",
+                            "glayered_qspa", "tmm", "layered_tmm",
+                            "glayered_tmm"],
+                   help="the port runs qspa, layered_qspa and glayered_qspa; "
+                        "the default, ems, is not ported yet")
+    n.add_argument("--nm", type=int, default=nd.decoder.nm)
+    n.add_argument("--nc", type=int, default=nd.decoder.nc)
+    n.add_argument("--max-iters", type=int, default=nd.decoder.max_iters)
+    n.add_argument("--n-qam", type=int, default=nd.n_qam,
+                   choices=[2, 64, 256])
+    n.add_argument("--batch", type=int, default=nd.batch_per_device,
+                   help="frames per decode call")
+    n.add_argument("--tx", choices=["zero", "fixture", "random"],
+                   default=nd.tx)
+    n.add_argument("--packed", action="store_true")
+    n.add_argument("--engine", choices=["batch", "stream"], default=nd.engine)
+    _add_sweep_args(n, nd.sweep)
 
     sub.add_parser("list-codes", help="list registered code assets")
     return ap
@@ -124,6 +151,8 @@ def main(argv=None) -> int:
 
     from cuda_ldpc_torch import sim as simmod
 
+    if args.cmd == "nb":
+        return _main_nb(ap, args, simmod)
     simcfg = cfg.BinarySimConfig(
         code=args.code,
         decoder=cfg.BinaryDecoderConfig(
@@ -143,6 +172,28 @@ def main(argv=None) -> int:
         ap.error(str(e))
     simmod.run_binary_sweep(simcfg, device=args.device, out_dir=args.out_dir,
                             checkpoint=args.checkpoint, quiet=args.quiet)
+    return 0
+
+
+def _main_nb(ap, args, simmod) -> int:
+    simcfg = cfg.NBSimConfig(
+        code=args.code,
+        decoder=cfg.NBDecoderConfig(method=args.method, nm=args.nm,
+                                    nc=args.nc, max_iters=args.max_iters,
+                                    kernel=args.kernel),
+        sweep=_sweep_from(args, cfg.NBSimConfig().sweep),
+        n_qam=args.n_qam, batch_per_device=args.batch, tx=args.tx,
+        engine=args.engine)
+    try:
+        if args.packed:
+            raise simmod.not_ported("nb packed", "nb --packed")
+        if args.profile is not None:
+            raise simmod.not_ported("profile")
+        simmod.check_nb_ported(simcfg)
+    except NotImplementedError as e:
+        ap.error(str(e))
+    simmod.run_nb_sweep(simcfg, device=args.device, out_dir=args.out_dir,
+                        checkpoint=args.checkpoint, quiet=args.quiet)
     return 0
 
 

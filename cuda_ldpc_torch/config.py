@@ -1,6 +1,6 @@
-"""Runtime configuration dataclasses of the binary simulator (counterpart of
-cuda_ldpc_tpu/config.py:17-114, with the same fields and defaults; the GF(q)
-dataclasses come with the GF(q) slice).
+"""Runtime configuration dataclasses of the simulators (counterpart of
+cuda_ldpc_tpu/config.py:17-133, with the same fields and defaults; the
+``kernel`` fields take ``auto|torch|cuda``).
 
 The reference bakes every parameter in at compile time as #define macros
 (bldpc_实习/define.cuh:20-61) — changing the code under test means editing a
@@ -90,5 +90,40 @@ class BinarySimConfig:
     # engine: 'batch' decodes whole batches until every frame converges (the
     # reference's host loop, bldpc_实习/LDPC_Decoder.cu:94-156); 'stream' is
     # the continuous-batching engine (not ported yet).
+    engine: str = "batch"             # 'batch' | 'stream'
+    stream_steps: int = 16            # decoder iterations per streaming call
+
+
+@dataclasses.dataclass
+class NBDecoderConfig:
+    """Non-binary decoder (myNBLDPC).
+
+    method: decoder_method 0/1/2/3 -> ems/tmm/ems_full/layered_tmm
+    (define.h:37, Simulation.cpp:56-69), plus 'qspa' / 'layered_qspa' /
+    'glayered_qspa' — the exact FFT/Hadamard-domain sum-product, flooding,
+    row-layered or grouped-layered schedule (no reference counterpart).
+    nm/nc: EMS_NM/EMS_NC (define.h:31-32).  max_iters: maxIT (define.h:35).
+    kernel: 'auto' | 'torch' | 'cuda' — 'auto' takes the CUDA kernel on a
+    CUDA device and the plain PyTorch version on the CPU."""
+    method: str = "ems"
+    nm: int = 2
+    nc: int = 2
+    max_iters: int = 20
+    kernel: str = "auto"
+
+
+@dataclasses.dataclass
+class NBSimConfig:
+    code: str = "BDS.576.288.GF.64"   # Matrixfile (define.h:23)
+    decoder: NBDecoderConfig = dataclasses.field(
+        default_factory=NBDecoderConfig)
+    sweep: SweepConfig = dataclasses.field(default_factory=SweepConfig)
+    n_qam: int = 2                    # n_QAM (define.h:25): 2 | 64 | 256
+    batch_per_device: int = 256
+    tx: str = "zero"                  # 'zero' | 'fixture' (codeword_test.h) |
+                                      # 'random' (encoder, not ported yet)
+    # engine: 'batch' decodes whole batches to the slowest frame's iteration
+    # count (like the reference); 'stream' is the continuous-batching engine
+    # (not ported yet).
     engine: str = "batch"             # 'batch' | 'stream'
     stream_steps: int = 16            # decoder iterations per streaming call

@@ -113,6 +113,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [f, i, f, i]            # alpha use_alpha beta use_beta
         + [i, i, i, i, p])        # check early_stop rule device stream
     lib.ldpc_minsum_layered.restype = i
+    lib.ldpc_qspa.argtypes = (
+        [p] * 12                  # chan C hard ok iters + 5 edge tables +
+                                  # gf_log gf_exp
+        + [i] * 8                 # B N M E q max_dc num_iters layered
+        + [i, p])                 # device stream
+    lib.ldpc_qspa.restype = i
+    lib.ldpc_qspa_qc.argtypes = (
+        [p] * 14                  # chan T C hard ok iters + 6 block tables +
+                                  # gf_log gf_exp
+        + [i] * 10                # B NB MB Z EB q max_dc num_iters layered
+                                  # device
+        + [p])                    # stream
+    lib.ldpc_qspa_qc.restype = i
     lib.ldpc_error_string.argtypes = [i]
     lib.ldpc_error_string.restype = ctypes.c_char_p
     lib.ldpc_max_row_degree.argtypes = []

@@ -1,0 +1,203 @@
+"""Wrapper of the CUDA GF(q) FFT-QSPA decoder csrc/qspa.cu (K5), flooding
+and serial-row layered (counterpart of cuda_ldpc_tpu/ops/pallas_qspa.py:
+105-213 and 423-441).
+
+It replaces the TPU kernel ``pallas_qspa._kernel`` on the adjacency codes
+(BDS.576.288.GF.64, LDPC_N576_K288_GF64_d1_exp, LDPC_N96_K48_GF256_d1_exp,
+LDPC_N576_K480_GF256_exp): q from 32 to 256, at most 32 edges per row, and
+one frame's totals [N, q] in a block's shared memory.  The TPU kernel's
+edge-count cap (E <= 640, statically unrolled rows) does not apply here.
+
+Semantics are ops/nb_decode.decode_qspa's and decode_layered_qspa's, bit
+for bit: every frame decides, checks and stops on its own, so ``early_stop``
+changes nothing in the outputs (the plain version runs its batch until
+every frame has stopped, with the stopped frames frozen).  The call
+enqueues one launch and returns without waiting.
+
+A CPU tensor goes to the plain version in ops/nb_decode.py.  A CUDA tensor
+goes to the kernel, or the call raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from cuda_ldpc_torch.models.nb_code import NBCode
+from cuda_ldpc_torch.ops import _build, nb_decode
+from cuda_ldpc_torch.ops.nb_decode import NBDecodeResult
+from cuda_ldpc_torch.utils import gf as gflib
+
+# Calls that launched the kernel, by schedule; read and reset by
+# chip_smoke.py to show that the main path went through it.
+LAUNCHES = {"qspa_flooding": 0, "qspa_layered": 0}
+
+# Dynamic shared memory a block of an H100 may use (cudaDevAttr-
+# MaxSharedMemoryPerBlockOptin).
+SMEM_LIMIT = 232_448
+
+
+class Plan(NamedTuple):
+    """A code's edge lists for the kernel (int32 numpy).  Edge e of row m
+    is row_ptr[m] + slot, in the code's CN slot order."""
+    N: int
+    M: int
+    E: int
+    q: int
+    max_dc: int
+    row_ptr: np.ndarray     # [M+1]
+    edge_vn: np.ndarray     # [E] VN of each edge
+    edge_h: np.ndarray      # [E] GF coefficient of each edge
+    col_ptr: np.ndarray     # [N+1]
+    col_edge: np.ndarray    # [E] each VN's edges in its slot order
+    gf_log: np.ndarray      # [q] log_alpha(a), a != 0
+    gf_exp: np.ndarray      # [2(q-1)] alpha^i, doubled
+
+
+def code_key(code: NBCode) -> tuple:
+    """Content-based cache key (an id() could be reused by another code)."""
+    blob = b"".join(np.ascontiguousarray(a).tobytes()
+                    for a in (code.cn_links, code.cn_gf, code.cn_mask,
+                              code.vn_links, code.vn_slot))
+    return (code.name, code.n_sym, code.m_sym, code.q,
+            hashlib.sha1(blob).hexdigest())
+
+
+def gf_tables(q: int) -> tuple[np.ndarray, np.ndarray]:
+    """(log [q], antilog doubled to [2(q-1)]) as int32: the kernels multiply
+    and divide through them without a modulo."""
+    exp, log = gflib.exp_log_tables(q)
+    return (log.astype(np.int32),
+            np.concatenate([exp, exp]).astype(np.int32))
+
+
+_PLANS: dict[tuple, Plan] = {}
+
+
+def make_plan(code: NBCode) -> Plan:
+    key = code_key(code)
+    if key not in _PLANS:
+        w = code.cn_weight.astype(np.int64)
+        row_ptr = np.concatenate([[0], np.cumsum(w)])
+        real = code.cn_mask
+        col = [row_ptr[code.vn_links[n, d]] + code.vn_slot[n, d]
+               for n in range(code.n_sym) for d in range(code.vn_weight[n])]
+        col_ptr = np.concatenate([[0], np.cumsum(code.vn_weight)])
+        gf_log, gf_exp = gf_tables(code.q)
+        i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)  # noqa: E731
+        _PLANS[key] = Plan(
+            N=code.n_sym, M=code.m_sym, E=int(row_ptr[-1]), q=code.q,
+            max_dc=int(w.max()), row_ptr=i32(row_ptr),
+            edge_vn=i32(code.cn_links[real]), edge_h=i32(code.cn_gf[real]),
+            col_ptr=i32(col_ptr), col_edge=i32(col), gf_log=gf_log,
+            gf_exp=gf_exp)
+    return _PLANS[key]
+
+
+def smem_bytes(plan: Plan) -> int:
+    """The kernel's dynamic shared memory per block (csrc/qspa.cu
+    smem_bytes): T [N, q] and the row's spectra [max_dc, q] in f32, the GF
+    tables and the decisions in int32."""
+    return 4 * (plan.N * plan.q + plan.max_dc * plan.q
+                + plan.q + 2 * (plan.q - 1) + plan.N)
+
+
+def supports(code: NBCode) -> bool:
+    """True when the kernel takes the code: q = 2^m from 32 to 256, 1 to 32
+    edges per row (a warp per edge), one frame's totals in shared memory."""
+    if code.q & (code.q - 1) or not 32 <= code.q <= 256:
+        return False
+    plan = make_plan(code)
+    return 1 <= plan.max_dc <= 32 and smem_bytes(plan) <= SMEM_LIMIT
+
+
+_tables: dict = {}
+
+
+def _device_tables(plan: Plan, key: tuple, device: torch.device):
+    """The plan's index tables go to the device once per code and device."""
+    k = key + (str(device),)
+    if k not in _tables:
+        _tables[k] = [torch.as_tensor(a, device=device)
+                      for a in (plan.row_ptr, plan.edge_vn, plan.edge_h,
+                                plan.col_ptr, plan.col_edge, plan.gf_log,
+                                plan.gf_exp)]
+    return _tables[k]
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check_input(L_ch: torch.Tensor, N: int, q: int):
+    """Raise on what the kernels do not take."""
+    if L_ch.dtype != torch.float32:
+        raise TypeError(f"L_ch must be float32, got {L_ch.dtype}")
+    if L_ch.dim() != 3 or tuple(L_ch.shape[1:]) != (N, q):
+        raise ValueError(f"L_ch must be [B, {N}, {q}], got "
+                         f"{tuple(L_ch.shape)}")
+    if not L_ch.is_contiguous():
+        raise ValueError("L_ch must be contiguous")
+
+
+def empty_result(B: int, N: int, device: torch.device) -> NBDecodeResult:
+    """The plain version's result when nothing is decoded (an empty batch
+    or max_iters = 0): zeros, not ok, no iterations."""
+    return NBDecodeResult(torch.zeros((B, N), dtype=torch.int32, device=device),
+                          torch.zeros(B, dtype=torch.bool, device=device),
+                          torch.zeros(B, dtype=torch.int32, device=device))
+
+
+def _decode(L_ch: torch.Tensor, code: NBCode, max_iters: int, layered: bool,
+            early_stop: bool) -> NBDecodeResult:
+    if L_ch.device.type == "cpu":
+        plain = (nb_decode.decode_layered_qspa if layered
+                 else nb_decode.decode_qspa)
+        return plain(L_ch, code, max_iters, early_stop=early_stop)
+    if L_ch.device.type != "cuda":
+        raise ValueError(f"unsupported device {L_ch.device}")
+    if not supports(code):
+        raise ValueError(f"the qspa kernel does not take {code.name} "
+                         f"(q={code.q}, max_dc={code.max_dc})")
+    plan = make_plan(code)
+    check_input(L_ch, plan.N, plan.q)
+    B, dev = L_ch.shape[0], L_ch.device
+    if B == 0 or max_iters <= 0:
+        return empty_result(B, plan.N, dev)
+    lib = _build.load()
+    tables = _device_tables(plan, code_key(code), dev)
+    C = torch.empty((B, plan.E, plan.q), dtype=torch.float32, device=dev)
+    res = NBDecodeResult(torch.empty((B, plan.N), dtype=torch.int32,
+                                     device=dev),
+                         torch.empty(B, dtype=torch.bool, device=dev),
+                         torch.empty(B, dtype=torch.int32, device=dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.ldpc_qspa(
+        _ptr(L_ch), _ptr(C), *(_ptr(t) for t in res),
+        *(_ptr(t) for t in tables), B, plan.N, plan.M, plan.E, plan.q,
+        plan.max_dc, int(max_iters), int(layered), dev.index,
+        ctypes.c_void_p(stream))
+    name = "qspa_layered" if layered else "qspa_flooding"
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib.ldpc_error_string(err).decode())
+    LAUNCHES[name] += 1
+    return res
+
+
+def decode_flooding(L_ch: torch.Tensor, code: NBCode, max_iters: int,
+                    early_stop: bool = True) -> NBDecodeResult:
+    """Flooding FFT-QSPA of L_ch [B, N, q] float32 symbol LLRs; drop-in for
+    ops/nb_decode.decode_qspa."""
+    return _decode(L_ch, code, max_iters, False, early_stop)
+
+
+def decode_layered(L_ch: torch.Tensor, code: NBCode, max_iters: int,
+                   early_stop: bool = True) -> NBDecodeResult:
+    """Serial-row layered FFT-QSPA of L_ch [B, N, q] float32; drop-in for
+    ops/nb_decode.decode_layered_qspa."""
+    return _decode(L_ch, code, max_iters, True, early_stop)

@@ -1,6 +1,7 @@
-"""Monte-Carlo SNR sweeps, binary batch engine (counterpart of
+"""Monte-Carlo SNR sweeps, binary and GF(q) batch engines (counterpart of
 cuda_ldpc_tpu/sim.py: the shared sweep loop at 51-293, the binary batch engine
-at 314-441 and 765-821, the reference-LCG channel at 444-506 and 824-861).
+at 314-441 and 765-821, the reference-LCG channel at 444-506 and 824-861, the
+GF(q) batch engine at 1117-1267 and 2262-2305).
 
 * per-SNR counters: frames, error frames, error bits, iteration sum,
   undetected-error (FER_False) and false-alarm (FER_Alarm) frames;
@@ -21,6 +22,7 @@ rows equal the JAX package's exactly.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -31,10 +33,13 @@ import numpy as np
 import torch
 
 from cuda_ldpc_torch import config as cfg
+from cuda_ldpc_torch.models.nb_code import NBCode
 from cuda_ldpc_torch.models.qc_binary import QCBinaryCode
-from cuda_ldpc_torch.ops import channel, cuda_minsum, minsum
+from cuda_ldpc_torch.ops import (channel, cuda_minsum, cuda_qspa, cuda_qspa_qc,
+                                 demod, minsum, nb_decode)
 from cuda_ldpc_torch.utils import lcg as pylcg
-from cuda_ldpc_torch.utils import native
+from cuda_ldpc_torch.utils import native, registry
+from cuda_ldpc_torch.utils.constellations import constellation
 from cuda_ldpc_torch.utils.device import resolve_device
 
 
@@ -266,22 +271,27 @@ def _run_sweep(kind: str, sweep: cfg.SweepConfig, units_per_frame: int,
 # binary simulator
 # --------------------------------------------------------------------------
 
-# What the slice does not run yet, and the ROADMAP.md item that ports it.
+# What the port does not run yet, and the ROADMAP.md item that ports it.
 NOT_PORTED = {
     "engine=stream": "Queue 1 item 9 (binary stream engines)",
     "packed": "Queue 1 item 8 (binary packed engine)",
     "tx=random": "Queue 1 item 7 (models/encoder.py)",
     "profile": "Queue 1 item 6 (bench and tracing)",
     "msg_dtype": "Queue 1 item 4 (bfloat16 message storage)",
+    "nb engine=stream": "Queue 1 item 14 (GF(q) stream engines)",
+    "nb packed": "Queue 1 item 14 (GF(q) packed engine)",
+    "nb tx=random": "Queue 1 items 7 and 11 (NBEncoder)",
+    "nb method": "Queue 1 item 12 and kernel K8 (EMS/TMM)",
 }
 
 
 RULE_NAMES = {"minsum": "min-sum", "bp": "sum-product (bp)"}
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to cuda_ldpc_torch yet "
-                               f"(ROADMAP.md {NOT_PORTED[what]})")
+def not_ported(what: str, detail: str = "") -> NotImplementedError:
+    return NotImplementedError(f"{detail or what} is not ported to "
+                               f"cuda_ldpc_torch yet (ROADMAP.md "
+                               f"{NOT_PORTED[what]})")
 
 
 def check_ported(sim: cfg.BinarySimConfig):
@@ -530,3 +540,167 @@ def _run_binary_sweep_ref(code, sim: cfg.BinarySimConfig, device, out_dir,
     # bit-exactly, including its up-to-date-stats stop rule
     return _run_sweep("binary", sweep, msg_cols * code.Z, code.k, B, step,
                       out_dir, checkpoint, key_salt, quiet, pipeline=False)
+
+
+# --------------------------------------------------------------------------
+# non-binary simulator
+# --------------------------------------------------------------------------
+
+# (code, method) pairs with no CUDA kernel yet: the kernels run the qspa and
+# layered_qspa schedules on the adjacency codes (K5) and qspa and
+# glayered_qspa on the QC code (K6).
+NO_KERNEL_ITEM = "Queue 1 item 13 (GF(q) kernels for the other (code, method) pairs)"
+
+
+def check_nb_ported(sim: cfg.NBSimConfig):
+    """Raise NotImplementedError, naming the ROADMAP.md item, for a GF(q)
+    configuration the port does not run yet."""
+    method = sim.decoder.method
+    if method not in nb_decode.METHODS:
+        raise ValueError(f"unknown NB decoder method {method!r} "
+                         f"(expected one of {nb_decode.METHODS})")
+    if method not in nb_decode.QSPA_METHODS:
+        raise not_ported("nb method", f"method={method}")
+    if sim.engine == "stream":
+        raise not_ported("nb engine=stream", "nb --engine stream")
+    if sim.engine != "batch":
+        raise ValueError(f"unknown engine {sim.engine!r}")
+    if sim.tx == "random":
+        raise not_ported("nb tx=random", "nb --tx random")
+    if sim.tx not in ("zero", "fixture"):
+        raise ValueError(f"unknown tx {sim.tx!r}")
+
+
+def _nb_decoder_fn(code: NBCode, dec: cfg.NBDecoderConfig,
+                   device: torch.device) -> Callable:
+    """GF(q) decoder dispatch.  ``auto`` on a CUDA device (and ``cuda``)
+    takes K5 (csrc/qspa.cu) for qspa and layered_qspa on the codes it
+    supports and K6 (csrc/qspa_qc.cu) for qspa and glayered_qspa on the QC
+    code, and raises for a pair neither kernel runs, rather than run the
+    plain version silently; ``auto`` on the CPU and ``torch`` anywhere take
+    the plain version; ``cuda`` on the CPU raises.  Unlike the JAX package
+    (sim.py:1143-1152), K5 also serves flooding on the tiny GF(256) code."""
+    method, want = dec.method, dec.kernel
+    if want not in ("auto", "torch", "cuda"):
+        raise ValueError(f"unknown kernel {want!r} (expected auto|torch|cuda)")
+    if want == "cuda" or (want == "auto" and device.type == "cuda"):
+        if device.type != "cuda":
+            raise ValueError("kernel='cuda' needs a CUDA device, got "
+                             f"{device}")
+        kernels = [(cuda_qspa, {"qspa": "decode_flooding",
+                                "layered_qspa": "decode_layered"}),
+                   (cuda_qspa_qc, {"qspa": "decode_flooding",
+                                   "glayered_qspa": "decode_layered"})]
+        for module, names in kernels:
+            if method in names and module.supports(code):
+                return functools.partial(getattr(module, names[method]),
+                                         code=code, max_iters=dec.max_iters)
+        raise ValueError(f"no CUDA kernel decodes {code.name} with "
+                         f"method={method!r} yet (ROADMAP.md "
+                         f"{NO_KERNEL_ITEM}); --kernel torch runs the plain "
+                         "PyTorch version")
+    return functools.partial(nb_decode.decode, code=code, method=method,
+                             max_iters=dec.max_iters)
+
+
+def _nb_tx(code: NBCode, sim: cfg.NBSimConfig):
+    """(labels fed to the modulator, tx symbols) for the configured source."""
+    if sim.tx == "fixture":
+        tx_syms = registry.load_test_codeword(code.n_sym)
+    else:
+        tx_syms = np.zeros(code.n_sym, dtype=np.int64)
+    if sim.n_qam == 2:
+        return demod.sym_to_bit(tx_syms, code.q_bit), tx_syms
+    if sim.n_qam != code.q:
+        raise ValueError(
+            f"QAM order {sim.n_qam} must equal GF order {code.q} "
+            "(the reference maps one symbol per constellation point, "
+            "myNBLDPC/src/LDPC_Encoder.cpp:19-36)")
+    return tx_syms, tx_syms
+
+
+def _make_nb_source(code: NBCode, sim: cfg.NBSimConfig, B: int,
+                    device: torch.device):
+    """Frame source: (generator, sigma) -> (L [B, N, q], tx [N]).  tx='zero'
+    | 'fixture' transmit a constant codeword (the reference's only modes —
+    it has no encoder, myNBLDPC/include/codeword_test.h:1)."""
+    pts = constellation(sim.n_qam)
+    tx_labels, tx_syms = _nb_tx(code, sim)
+    tx_dev = torch.as_tensor(tx_syms, dtype=torch.int32, device=device)
+
+    def src(generator: torch.Generator, sigma: float):
+        L = demod.nb_channel_llr(generator, tx_labels, pts, sigma, batch=B,
+                                 q=code.q, device=device)
+        return L, tx_dev
+
+    return src
+
+
+def _nb_counters(res: nb_decode.NBDecodeResult,
+                 tx: torch.Tensor) -> torch.Tensor:
+    """The five packed counters of a batch: [error symbols, error frames,
+    undetected-error frames, false-alarm frames, iterations summed over
+    frames] (sim.py:1253-1265)."""
+    errsyms = (res.hard != tx).sum(dim=1, dtype=torch.int64)
+    has_err = errsyms > 0
+    return torch.stack([errsyms.sum(), has_err.sum(),
+                        (has_err & res.ok).sum(),        # FER_False
+                        (~has_err & ~res.ok).sum(),      # FER_Alarm
+                        res.iters.sum(dtype=torch.int64)])
+
+
+def make_nb_step(code: NBCode, sim: cfg.NBSimConfig, device: torch.device):
+    """Batch step: codeword -> BPSK or QAM -> complex AWGN -> symbol LLRs ->
+    QSPA decode -> five counters on the device.  Returns
+    (fn(generator, sigma), batch)."""
+    check_nb_ported(sim)
+    B = sim.batch_per_device
+    src = _make_nb_source(code, sim, B, device)
+    decoder = _nb_decoder_fn(code, sim.decoder, device)
+
+    def step(generator: torch.Generator, sigma: float) -> torch.Tensor:
+        L, tx = src(generator, sigma)
+        return _nb_counters(decoder(L), tx)
+
+    return step, B
+
+
+def run_nb_sweep(sim: cfg.NBSimConfig, device: str | torch.device = "cuda",
+                 out_dir: str | None = None, checkpoint: str | None = None,
+                 quiet: bool = False) -> SweepResult:
+    """GF(q) LDPC FER sweep on ``device`` (batch engine, FFT-QSPA family)."""
+    device = resolve_device(device)
+    code = NBCode.from_registry(sim.code)
+    fn, B = make_nb_step(code, sim, device)
+    sweep = sim.sweep
+    d = sim.decoder
+    _write_logo("nb", [
+        f" code: {code!r}",
+        f" decoder: {d.method}, Nm={d.nm}, Nc={d.nc}, maxIT={d.max_iters}, "
+        f"kernel={d.kernel}",
+        f" modulation: {'BPSK' if sim.n_qam == 2 else f'{sim.n_qam}-QAM'}, "
+        f"tx: {sim.tx}, batch: {B} ({device})",
+        f" sweep: {sweep.snr_type} {sweep.snr_start}:{sweep.snr_step}:"
+        f"{sweep.snr_stop}, stop at >={sweep.least_error_frames} errors & "
+        f">={sweep.least_test_frames} frames, seed={sweep.seed}",
+    ], out_dir, quiet)
+    bits_per_sym = float(np.log2(sim.n_qam))
+
+    def step(si, bi, snr):
+        # sigma includes the log2(n_QAM)*rate factor (myNBLDPC/src/main.cu:221-228)
+        sigma = channel.sigma_from_snr(snr, code.rate, sweep.snr_type,
+                                       bits_per_sym)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(batch_seed(sweep.seed, si, bi))
+        fetch = _Fetch(fn(gen, sigma))
+
+        def collect():
+            errsyms, errf, falsef, alarmf, iters = fetch.wait()
+            return (B, errf, errsyms, iters, falsef, alarmf)
+
+        return collect
+
+    key_salt = _config_key(sim, {"kind": "nb", "B": B,
+                                 "backend": f"torch-{device.type}"})
+    return _run_sweep("nb", sweep, code.n_sym, code.k_sym * code.q_bit, B,
+                      step, out_dir, checkpoint, key_salt, quiet)

@@ -1,6 +1,5 @@
 """Asset registry: resolves named codes to loadable files (counterpart of
-cuda_ldpc_tpu/utils/registry.py, the binary half; the GF(q) loaders come
-with the GF(q) slice).
+cuda_ldpc_tpu/utils/registry.py:1-129).
 
 Search order for code definition files, the JAX package's first two places,
 so that both find the same files:
@@ -17,6 +16,7 @@ from __future__ import annotations
 
 import os
 import pathlib
+import re
 
 import numpy as np
 
@@ -76,3 +76,46 @@ def load_binary_base(name: str) -> tuple[np.ndarray, int]:
     if dims:
         return ldpc_io.parse_blockh(str(p), *dims)
     return ldpc_io.parse_blockh(str(p))
+
+
+def load_nb_code_file(name: str) -> ldpc_io.NBCodeFile:
+    p = _find(name, (".npz",))
+    if p is not None:
+        with np.load(p) as d:
+            return ldpc_io.NBCodeFile(
+                int(d["n_sym"]), int(d["m_sym"]), int(d["q"]),
+                int(d["max_dv"]), int(d["max_dc"]),
+                d["vn_weight"], d["cn_weight"], d["vn_links"], d["vn_gf"],
+                d["cn_links"], d["cn_gf"])
+    p = _find(name, (".txt",))
+    if p is None:
+        raise FileNotFoundError(f"NB code {name!r} not found in {_search_dirs()}")
+    return ldpc_io.parse_nb_code(str(p))
+
+
+def load_test_codeword(n_sym: int) -> np.ndarray:
+    """The fixture codeword of the reference's codeword_test.h
+    (myNBLDPC/include/codeword_test.h:1) — the transmitted codeword the NB
+    simulator pins instead of encoding (it ships no encoder): from
+    ``codeword_test_<n_sym>.npz``, or from the first non-commented array of
+    a ``codeword_test.h`` in the search directories if its length matches
+    ``n_sym``."""
+    npz = _find(f"codeword_test_{n_sym}", (".npz",))
+    if npz is not None:
+        with np.load(npz) as d:
+            return d["symbols"].astype(np.int64)
+    p = _find("codeword_test", (".h",))
+    if p is None:
+        raise FileNotFoundError("codeword_test.h not found")
+    text = "\n".join(ln for ln in p.read_text().splitlines()
+                     if not ln.lstrip().startswith("//"))
+    m = re.search(r"CodeWord_sym_test\s*\[(\d+)\]\s*=\s*\{([^}]*)\}", text,
+                  re.S)
+    if not m:
+        raise ValueError(f"no active codeword array in {p}")
+    vals = np.array([int(t) for t in m.group(2).replace(",", " ").split()],
+                    dtype=np.int64)
+    if vals.size != n_sym:
+        raise ValueError(
+            f"fixture codeword has {vals.size} symbols, code needs {n_sym}")
+    return vals

@@ -167,7 +167,11 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
-    assert "cuda_ldpc_torch.ops.cuda_minsum" in mods
+    assert {"cuda_ldpc_torch.ops.cuda_minsum", "cuda_ldpc_torch.ops.cuda_qspa",
+            "cuda_ldpc_torch.ops.cuda_qspa_qc", "cuda_ldpc_torch.ops.nb_decode",
+            "cuda_ldpc_torch.ops.demod", "cuda_ldpc_torch.models.nb_code",
+            "cuda_ldpc_torch.utils.gf",
+            "cuda_ldpc_torch.utils.constellations"} <= set(mods)
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "cuda_ldpc_torch"])
