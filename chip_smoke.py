@@ -49,12 +49,38 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               same for K5 on BDS.576.288.GF.64 at B=4096 and K6 on
               Tanner_74_9_Z128_GF16 at B=256, at most 10 passes, early stop
               off, at an Eb/N0 where most frames run every pass
+The stream steps K4 (binary) and K7 (GF(q)) join each phase:
+  parity      K4 against its plain version over a call sequence (k = 1,
+              refill, k = 16, refill, drain k = max_iters + 1) on
+              J4_L24_Z96, PON_LDPC and J15_L30_Z1280 at B=4096, both
+              schedules, both rules, checks zero and syndrome, and a ragged
+              batch of 37: every output and state tensor exactly equal.  K7
+              the same on BDS.576.288.GF.64 at B=4096 and the other three
+              adjacency codes, flooding and layered: t, done, okf exactly,
+              hard on slots whose check passed; the rest counted
+  main        `binary --engine stream` on J15_L30_Z1280 (flooding min-sum,
+              layered min-sum alpha 0.8, flooding bp), FER compatible with
+              the batch sweeps at the same points; `binary --packed` on
+              PON_LDPC's committed grid (Es/N0 0:0.2:13, maxIT 50, >=50
+              errors and >=10k frames, 20k-frame cap), compatible with
+              VALIDATION.md:173-174; `binary --packed --engine stream` on
+              J15_L30_Z1280; `nb --engine stream` on BDS qspa and
+              layered_qspa at Eb/N0 1 and 2 dB (1 dB compatible with the
+              batch anchors), `nb --packed` and `nb --packed --engine
+              stream`; a binary stream sweep killed and resumed, whose rows
+              equal the uninterrupted run's; a pair K7 does not run refused
+  timing      K4, J15_L30_Z1280, B=4096, one call of 10 passes where no
+              slot converges (flooding and layered min-sum, flooding bp),
+              and K7, BDS, B=4096, 10 passes at 0 dB from fresh slots, each
+              with its plain version in turns; the refill of one call; the
+              stream sweeps' throughput beside the batch sweeps'
 The last lines are the card line, the kernels' JSON and
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -85,6 +111,10 @@ KERNELS = [
      "cuda_ldpc_tpu/ops/pallas_qspa_qc.py:326"),
     ("qspa_qc_layered", "cuda_ldpc_torch/csrc/qspa_qc.cu",
      "cuda_ldpc_tpu/ops/pallas_qspa_qc.py:326"),
+    ("minsum_stream", "cuda_ldpc_torch/csrc/minsum_stream.cu",
+     "cuda_ldpc_tpu/ops/pallas_minsum_stream.py:54"),
+    ("qspa_stream", "cuda_ldpc_torch/csrc/qspa_stream.cu",
+     "cuda_ldpc_tpu/ops/pallas_qspa_stream.py:136"),
 ]
 BINARY = KERNELS[:4]
 
@@ -164,6 +194,49 @@ def qspa_bound_ms(N: int, E: int, q: int, batch: int, iters, max_iters: int,
                                        else "operations")
 
 
+def stream_bound_ms(code, batch: int, passes: int, updates: int,
+                    layered: bool, rule: str, check: str) -> tuple[float, str]:
+    """The least time the card could take for one K4 call whose slots ran
+    ``passes`` decides and ``updates`` check-node phases in all: the larger
+    of its bytes (chan read once, and written once when layered; R read
+    once and written once; hard written once; t, done and okf read and
+    written once) over the HBM rate and its fp32 operations, counted as in
+    ``bound_ms`` (flooding's VN one add per edge and pass; the CN per edge
+    and update; layered's total update 2 per edge and update; the check
+    per pass), over the fp32 peak."""
+    edges = code.num_edges * code.Z
+    cn = {"minsum": 6, "bp": 17}[rule] + (2 if layered else 0)
+    ops = updates * edges * cn + (0 if layered else passes * edges)
+    ops += passes * {"zero": code.k, "syndrome": edges, "none": 0}[check]
+    nbytes = (batch * code.n * 4 * (2 if layered else 1)
+              + batch * edges * 4 * 2 + batch * code.n + batch * 4 * 3 * 2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def qspa_stream_bound_ms(N: int, E: int, q: int, batch: int, passes: int,
+                         updates: int, layered: bool) -> tuple[float, str]:
+    """The least time the card could take for one K7 call whose slots ran
+    ``passes`` decides and ``updates`` check-row phases in all: the larger
+    of its bytes (chan [B, N, q] f32 read once, and written once when
+    layered; C [B, E, q] read once and written once; hard [B, N] i32
+    written once; t, done and okf read and written once) over the HBM rate,
+    and its fp32 operations counted as in ``qspa_bound_ms``, over the fp32
+    peak."""
+    import math
+    lq = int(math.log2(q))
+    ops = updates * E * q * (13 + 2 * lq + (2 if layered else 0))
+    ops += passes * N * q * (1 if layered else 2)
+    if not layered:
+        ops += passes * E * q
+    nbytes = (batch * N * q * 4 * (2 if layered else 1) + batch * E * q * 4 * 2
+              + batch * N * 4 + batch * 4 * 3 * 2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
 def time_turns(launch, reps: dict) -> dict:
     """Milliseconds per batch of ``launch(which, i)`` for which in
     'plain' and 'kernel', in turns plain, kernel, kernel, plain: host clock,
@@ -216,14 +289,19 @@ def main() -> int:
 
     import numpy as np
 
-    from cuda_ldpc_torch import NBCode, QCBinaryCode, cli
-    from cuda_ldpc_torch.ops import (_build, channel, cuda_minsum, cuda_qspa,
-                                     cuda_qspa_qc, demod, minsum, nb_decode)
+    from cuda_ldpc_torch import NBCode, QCBinaryCode, cli, sim
+    from cuda_ldpc_torch import config as cfg
+    from cuda_ldpc_torch.ops import (_build, channel, cuda_minsum,
+                                     cuda_minsum_stream, cuda_qspa,
+                                     cuda_qspa_qc, cuda_qspa_stream, demod,
+                                     minsum, minsum_stream, nb_decode,
+                                     qspa_stream)
     from cuda_ldpc_torch.utils.constellations import constellation
     from cuda_ldpc_torch.utils.device import card_info
     from cuda_ldpc_torch.utils.stats import rates_compatible
 
-    wrappers = (cuda_minsum, cuda_qspa, cuda_qspa_qc)
+    wrappers = (cuda_minsum, cuda_qspa, cuda_qspa_qc, cuda_minsum_stream,
+                cuda_qspa_stream)
 
     # ---- 1. device
     dev = torch.device("cuda", 0)
@@ -395,6 +473,112 @@ def main() -> int:
         del a, b, L, hard_diff
     torch.cuda.empty_cache()
 
+    # K4 and K7 against their plain versions over the stream engines' call
+    # sequence: k = 1, refill, k = 16, refill, drain (k = max_iters + 1);
+    # both on the card, each on its own copy of the state
+    def refill(state, new):
+        chan, msgs, t, done, okf = state
+        fin = done.bool()
+        chan = torch.where(fin.reshape(-1, *([1] * (chan.dim() - 1))), new,
+                           chan)
+        return [chan, msgs, t * (~fin).int(), torch.zeros_like(done),
+                torch.zeros_like(okf)]
+
+    def stream_parity(key, kernel_step, plain_step, chans, msg_shape,
+                      max_iters, label):
+        B = chans[0].shape[0]
+        z = torch.zeros(B, dtype=torch.int32, device=dev)
+        start = [chans[0], torch.zeros((B,) + msg_shape, device=dev), z, z, z]
+        ks = [x.clone() for x in start]
+        ps = [x.clone() for x in start]
+        calls = [(1, chans[1]), (16, chans[2]), (max_iters + 1, None)]
+        names = ("chan", "msgs", "hard", "t", "done", "okf")
+        total, err, per_call = {}, 0.0, []
+        for k, new in calls:
+            a = kernel_step(*ks, k=k)
+            b = plain_step(*ps, k=k)
+            torch.cuda.synchronize()
+            okv = b[5].bool()
+            counts = {n: int((x != y).sum()) for n, x, y in zip(names, a, b)}
+            counts["hard_in_ok_slots"] = int((a[2] != b[2])[okv].sum())
+            err = max(err, *(float((x.double() - y.double()).abs().max())
+                             for x, y in zip(a, b) if x.numel()))
+            per_call.append({"k": k, "finished": int(b[4].sum()),
+                             "passed": int(okv.sum()), "mismatches": counts})
+            for n, c in counts.items():
+                total[n] = total.get(n, 0) + c
+            ks = [x for i, x in enumerate(a) if i != 2]
+            ps = [x for i, x in enumerate(b) if i != 2]
+            if new is not None:
+                ks, ps = refill(ks, new), refill(ps, new)
+        max_err[key] = max(max_err[key], err)
+        mismatches[key] += sum(total.values()) - total["hard_in_ok_slots"]
+        _emit("parity", kernel=key, case=label, batch=B, calls=per_call,
+              max_abs_err=err)
+        return total
+
+    k4_cases = [
+        # code, snr type, snr, batch, max_iters
+        ("J4_L24_Z96", "ebn0", 3.6, 4096, 50),
+        ("J4_L24_Z96", "ebn0", 3.3, 37, 20),
+        ("PON_LDPC", "esn0", 2.45, 4096, 50),
+        ("J15_L30_Z1280", "esn0", -1.5, 4096, 50),
+    ]
+    for i, (name, st, snr, B, max_iters) in enumerate(k4_cases):
+        code = code_of(name)
+        for layered in (False, True):
+            for rule in ("minsum", "bp"):
+                chans = [chan_for(code, st, snr, B, seed=500 + 7 * i + j,
+                                  rule=rule) for j in range(3)]
+                for check in ("zero", "syndrome"):
+                    kw = dict(code=code, max_iters=max_iters, check=check,
+                              rule=rule, layered=layered,
+                              alpha=0.8 if layered and rule == "minsum"
+                              else 1.0)
+                    label = (f"{name} {st} {snr} "
+                             f"{'layered' if layered else 'flooding'} {rule} "
+                             f"{check}")
+                    total = stream_parity(
+                        "minsum_stream",
+                        functools.partial(cuda_minsum_stream.stream_step,
+                                          **kw),
+                        functools.partial(minsum_stream.stream_step, **kw),
+                        chans, (code.num_edges, code.Z), max_iters, label)
+                    # exact, as K1-K3: every output and state tensor
+                    if any(total.values()):
+                        raise AssertionError(f"K4 != plain on {label}: "
+                                             f"{total}")
+                del chans
+        torch.cuda.empty_cache()
+
+    k7_cases = [
+        # code, Eb/N0, batch
+        ("BDS.576.288.GF.64", 1.0, 4096),
+        ("BDS.576.288.GF.64", 1.5, 37),
+        ("LDPC_N576_K288_GF64_d1_exp", 2.0, 512),
+        ("LDPC_N96_K48_GF256_d1_exp", 2.0, 1024),
+        ("LDPC_N576_K480_GF256_exp", 3.0, 512),
+    ]
+    for i, (name, ebn0, B) in enumerate(k7_cases):
+        code = nb_code(name)
+        chans = [nb_chan(code, ebn0, B, seed=700 + 5 * i + j)
+                 for j in range(3)]
+        E = int(code.cn_mask.sum())
+        for layered in (False, True):
+            kw = dict(code=code, max_iters=20, layered=layered)
+            label = f"{name} {ebn0} {'layered' if layered else 'flooding'}"
+            total = stream_parity(
+                "qspa_stream",
+                functools.partial(cuda_qspa_stream.stream_step, **kw),
+                functools.partial(qspa_stream.stream_step, **kw),
+                chans, (E, code.q), 20, label)
+            # as for K5: t, done and okf exactly, hard on passing slots
+            if (total["t"] or total["done"] or total["okf"]
+                    or total["hard_in_ok_slots"]):
+                raise AssertionError(f"K7 != plain on {label}: {total}")
+        del chans
+    torch.cuda.empty_cache()
+
     # ---- 4. the main path, through the CLI
     keep = ("snr", "frames", "error_frames", "error_units", "fer", "ber",
             "avg_iters", "false_frames", "alarm_frames", "info_mbps")
@@ -469,6 +653,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         rows, launches["minsum_flooding"] = drive(tmp, "j15", "minsum_flooding",
                                                   j15)
+        j15_batch = rows
         if len(rows) != 3 or not all(r["frames"] >= 4096 for r in rows):
             raise AssertionError(f"bad J15_L30_Z1280 rows: {rows}")
         if not rows[0]["fer"] >= rows[-1]["fer"]:
@@ -493,6 +678,7 @@ def main() -> int:
 
         bp, launches["bp_flooding"] = drive(tmp, "j15_bp", "bp_flooding",
                                             j15 + ["--rule", "bp"])
+        j15_bp_batch = bp
         bp_lay, launches["bp_layered"] = drive(
             tmp, "j15_bp_layered", "bp_layered",
             j15 + ["--rule", "bp", "--schedule", "layered"])
@@ -522,12 +708,14 @@ def main() -> int:
         # GF(q): BDS.576.288.GF.64 at 1 dB against VALIDATION.md:21-22
         flood, launches["qspa_flooding"] = drive(
             tmp, "bds_qspa", "qspa_flooding", bds + ["--method", "qspa"])
+        bds_batch = {"qspa": flood}
         anchor("bds_qspa", "BDS.576.288.GF.64", 1.0, flood[-1], (598, 2304))
         lay, launches["qspa_layered"] = drive(
             tmp, "bds_layered_qspa", "qspa_layered",
             bds + ["--method", "layered_qspa"])
         anchor("bds_layered_qspa", "BDS.576.288.GF.64", 1.0, lay[-1],
                (872, 4096))
+        bds_batch["layered_qspa"] = lay
         no_slower("bds qspa", lay, flood)
         drive(tmp, "bds_qspa_64qam", "qspa_flooding",
               ["nb", "--code", "BDS.576.288.GF.64", "--method", "qspa",
@@ -558,6 +746,140 @@ def main() -> int:
         else:
             raise AssertionError("layered_qspa on Tanner_74_9_Z128_GF16 ran "
                                  "under kernel auto")
+
+        # ---- the stream and packed engines: K4 and K7 on the main path
+        launches["minsum_stream"] = launches["qspa_stream"] = 0
+        engine_rows = []
+
+        def same_fer(label, got, batch_rows):
+            """Each point's FER against the batch engine's, Clopper-
+            Pearson."""
+            pairs = [(a["snr"], a["error_frames"], a["frames"],
+                      b["error_frames"], b["frames"],
+                      rates_compatible(a["error_frames"], a["frames"],
+                                       b["error_frames"], b["frames"]))
+                     for a, b in zip(got, batch_rows)]
+            _emit("fer_vs_batch", sweep=label,
+                  snr_errors_frames_batch_errors_frames_compatible=pairs)
+            if len(got) != len(batch_rows) or not all(p[-1] for p in pairs):
+                raise AssertionError(f"{label}: FER not compatible with the "
+                                     f"batch engine's: {pairs}")
+
+        stream = ["--engine", "stream"]
+        for label, kernel, extra, batch_rows in [
+                ("j15_stream", "minsum_stream_flooding", [], j15_batch),
+                ("j15_stream_layered_a08", "minsum_stream_layered",
+                 norm + ["--schedule", "layered"], lay08),
+                ("j15_stream_bp", "bp_stream_flooding", ["--rule", "bp"],
+                 j15_bp_batch)]:
+            got, n = drive(tmp, label, kernel, j15 + stream + extra)
+            launches["minsum_stream"] += n
+            same_fer(label, got, batch_rows)
+            engine_rows.append((label, got, batch_rows))
+
+        # the reference's committed workload as one packed sweep
+        pon_grid = ["binary", "--code", "PON_LDPC", "--packed", "--snr",
+                    "0:0.2:13", "--snr-type", "esn0", "--max-iters", "50",
+                    "--batch", "4096", "--least-error-frames", "50",
+                    "--least-test-frames", "10000", "--max-frames", "20000"]
+        t0 = time.perf_counter()
+        grid, _ = drive(tmp, "pon_packed", "minsum_flooding", pon_grid)
+        grid_s = time.perf_counter() - t0
+        frames = sum(r["frames"] for r in grid)
+        _emit("pon_packed", points=len(grid), frames=frames, seconds=grid_s,
+              info_mbps=frames * code_of("PON_LDPC").k / grid_s / 1e6,
+              card=card)
+        if len(grid) != 66:
+            raise AssertionError(f"PON_LDPC grid has {len(grid)} points")
+        # VALIDATION.md:173-174: 0.233 at 2.4 dB (its frame count is not
+        # given; taken as the stop rule's 10,000), 6.03e-4 at 2.6 dB (50
+        # errors, so 82,919 frames), 0 errors in 200k frames from 2.8 dB
+        for r in grid:
+            if abs(r["snr"] - 2.4) < 1e-6:
+                anchor("pon_packed", "PON_LDPC", 2.4, r, (2330, 10000))
+            elif abs(r["snr"] - 2.6) < 1e-6:
+                anchor("pon_packed", "PON_LDPC", 2.6, r, (50, 82919))
+            elif r["snr"] > 2.7:
+                anchor("pon_packed", "PON_LDPC", r["snr"], r, (0, 200000))
+
+        got, n = drive(tmp, "j15_packed_stream", "minsum_stream_flooding",
+                       j15 + stream + ["--packed"])
+        launches["minsum_stream"] += n
+        same_fer("j15_packed_stream", got, j15_batch)
+        engine_rows.append(("j15_packed_stream", got, j15_batch))
+
+        bds12 = ["nb", "--code", "BDS.576.288.GF.64", "--snr", "1:1:2",
+                 "--snr-type", "ebn0", "--max-iters", "20", "--batch", "4096",
+                 "--least-error-frames", "50", "--least-test-frames", "8192",
+                 "--max-frames", "8192"]
+        for method, ref in (("qspa", (598, 2304)),
+                            ("layered_qspa", (872, 4096))):
+            kernel = ("qspa_stream_layered" if method == "layered_qspa"
+                      else "qspa_stream_flooding")
+            got, n = drive(tmp, f"bds_stream_{method}", kernel,
+                           bds12 + stream + ["--method", method])
+            launches["qspa_stream"] += n
+            anchor(f"bds_stream_{method}", "BDS.576.288.GF.64", 1.0, got[0],
+                   ref)
+            same_fer(f"bds_stream_{method}", got[:1], bds_batch[method])
+            engine_rows.append((f"bds_stream_{method}", got[:1],
+                                bds_batch[method]))
+        got, _ = drive(tmp, "bds_packed", "qspa_layered",
+                       bds12 + ["--packed", "--method", "layered_qspa"])
+        anchor("bds_packed", "BDS.576.288.GF.64", 1.0, got[0], (872, 4096))
+        got, n = drive(tmp, "bds_packed_stream", "qspa_stream_layered",
+                       bds12 + stream + ["--packed", "--method",
+                                         "layered_qspa"])
+        launches["qspa_stream"] += n
+        anchor("bds_packed_stream", "BDS.576.288.GF.64", 1.0, got[0],
+               (872, 4096))
+
+        # a stream sweep killed after its third collected call and resumed
+        # from its checkpoint gives the uninterrupted run's rows
+        j4s = ["binary", "--code", "J4_L24_Z96", "--snr", "3.2:0.4:3.6",
+               "--snr-type", "ebn0", "--max-iters", "50", "--batch", "4096",
+               "--least-error-frames", "50", "--least-test-frames", "16384",
+               "--max-frames", "32768", *stream]
+        full, n = drive(tmp, "j4_stream", "minsum_stream_flooding", j4s)
+        launches["minsum_stream"] += n
+        ck = os.path.join(tmp, "j4_stream.ck.json")
+        sim._STREAM_TEST_INTERRUPT = 3
+        try:
+            _sweep(cli, os.path.join(tmp, "j4_killed"),
+                   j4s + ["--checkpoint", ck])
+        except KeyboardInterrupt:
+            pass
+        else:
+            raise AssertionError("the stream sweep was not interrupted")
+        finally:
+            sim._STREAM_TEST_INTERRUPT = None
+        resumed = _sweep(cli, os.path.join(tmp, "j4_resumed"),
+                         j4s + ["--checkpoint", ck])
+        counters = ("snr", "frames", "error_frames", "error_units",
+                    "iter_sum", "false_frames", "alarm_frames")
+        same = ([{k: r[k] for k in counters} for r in resumed]
+                == [{k: r[k] for k in counters} for r in full])
+        _emit("kill_resume", sweep="j4_stream", same_rows=same,
+              rows=[{k: r[k] for k in counters} for r in resumed])
+        if not same:
+            raise AssertionError("the resumed stream sweep's rows differ")
+
+        # a (code, method) pair with no stream kernel is refused on the card
+        try:
+            _sweep(cli, os.path.join(tmp, "refused_stream"),
+                   tanner + stream + ["--method", "qspa"])
+        except ValueError as e:
+            if "ROADMAP.md Queue 1 item 13" not in str(e):
+                raise
+            _emit("refused", sweep="tanner qspa --engine stream",
+                  error=str(e))
+        else:
+            raise AssertionError("the stream engine ran Tanner_74_9_Z128_"
+                                 "GF16 under kernel auto")
+        _emit("stream_vs_batch", card=card, info_mbps=[
+            (label, [(a["snr"], a["info_mbps"], b["info_mbps"])
+                     for a, b in zip(got, batch_rows)])
+            for label, got, batch_rows in engine_rows])
 
     # ---- 5. timing: 10 fixed iterations, one batch in flight
     code = codes["J15_L30_Z1280"]
@@ -638,6 +960,104 @@ def main() -> int:
               device_ms_total=sum(v[0] for v in device_ms.values()),
               device_ms_launches=device_ms)
         del chans, res
+        torch.cuda.empty_cache()
+
+    # K4: J15_L30_Z1280, B=4096, one call of 10 passes at Es/N0 -3 dB, where
+    # no slot converges (max_iters out of reach), so every call does the
+    # work of K1/K2's 10 fixed iterations
+    code = codes["J15_L30_Z1280"]
+    B, k = 4096, 10
+    zeros = lambda: torch.zeros(B, dtype=torch.int32, device=dev)  # noqa: E731
+    for key, rule, layered in (("minsum_stream", "minsum", False),
+                               ("minsum_stream layered", "minsum", True),
+                               ("bp_stream", "bp", False)):
+        chan0 = chan_for(code, "esn0", -3.0, B, seed=27, rule=rule)
+        states = {w: [chan0.clone(), torch.zeros((B, code.num_edges, code.Z),
+                                                 device=dev),
+                      zeros(), zeros(), zeros()] for w in ("kernel", "plain")}
+        steps = {"kernel": cuda_minsum_stream.stream_step,
+                 "plain": minsum_stream.stream_step}
+
+        def launch(which, i):
+            return steps[which](*states[which], code, k, 10**6, check="zero",
+                                rule=rule, layered=layered)
+
+        runs = time_turns(launch, {"kernel": 20, "plain": 3})
+        ms = {w: statistics.median(v) for w, v in runs.items()}
+        t0_, d0 = states["kernel"][2].clone(), states["kernel"][3].clone()
+        launch("kernel", 0)
+        updates = int((states["kernel"][2] - t0_).sum())
+        passes = updates + int((states["kernel"][3] - d0).sum())
+        bound, bound_by = stream_bound_ms(code, B, passes, updates, layered,
+                                          rule, "zero")
+        if key == "minsum_stream":
+            timing[key] = (ms, bound, bound_by)
+        _emit("timing", kernel=key, code=code.name, batch=B, passes=k,
+              card=card, ms_per_call=runs, slot_passes=passes,
+              slot_updates=updates,
+              info_mbps_per_10_passes={w: B * code.k / (v / 1e3) / 1e6
+                                       for w, v in ms.items()},
+              bound_ms=bound, bound_by=bound_by)
+        del states, chan0
+        torch.cuda.empty_cache()
+
+    # the refill between two K4 calls: a fresh channel for all B slots and
+    # the select into the finished ones
+    scfg = cfg.BinarySimConfig(code=code.name, batch_per_device=B)
+    fresh = sim._binary_source(code, scfg, B, dev)
+    chan = fresh(torch.Generator(device=dev).manual_seed(1), 0.9)
+    fin = torch.rand(B, device=dev) < 0.5
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    fresh(torch.Generator(device=dev).manual_seed(2), 0.9)
+    events[0].record()
+    for i in range(10):
+        new = fresh(torch.Generator(device=dev).manual_seed(3 + i), 0.9)
+        chan = torch.where(fin[:, None, None], new, chan)
+    events[1].record()
+    events[1].synchronize()
+    _emit("refill", code=code.name, batch=B, normals=B * code.n, card=card,
+          ms_per_refill=events[0].elapsed_time(events[1]) / 10)
+    del chan, new
+    torch.cuda.empty_cache()
+
+    # K7: BDS.576.288.GF.64, B=4096, at most 10 passes from fresh slots at
+    # 0 dB (max_iters 9: 10 decides and 9 updates for a slot that never
+    # passes, as K5's 10 iterations), each call resetting its state
+    code = nb_code("BDS.576.288.GF.64")
+    E = int(code.cn_mask.sum())
+    chan0 = nb_chan(code, 0.0, B, seed=37)
+    for layered in (False, True):
+        states = {w: [chan0.clone(), torch.zeros((B, E, code.q), device=dev),
+                      zeros(), zeros(), zeros()] for w in ("kernel", "plain")}
+        steps = {"kernel": cuda_qspa_stream.stream_step,
+                 "plain": qspa_stream.stream_step}
+
+        def launch(which, i):
+            st = states[which]
+            st[0].copy_(chan0)
+            for x in st[1:]:
+                x.zero_()
+            return steps[which](*st, code, 10, 9, layered=layered)
+
+        runs = time_turns(launch, {"kernel": 20, "plain": 3})
+        ms = {w: statistics.median(v) for w, v in runs.items()}
+        launch("kernel", 0)
+        st = states["kernel"]
+        updates, finished = int(st[2].sum()), int(st[3].sum())
+        bound, bound_by = qspa_stream_bound_ms(code.n_sym, E, code.q, B,
+                                               updates + finished, updates,
+                                               layered)
+        if not layered:
+            timing["qspa_stream"] = (ms, bound, bound_by)
+        _emit("timing", kernel="qspa_stream" + (" layered" if layered
+                                                 else ""),
+              code=code.name, batch=B, ebn0=0.0, max_passes=10, card=card,
+              ms_per_call=runs, slot_passes=updates + finished,
+              slot_updates=updates,
+              info_mbps={w: B * code.k_sym * code.q_bit / (v / 1e3) / 1e6
+                         for w, v in ms.items()},
+              bound_ms=bound, bound_by=bound_by)
+        del states
         torch.cuda.empty_cache()
 
     # ---- the kernels, the card, and the result

@@ -6,7 +6,10 @@ Usage:
   python -m cuda_ldpc_torch binary --code J15_L30_Z1280 --snr 2:0.2:3
   python -m cuda_ldpc_torch binary --schedule layered --rule bp ...
   python -m cuda_ldpc_torch binary --device cpu --code J4_L24_Z96 ...
+  python -m cuda_ldpc_torch binary --code PON_LDPC --packed --snr 0:0.2:13 ...
+  python -m cuda_ldpc_torch binary --engine stream --stream-steps 16 ...
   python -m cuda_ldpc_torch nb --code BDS.576.288.GF.64 --method layered_qspa ...
+  python -m cuda_ldpc_torch nb --packed --engine stream ...
   python -m cuda_ldpc_torch list-codes
 
 Options the port does not run yet are still parsed, so that their values
@@ -61,6 +64,20 @@ def _add_sweep_args(p, d: cfg.SweepConfig):
     p.add_argument("--profile", default=None, metavar="DIR")
 
 
+PACKED_HELP = ("run all SNR points at once: each batch (or the stream's "
+               "slot pool) is shared by the unfinished points")
+
+
+def _add_engine_args(p, d):
+    p.add_argument("--engine", choices=["batch", "stream"], default=d.engine,
+                   help="stream: continuous batching, a finished frame leaves "
+                        "its slot at once and a fresh one takes it (the CUDA "
+                        "stream kernel on a card, refilled per call; the "
+                        "plain version refilled per iteration)")
+    p.add_argument("--stream-steps", type=int, default=d.stream_steps,
+                   help="decoder iterations per stream call")
+
+
 def _sweep_from(args, d: cfg.SweepConfig) -> cfg.SweepConfig:
     s = cfg.SweepConfig(
         snr_type=args.snr_type, least_error_frames=args.least_error_frames,
@@ -105,9 +122,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reference: the CUDA reference's exact LCG noise "
                         "sequence (host-generated; the same noise as "
                         "cuda_ldpc_tpu's --channel reference)")
-    b.add_argument("--packed", action="store_true")
+    b.add_argument("--packed", action="store_true", help=PACKED_HELP)
     b.add_argument("--tx", choices=["zero", "random"], default=bd.tx)
-    b.add_argument("--engine", choices=["batch", "stream"], default=bd.engine)
+    b.add_argument("--msg-dtype", default=bd.decoder.msg_dtype,
+                   choices=["float32", "bfloat16"])
+    _add_engine_args(b, bd)
     _add_sweep_args(b, bd.sweep)
 
     n = sub.add_parser("nb", help="non-binary GF(q) LDPC FER sweep")
@@ -129,8 +148,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="frames per decode call")
     n.add_argument("--tx", choices=["zero", "fixture", "random"],
                    default=nd.tx)
-    n.add_argument("--packed", action="store_true")
-    n.add_argument("--engine", choices=["batch", "stream"], default=nd.engine)
+    n.add_argument("--packed", action="store_true", help=PACKED_HELP)
+    _add_engine_args(n, nd)
     _add_sweep_args(n, nd.sweep)
 
     sub.add_parser("list-codes", help="list registered code assets")
@@ -158,20 +177,25 @@ def main(argv=None) -> int:
         decoder=cfg.BinaryDecoderConfig(
             max_iters=args.max_iters, alpha=args.alpha, beta=args.beta,
             rule=args.rule, schedule=args.schedule, check=args.check,
-            message_only=not args.count_full_codeword, kernel=args.kernel),
+            message_only=not args.count_full_codeword, kernel=args.kernel,
+            msg_dtype=args.msg_dtype),
         sweep=_sweep_from(args, cfg.BinarySimConfig().sweep),
         batch_per_device=args.batch, add_noise=not args.no_noise,
-        tx=args.tx, channel=args.channel, engine=args.engine)
+        tx=args.tx, channel=args.channel, engine=args.engine,
+        stream_steps=args.stream_steps)
     try:
-        for flag, what in [(args.packed, "packed"),
-                           (args.profile is not None, "profile")]:
-            if flag:
-                raise simmod.not_ported(what)
+        if args.profile is not None:
+            raise simmod.not_ported("profile")
         simmod.check_ported(simcfg)
     except NotImplementedError as e:
         ap.error(str(e))
-    simmod.run_binary_sweep(simcfg, device=args.device, out_dir=args.out_dir,
-                            checkpoint=args.checkpoint, quiet=args.quiet)
+    run = {(False, "batch"): simmod.run_binary_sweep,
+           (False, "stream"): simmod.run_binary_sweep,
+           (True, "batch"): simmod.run_binary_sweep_packed,
+           (True, "stream"): simmod.run_binary_stream_packed}
+    run[args.packed, args.engine](simcfg, device=args.device,
+                                  out_dir=args.out_dir,
+                                  checkpoint=args.checkpoint, quiet=args.quiet)
     return 0
 
 
@@ -183,17 +207,20 @@ def _main_nb(ap, args, simmod) -> int:
                                     kernel=args.kernel),
         sweep=_sweep_from(args, cfg.NBSimConfig().sweep),
         n_qam=args.n_qam, batch_per_device=args.batch, tx=args.tx,
-        engine=args.engine)
+        engine=args.engine, stream_steps=args.stream_steps)
     try:
-        if args.packed:
-            raise simmod.not_ported("nb packed", "nb --packed")
         if args.profile is not None:
             raise simmod.not_ported("profile")
         simmod.check_nb_ported(simcfg)
     except NotImplementedError as e:
         ap.error(str(e))
-    simmod.run_nb_sweep(simcfg, device=args.device, out_dir=args.out_dir,
-                        checkpoint=args.checkpoint, quiet=args.quiet)
+    run = {(False, "batch"): simmod.run_nb_sweep,
+           (False, "stream"): simmod.run_nb_sweep,
+           (True, "batch"): simmod.run_nb_sweep_packed,
+           (True, "stream"): simmod.run_nb_stream_packed}
+    run[args.packed, args.engine](simcfg, device=args.device,
+                                  out_dir=args.out_dir,
+                                  checkpoint=args.checkpoint, quiet=args.quiet)
     return 0
 
 

@@ -32,7 +32,6 @@ class SweepConfig:
     display_step: int = 10000
     seed: int = 173                   # ix/iy/iz_define collapse to one PRNG seed
     # seconds between mid-point state checkpoints of the stream engines
-    # (not ported yet; kept so that a config means the same in both packages)
     stream_ckpt_s: float = 60.0
 
     def snr_points(self) -> list[float]:
@@ -89,7 +88,7 @@ class BinarySimConfig:
                                       # like bldpc_实习/main.cu:117-119)
     # engine: 'batch' decodes whole batches until every frame converges (the
     # reference's host loop, bldpc_实习/LDPC_Decoder.cu:94-156); 'stream' is
-    # the continuous-batching engine (not ported yet).
+    # the continuous-batching engine.
     engine: str = "batch"             # 'batch' | 'stream'
     stream_steps: int = 16            # decoder iterations per streaming call
 
@@ -124,6 +123,6 @@ class NBSimConfig:
                                       # 'random' (encoder, not ported yet)
     # engine: 'batch' decodes whole batches to the slowest frame's iteration
     # count (like the reference); 'stream' is the continuous-batching engine
-    # (not ported yet).
+    # (the CUDA stream kernel K7 on a card).
     engine: str = "batch"             # 'batch' | 'stream'
     stream_steps: int = 16            # decoder iterations per streaming call

@@ -1,6 +1,7 @@
-// Shared by the binary decoders (minsum_flooding.cu, minsum_layered.cu):
-// the device-side stop protocol, the hard-decision pass, and the check-node
-// update of one (block row, lane) with either rule.
+// Shared by the binary decoders (minsum_flooding.cu, minsum_layered.cu,
+// minsum_stream.cu): the device-side stop protocol, a frame's check, the
+// hard-decision pass, and the check-node update of one (block row, lane)
+// with either rule.
 //
 // Layout (ops/minsum.py's contract): T [B, L, Z] f32 totals, R [B, E, Z] f32
 // c2v messages, hard [B, L, Z] int8, ok [B] uint8.  A circulant shift is the
@@ -41,6 +42,36 @@ constexpr int kNotOk = 2;
 
 static inline int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
+// 1 when the frame whose totals are tb [L, Z] fails `check` (none: always),
+// returned to every thread of the block; a barrier for the whole block
+// unless check is none.  zero: a message bit (columns l < L - J come first)
+// is 1; syndrome: some check row's XOR of the decisions is 1.
+static __device__ __forceinline__ int frame_bad(
+    const float* tb, const int* __restrict__ edge_l,
+    const int* __restrict__ edge_s, const int* __restrict__ row_ptr,
+    const int* __restrict__ row_edge, int check, int L, int J, int Z) {
+  if (check == kCheckNone) return 1;
+  int bad = 0;
+  if (check == kCheckZero) {
+    const int n = (L - J) * Z;
+    for (int i = threadIdx.x; i < n && !bad; i += blockDim.x)
+      bad = tb[i] < 0.f;
+  } else {
+    for (int i = threadIdx.x; i < J * Z && !bad; i += blockDim.x) {
+      const int j = i / Z, r = i - j * Z;
+      int par = 0;
+      for (int k = row_ptr[j]; k < row_ptr[j + 1]; ++k) {
+        const int e = row_edge[k];
+        int z = r + edge_s[e];
+        if (z >= Z) z -= Z;
+        par ^= tb[edge_l[e] * Z + z] < 0.f;
+      }
+      bad = par;
+    }
+  }
+  return __syncthreads_or(bad);
+}
+
 static __global__ void check_kernel(const float* __restrict__ T,
                                     unsigned char* __restrict__ ok,
                                     const int* __restrict__ edge_l,
@@ -50,26 +81,8 @@ static __global__ void check_kernel(const float* __restrict__ T,
                                     int check, int B, int L, int J, int Z) {
   if (ctl[kStop]) return;
   for (int64_t b = blockIdx.x; b < B; b += gridDim.x) {
-    const float* tb = T + b * L * Z;
-    int bad = 0;
-    if (check == kCheckZero) {
-      const int n = (L - J) * Z;  // message columns l < L - J come first
-      for (int i = threadIdx.x; i < n && !bad; i += blockDim.x)
-        bad = tb[i] < 0.f;
-    } else {
-      for (int i = threadIdx.x; i < J * Z && !bad; i += blockDim.x) {
-        const int j = i / Z, r = i - j * Z;
-        int par = 0;
-        for (int k = row_ptr[j]; k < row_ptr[j + 1]; ++k) {
-          const int e = row_edge[k];
-          int z = r + edge_s[e];
-          if (z >= Z) z -= Z;
-          par ^= tb[edge_l[e] * Z + z] < 0.f;
-        }
-        bad = par;
-      }
-    }
-    bad = __syncthreads_or(bad);
+    const int bad = frame_bad(T + b * L * Z, edge_l, edge_s, row_ptr,
+                              row_edge, check, L, J, Z);
     if (threadIdx.x == 0) {
       ok[b] = bad ? 0 : 1;
       if (bad) atomicAdd(&ctl[kNotOk], 1);

@@ -29,7 +29,9 @@
 // spectrum (v2c, softmax, transform) into shared memory, then, after a
 // barrier, its exclusive product over the row's other spectra in the JAX
 // order, the inverse transform and the log.  Rows run in series with two
-// barriers each (layered needs the order; flooding only the scratch).
+// barriers each (layered needs the order; flooding only the scratch).  The
+// phases of a pass (totals, decide and check, the rows) live in
+// qspa_common.cuh, shared with the stream step K7 (qspa_stream.cu).
 //
 // Bound: on BDS.576.288.GF.64 at B=4096 the c2v messages (201 MB) cross
 // device memory two or three times per pass (0.18 ms at 3.35 TB/s), while
@@ -65,7 +67,6 @@ static __global__ void __launch_bounds__(1024) qspa_kernel(
   int* ex = lg + Q;
   int* hs = ex + 2 * (Q - 1);
   const int tid = threadIdx.x, nth = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, nwarps = nth >> 5;
   const int64_t b = blockIdx.x;
   const float* L = chan + b * N * Q;
   float* Cb = C + b * E * Q;
@@ -78,38 +79,11 @@ static __global__ void __launch_bounds__(1024) qspa_kernel(
 
   for (int t = 0;; ++t) {
     if (!kLayered) {
-      // totals L + (c2v summed over the VN's edges in slot order)
-      for (int i = tid; i < N * Q; i += nth) {
-        const int n = i / Q, s = i - n * Q;
-        const int k0 = col_ptr[n], k1 = col_ptr[n + 1];
-        float acc = 0.f;
-        if (k0 < k1) {
-          acc = Cb[(int64_t)col_edge[k0] * Q + s];
-          for (int k = k0 + 1; k < k1; ++k)
-            acc = __fadd_rn(acc, Cb[(int64_t)col_edge[k] * Q + s]);
-        }
-        T[i] = __fadd_rn(L[i], acc);
-      }
+      frame_totals<Q>(T, L, Cb, col_ptr, col_edge, N);
       __syncthreads();
     }
-    // decide: one warp per VN
-    for (int n = warp; n < N; n += nwarps) {
-      float x[R];
-#pragma unroll
-      for (int j = 0; j < R; ++j) x[j] = T[n * Q + lane + 32 * j];
-      const int arg = group_argmax<R, 32>(x, lane);
-      if (lane == 0) hs[n] = arg;
-    }
-    __syncthreads();
-    // the GF syndrome: XOR over each row of h * x
-    int bad = 0;
-    for (int m = tid; m < M; m += nth) {
-      int syn = 0;
-      for (int k = row_ptr[m]; k < row_ptr[m + 1]; ++k)
-        syn ^= gf_mul(lg, ex, edge_h[k], hs[edge_vn[k]]);
-      bad |= syn != 0;
-    }
-    bad = __syncthreads_or(bad);
+    const int bad = frame_decide_check<R>(T, hs, lg, ex, row_ptr, edge_vn,
+                                          edge_h, N, M);
     if (!bad || t + 1 >= num_iters) {
       for (int n = tid; n < N; n += nth) hard[b * N + n] = hs[n];
       if (tid == 0) {
@@ -118,67 +92,7 @@ static __global__ void __launch_bounds__(1024) qspa_kernel(
       }
       return;
     }
-    // check rows in series; warp d takes the row's edge d
-    for (int m = 0; m < M; ++m) {
-      const int k0 = row_ptr[m], dc = row_ptr[m + 1] - k0;
-      const bool mine = warp < dc;
-      float x[R];
-      int addr[R];
-      int vn = 0, h = 0;
-      float* cp = Cb;
-      if (mine) {
-        const int e = k0 + warp;
-        h = edge_h[e];
-        vn = edge_vn[e];
-        cp = Cb + (int64_t)e * Q;
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          const int y = lane + 32 * j;
-          addr[j] = h ? gf_div(lg, ex, y, h, Q) : y;
-          x[j] = __fsub_rn(T[vn * Q + addr[j]], cp[addr[j]]);
-        }
-        if (!h) {
-          // coefficient 0: nb_decode puts the sum of v2c at y = 0 and 0
-          // elsewhere (the JAX package's one-hot contraction does)
-          const float s = group_rtree_sum<R, 32>(x);
-#pragma unroll
-          for (int j = 0; j < R; ++j) x[j] = (lane + 32 * j) == 0 ? s : 0.f;
-        }
-        group_softmax<R, 32>(x);
-        group_wht<R, 32>(x, lane);
-#pragma unroll
-        for (int j = 0; j < R; ++j) S[warp * Q + lane + 32 * j] = x[j];
-      }
-      __syncthreads();
-      if (mine) {
-        // exclusive product: forward from edge 0, backward from the last
-        // edge, each starting at 1 (nb_decode._qspa_cn_core's order)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          const int y = lane + 32 * j;
-          float f = 1.f, bw = 1.f;
-          for (int i = 0; i < warp; ++i) f = __fmul_rn(f, S[i * Q + y]);
-          for (int i = dc - 1; i > warp; --i) bw = __fmul_rn(bw, S[i * Q + y]);
-          x[j] = __fmul_rn(f, bw);
-        }
-        if (h) {
-          group_cn_output<R, 32>(x, lane);
-        } else {  // out[k] = llr[0 * k] - llr[0] = 0
-#pragma unroll
-          for (int j = 0; j < R; ++j) x[j] = 0.f;
-        }
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          if (kLayered) {
-            // total = T + (new - old), the jnp function's order
-            float* tp = T + vn * Q + addr[j];
-            *tp = __fadd_rn(*tp, __fsub_rn(x[j], cp[addr[j]]));
-          }
-          cp[addr[j]] = x[j];
-        }
-      }
-      __syncthreads();  // the spectra are reused; layered: the totals
-    }
+    frame_cn_rows<R, kLayered>(T, S, Cb, lg, ex, row_ptr, edge_vn, edge_h, M);
   }
 }
 

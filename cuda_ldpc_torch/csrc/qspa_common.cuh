@@ -1,5 +1,7 @@
-// Shared by the GF(q) FFT-QSPA decoders (qspa.cu, K5; qspa_qc.cu, K6): the
-// GF(q) tables, and the per-edge steps of the check-node update on one
+// Shared by the GF(q) FFT-QSPA decoders (qspa.cu, K5; qspa_qc.cu, K6;
+// qspa_stream.cu, K7): the GF(q) tables, the phases of one frame's pass on
+// the adjacency codes (K5 and K7), and the per-edge steps of the check-node
+// update on one
 // q-vector spread over a group of W lanes (W = 32 for K5, W = q for K6),
 // R = q / W registers per lane: symbol y sits in lane y % W, register y / W.
 //
@@ -149,6 +151,132 @@ static __device__ __forceinline__ int group_argmax(const float (&x)[R],
     }
   }
   return arg;
+}
+
+// ---- The phases of one frame's pass for the adjacency-code kernels (K5,
+// qspa.cu; K7, qspa_stream.cu): one block per frame, 32 * max_dc threads,
+// the totals T [N, Q] in shared memory, the frame's c2v messages Cb [E, Q]
+// in device memory; edge e of row m is row_ptr[m] + slot.
+
+// Flooding totals T = L + (c2v summed over the VN's edges in slot order).
+// The caller puts a barrier after it.
+template <int Q>
+static __device__ __forceinline__ void frame_totals(
+    float* T, const float* L, const float* Cb, const int* __restrict__ col_ptr,
+    const int* __restrict__ col_edge, int N) {
+  for (int i = threadIdx.x; i < N * Q; i += blockDim.x) {
+    const int n = i / Q, s = i - n * Q;
+    const int k0 = col_ptr[n], k1 = col_ptr[n + 1];
+    float acc = 0.f;
+    if (k0 < k1) {
+      acc = Cb[(int64_t)col_edge[k0] * Q + s];
+      for (int k = k0 + 1; k < k1; ++k)
+        acc = __fadd_rn(acc, Cb[(int64_t)col_edge[k] * Q + s]);
+    }
+    T[i] = __fadd_rn(L[i], acc);
+  }
+}
+
+// The decisions hs[n] = argmax T[n], one warp per VN, then the GF syndrome:
+// returns 1 to every thread when some row's XOR of h * x is not 0.
+template <int R>
+static __device__ __forceinline__ int frame_decide_check(
+    const float* T, int* hs, const int* lg, const int* ex,
+    const int* __restrict__ row_ptr, const int* __restrict__ edge_vn,
+    const int* __restrict__ edge_h, int N, int M) {
+  constexpr int Q = 32 * R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int n = warp; n < N; n += nwarps) {
+    float x[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) x[j] = T[n * Q + lane + 32 * j];
+    const int arg = group_argmax<R, 32>(x, lane);
+    if (lane == 0) hs[n] = arg;
+  }
+  __syncthreads();
+  int bad = 0;
+  for (int m = threadIdx.x; m < M; m += blockDim.x) {
+    int syn = 0;
+    for (int k = row_ptr[m]; k < row_ptr[m + 1]; ++k)
+      syn ^= gf_mul(lg, ex, edge_h[k], hs[edge_vn[k]]);
+    bad |= syn != 0;
+  }
+  return __syncthreads_or(bad);
+}
+
+// Every check row in series; warp d takes the row's edge d.  Each warp
+// computes its edge's spectrum (v2c, softmax, transform) into the scratch S
+// [max_dc, Q], then, after a barrier, its exclusive product over the row's
+// other spectra in the JAX order, the inverse transform and the log; layered
+// also updates the totals as T + (new - old).  Ends with a barrier.
+template <int R, bool kLayered>
+static __device__ __forceinline__ void frame_cn_rows(
+    float* T, float* S, float* Cb, const int* lg, const int* ex,
+    const int* __restrict__ row_ptr, const int* __restrict__ edge_vn,
+    const int* __restrict__ edge_h, int M) {
+  constexpr int Q = 32 * R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int m = 0; m < M; ++m) {
+    const int k0 = row_ptr[m], dc = row_ptr[m + 1] - k0;
+    const bool mine = warp < dc;
+    float x[R];
+    int addr[R];
+    int vn = 0, h = 0;
+    float* cp = Cb;
+    if (mine) {
+      const int e = k0 + warp;
+      h = edge_h[e];
+      vn = edge_vn[e];
+      cp = Cb + (int64_t)e * Q;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int y = lane + 32 * j;
+        addr[j] = h ? gf_div(lg, ex, y, h, Q) : y;
+        x[j] = __fsub_rn(T[vn * Q + addr[j]], cp[addr[j]]);
+      }
+      if (!h) {
+        // coefficient 0: nb_decode puts the sum of v2c at y = 0 and 0
+        // elsewhere (the JAX package's one-hot contraction does)
+        const float s = group_rtree_sum<R, 32>(x);
+#pragma unroll
+        for (int j = 0; j < R; ++j) x[j] = (lane + 32 * j) == 0 ? s : 0.f;
+      }
+      group_softmax<R, 32>(x);
+      group_wht<R, 32>(x, lane);
+#pragma unroll
+      for (int j = 0; j < R; ++j) S[warp * Q + lane + 32 * j] = x[j];
+    }
+    __syncthreads();
+    if (mine) {
+      // exclusive product: forward from edge 0, backward from the last
+      // edge, each starting at 1 (nb_decode._qspa_cn_core's order)
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int y = lane + 32 * j;
+        float f = 1.f, bw = 1.f;
+        for (int i = 0; i < warp; ++i) f = __fmul_rn(f, S[i * Q + y]);
+        for (int i = dc - 1; i > warp; --i) bw = __fmul_rn(bw, S[i * Q + y]);
+        x[j] = __fmul_rn(f, bw);
+      }
+      if (h) {
+        group_cn_output<R, 32>(x, lane);
+      } else {  // out[k] = llr[0 * k] - llr[0] = 0
+#pragma unroll
+        for (int j = 0; j < R; ++j) x[j] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        if (kLayered) {
+          // total = T + (new - old), the jnp function's order
+          float* tp = T + vn * Q + addr[j];
+          *tp = __fadd_rn(*tp, __fsub_rn(x[j], cp[addr[j]]));
+        }
+        cp[addr[j]] = x[j];
+      }
+    }
+    __syncthreads();  // the spectra are reused; layered: the totals
+  }
 }
 
 }  // namespace qspa

@@ -113,6 +113,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [f, i, f, i]            # alpha use_alpha beta use_beta
         + [i, i, i, i, p])        # check early_stop rule device stream
     lib.ldpc_minsum_layered.restype = i
+    lib.ldpc_minsum_stream.argtypes = (
+        [p] * 13                  # chan T R hard t done okf + 6 edge tables
+        + [i] * 7                 # B L J E Z k max_iters
+        + [f, i, f, i]            # alpha use_alpha beta use_beta
+        + [i, i, i, i, p])        # check rule layered device stream
+    lib.ldpc_minsum_stream.restype = i
+    lib.ldpc_qspa_stream.argtypes = (
+        [p] * 13                  # chan C hard t done okf + 5 edge tables +
+                                  # gf_log gf_exp
+        + [i] * 10                # B N M E q max_dc k max_iters layered
+                                  # device
+        + [p])                    # stream
+    lib.ldpc_qspa_stream.restype = i
     lib.ldpc_qspa.argtypes = (
         [p] * 12                  # chan C hard ok iters + 5 edge tables +
                                   # gf_log gf_exp

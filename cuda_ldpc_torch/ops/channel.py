@@ -44,9 +44,10 @@ def awgn(generator: torch.Generator, x: torch.Tensor,
 
 
 def bpsk_awgn_llr(generator: torch.Generator, codeword: torch.Tensor,
-                  sigma: float, batch: int) -> torch.Tensor:
+                  sigma: float | torch.Tensor, batch: int) -> torch.Tensor:
     """All-in-one binary channel for an [L, Z] codeword -> [batch, L, Z]
-    samples on the codeword's device.
+    samples on the codeword's device.  ``sigma``: a float, or a [batch]
+    tensor of per-frame noise levels (the packed engines).
 
     The binary reference feeds raw channel samples to the decoder (its 'LLR'
     is y itself, a positive scaling of 2y/sigma^2 — min-sum is scale
@@ -55,4 +56,6 @@ def bpsk_awgn_llr(generator: torch.Generator, codeword: torch.Tensor,
     x = bpsk(codeword)
     noise = torch.randn((batch,) + tuple(codeword.shape), generator=generator,
                         dtype=torch.float32, device=codeword.device)
+    if isinstance(sigma, torch.Tensor):
+        sigma = sigma.to(torch.float32).reshape((-1,) + (1,) * codeword.dim())
     return noise.mul_(sigma).add_(x)

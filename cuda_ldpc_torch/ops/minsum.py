@@ -1,7 +1,8 @@
 """Binary LDPC decoding on the lifted circulant structure, plain PyTorch:
 flooding and row-layered schedules, min-sum and exact sum-product (bp)
-check-node rules (counterpart of cuda_ldpc_tpu/ops/minsum.py:33-194 and
-312-356).
+check-node rules, and ``build_core``, the per-iteration core the stream
+engines drive (counterpart of cuda_ldpc_tpu/ops/minsum.py:33-194 and
+222-356).
 
 This is the reference the CUDA kernels (ops/cuda_minsum.py) are held against
 on the card, and it is held against the JAX package on the CPU: bit-exactly
@@ -231,25 +232,97 @@ def decode_layered(chan: torch.Tensor, code: QCBinaryCode, num_iters: int,
     Stopping and outputs as in ``decode_flooding``; hard and ok come from
     the totals after each full pass over the block rows."""
     check_args(check, rule)
-    cn = _CN_RULES[rule]
-    edges = code.edges
     total = chan.to(torch.float32).clone()
     R = torch.zeros((chan.shape[0], code.num_edges, code.Z),
                     dtype=torch.float32, device=chan.device)
 
     def iterate() -> torch.Tensor:
-        for j in range(code.J):
-            idx = code.row_edges[j]
-            cols = [int(edges[e, 1]) for e in idx]
-            shifts = [int(edges[e, 2]) for e in idx]
-            # every Q of the row from the totals before the row's updates
-            Qr = torch.stack([torch.roll(total[:, l] - R[:, e], -s, dims=-1)
-                              for e, l, s in zip(idx, cols, shifts)], dim=1)
-            Rr = cn(Qr, alpha, beta)
-            for i, (e, l, s) in enumerate(zip(idx, cols, shifts)):
-                new_col = torch.roll(Rr[:, i], s, dims=-1)
-                total[:, l] = total[:, l] + (new_col - R[:, e])
-                R[:, e] = new_col
+        _layered_pass(code, total, R, alpha, beta, rule)
         return total
 
     return _decode(chan, code, num_iters, check, early_stop, iterate)
+
+
+def _layered_pass(code: QCBinaryCode, total: torch.Tensor, R: torch.Tensor,
+                  alpha: float, beta: float, rule: str):
+    """One pass over the block rows, updating ``total`` [B, L, Z] and ``R``
+    [B, E, Z] in place."""
+    cn = _CN_RULES[rule]
+    edges = code.edges
+    for j in range(code.J):
+        idx = code.row_edges[j]
+        cols = [int(edges[e, 1]) for e in idx]
+        shifts = [int(edges[e, 2]) for e in idx]
+        # every Q of the row from the totals before the row's updates
+        Qr = torch.stack([torch.roll(total[:, l] - R[:, e], -s, dims=-1)
+                          for e, l, s in zip(idx, cols, shifts)], dim=1)
+        Rr = cn(Qr, alpha, beta)
+        for i, (e, l, s) in enumerate(zip(idx, cols, shifts)):
+            new_col = torch.roll(Rr[:, i], s, dims=-1)
+            total[:, l] = total[:, l] + (new_col - R[:, e])
+            R[:, e] = new_col
+
+
+def _freeze(cont: torch.Tensor, new: torch.Tensor,
+            old: torch.Tensor) -> torch.Tensor:
+    """``new`` on the frames where cont [B] is set, ``old`` elsewhere."""
+    return torch.where(cont.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
+class BinaryCore(NamedTuple):
+    """A binary decoder in per-iteration pieces, for the stream engines
+    (counterpart of cuda_ldpc_tpu/ops/minsum.py:222-310).  The carry holds
+    all per-frame state, the channel values included, so that an engine can
+    put fresh frames into finished slots with one select.
+
+    init(chan [B, L, Z]) -> carry
+    decide(carry)        -> (hard [B, L, Z] bool, totals)
+    step(carry, totals, cont [B] bool) -> carry   (frozen where ~cont)
+    """
+    init: object
+    decide: object
+    step: object
+
+
+def build_core(code: QCBinaryCode, rule: str = "minsum",
+               schedule: str = "flooding", alpha: float = 1.0,
+               beta: float = 0.0) -> BinaryCore:
+    """Per-iteration core of the flooding or layered decoder.  An iteration
+    computes what decode_flooding's and decode_layered's do, in the same
+    order, except that each frame is frozen where ``cont`` is not set (the
+    batch decoders update every frame until the whole batch stops)."""
+    check_args("zero", rule)
+
+    def init(chan):
+        chan = chan.to(torch.float32)
+        return (chan, torch.zeros((chan.shape[0], code.num_edges, code.Z),
+                                  dtype=torch.float32, device=chan.device))
+
+    if schedule == "flooding":
+        def decide(carry):
+            chan, R = carry
+            total, hard, _ = _vn_update(code, chan, R)
+            return hard, total
+
+        def step(carry, total, cont):
+            chan, R = carry
+            edge_l = torch.as_tensor(code.edges[:, 1], device=R.device)
+            newR = _cn_update(code, total[:, edge_l, :] - R, alpha, beta, rule)
+            return (chan, _freeze(cont, newR, R))
+
+        return BinaryCore(init, decide, step)
+
+    if schedule == "layered":
+        def decide(carry):
+            total, _ = carry
+            return total < 0, total
+
+        def step(carry, total_unused, cont):
+            total0, R0 = carry
+            total, R = total0.clone(), R0.clone()
+            _layered_pass(code, total, R, alpha, beta, rule)
+            return (_freeze(cont, total, total0), _freeze(cont, R, R0))
+
+        return BinaryCore(init, decide, step)
+
+    raise ValueError(f"unknown schedule {schedule!r}")

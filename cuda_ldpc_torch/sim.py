@@ -1,19 +1,39 @@
-"""Monte-Carlo SNR sweeps, binary and GF(q) batch engines (counterpart of
-cuda_ldpc_tpu/sim.py: the shared sweep loop at 51-293, the binary batch engine
-at 314-441 and 765-821, the reference-LCG channel at 444-506 and 824-861, the
-GF(q) batch engine at 1117-1267 and 2262-2305).
+"""Monte-Carlo SNR sweeps, binary and GF(q), with three engines
+(counterpart of cuda_ldpc_tpu/sim.py: the shared sweep loop at 51-293, the
+binary batch engine at 314-441 and 765-821, the reference-LCG channel at
+444-506 and 824-861, the binary stream engine at 509-762, the packed
+engines at 864-1110, the GF(q) batch and stream engines at 1117-1474 and
+2240-2305, the packed stream engines and their sweep loops at 1477-2237).
 
-* per-SNR counters: frames, error frames, error bits, iteration sum,
-  undetected-error (FER_False) and false-alarm (FER_Alarm) frames;
-* stop rule: errors >= least_error_frames AND frames >= least_test_frames,
-  or frames >= max_frames, evaluated per batch;
-* output: the reference's console row schema, appended to results.txt, plus
-  JSONL — the same strings and keys as the JAX package;
-* checkpoint/resume: counters persisted after every batch.
+* batch: each batch decodes until its slowest frame stops (the reference's
+  host loop), one SNR point at a time;
+* packed: every batch is split over all unfinished SNR points, each frame
+  with its own sigma and point id, counters segment-summed per point;
+* stream (continuous batching): a pool of B slots; a frame that finishes
+  is counted and its slot refilled, so throughput follows the mean
+  iteration count.  On a CUDA device the stream step is a kernel (K4
+  binary, K7 GF(q)) that runs ``stream_steps`` passes a call and the slots
+  are refilled between calls; the plain version (the CPU, or
+  ``--kernel torch``) refills after every iteration, as the JAX package's
+  jnp engine does.  Each point ends with a drain that finishes every frame
+  in flight, so every started frame is counted exactly once;
+* packed stream: one slot pool for all unfinished points, refills taking
+  the point ids the sweep assigns round-robin.
 
-Noise: the device channel draws each batch from a ``torch.Generator`` on the
-device, seeded by a fixed function of (seed, snr index, batch index), so a
-resumed sweep redraws exactly the noise it would have drawn.  The
+Per-SNR counters: frames, error frames, error bits, iteration sum,
+undetected-error (FER_False) and false-alarm (FER_Alarm) frames.  Stop rule:
+errors >= least_error_frames AND frames >= least_test_frames, or frames >=
+max_frames, evaluated per collected batch or call.  Output: the reference's
+console row schema in results.txt plus JSONL, the same strings and keys as
+the JAX package.  Checkpoint/resume: counters after every batch; the stream
+engines also save their slot state every ``stream_ckpt_s`` seconds.
+
+Noise: every draw comes from a ``torch.Generator`` on the device seeded by a
+fixed function of the seed and the draw's indices (``batch_seed``): (point,
+batch) for the batch engine, (batch) for the packed one, (point, call) for
+a kernel stream call's refill and (point, call, iteration) for the plain
+stream's per-iteration refill (packed streams drop the point).  A resumed
+sweep therefore redraws exactly the noise it would have drawn.  The
 'reference' channel reproduces the CUDA reference's LCG on the host
 (utils/native.py, utils/lcg.py), the same noise the JAX package sees, so its
 rows equal the JAX package's exactly.
@@ -27,7 +47,7 @@ import hashlib
 import json
 import os
 import time
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -35,7 +55,8 @@ import torch
 from cuda_ldpc_torch import config as cfg
 from cuda_ldpc_torch.models.nb_code import NBCode
 from cuda_ldpc_torch.models.qc_binary import QCBinaryCode
-from cuda_ldpc_torch.ops import (channel, cuda_minsum, cuda_qspa, cuda_qspa_qc,
+from cuda_ldpc_torch.ops import (channel, cuda_minsum, cuda_minsum_stream,
+                                 cuda_qspa, cuda_qspa_qc, cuda_qspa_stream,
                                  demod, minsum, nb_decode)
 from cuda_ldpc_torch.utils import lcg as pylcg
 from cuda_ldpc_torch.utils import native, registry
@@ -136,12 +157,14 @@ class _Checkpoint:
             return cur
         return None
 
-    def save(self, stats: SnrStats | None, batch_idx: int, units: int):
+    def save(self, stats: SnrStats | None, batch_idx: int, units: int,
+             extra: dict | None = None):
         if not self.path:
             return
         if stats is not None:
             self.state["current"] = {"stats": dataclasses.asdict(stats),
-                                     "batch_idx": batch_idx, "units": units}
+                                     "batch_idx": batch_idx, "units": units,
+                                     **(extra or {})}
         tmp = self.path + ".tmp"
         with open(tmp, "w") as f:
             json.dump(self.state, f)
@@ -179,6 +202,33 @@ def _emit(row: str, jsonl: dict, out_dir: str | None, quiet: bool):
             f.write(row + "\n")
         with open(os.path.join(out_dir, "results.jsonl"), "a") as f:
             f.write(json.dumps(jsonl) + "\n")
+
+
+def _point_done(st: SnrStats, sweep: cfg.SweepConfig) -> bool:
+    """The stop rule of one SNR point."""
+    return ((st.error_frames >= sweep.least_error_frames
+             and st.frames >= sweep.least_test_frames)
+            or st.frames >= sweep.max_frames)
+
+
+def _accumulate(stats: list[SnrStats], seg: list, secs: float,
+                info_bits_per_frame: int, timed: bool):
+    """Add per-point counter rows (frames, error frames, error units,
+    undetected, false alarm, iterations) to ``stats``; the seconds are
+    shared out by frames."""
+    total = sum(int(row[0]) for row in seg)
+    for st, row in zip(stats, seg):
+        nf, ef, eu, ff, af, its = (int(x) for x in row)
+        st.frames += nf
+        st.error_frames += ef
+        st.error_units += eu
+        st.false_frames += ff
+        st.alarm_frames += af
+        st.iter_sum += its
+        if timed and total:
+            st.decode_s += secs * nf / total
+            st.info_bits += nf * info_bits_per_frame
+            st.timed_frames += nf
 
 
 def _config_key(*parts) -> str:
@@ -227,16 +277,9 @@ def _run_sweep(kind: str, sweep: cfg.SweepConfig, units_per_frame: int,
             nonlocal collected, next_display, t_last
             nf, ef, eu, its, ff, af = collect()
             now = time.perf_counter()
-            stats.frames += nf
-            stats.error_frames += ef
-            stats.error_units += eu
-            stats.iter_sum += its
-            stats.false_frames += ff
-            stats.alarm_frames += af
-            if collected != first_collect:     # steady-state batches only
-                stats.decode_s += now - t_last   # marginal wall time
-                stats.info_bits += nf * info_bits_per_frame
-                stats.timed_frames += nf
+            # steady-state batches only; the marginal wall time
+            _accumulate([stats], [(nf, ef, eu, ff, af, its)], now - t_last,
+                        info_bits_per_frame, collected != first_collect)
             t_last = now
             collected += 1
             ck.save(stats, collected, units_per_frame)
@@ -246,9 +289,7 @@ def _run_sweep(kind: str, sweep: cfg.SweepConfig, units_per_frame: int,
 
         pending = None
         while True:
-            stopped = ((stats.error_frames >= sweep.least_error_frames
-                        and stats.frames >= sweep.least_test_frames)
-                       or stats.frames >= sweep.max_frames)
+            stopped = _point_done(stats, sweep)
             nxt = None
             if not stopped:
                 nxt = step(si, batch_idx, snr)
@@ -273,13 +314,9 @@ def _run_sweep(kind: str, sweep: cfg.SweepConfig, units_per_frame: int,
 
 # What the port does not run yet, and the ROADMAP.md item that ports it.
 NOT_PORTED = {
-    "engine=stream": "Queue 1 item 9 (binary stream engines)",
-    "packed": "Queue 1 item 8 (binary packed engine)",
     "tx=random": "Queue 1 item 7 (models/encoder.py)",
     "profile": "Queue 1 item 6 (bench and tracing)",
     "msg_dtype": "Queue 1 item 4 (bfloat16 message storage)",
-    "nb engine=stream": "Queue 1 item 14 (GF(q) stream engines)",
-    "nb packed": "Queue 1 item 14 (GF(q) packed engine)",
     "nb tx=random": "Queue 1 items 7 and 11 (NBEncoder)",
     "nb method": "Queue 1 item 12 and kernel K8 (EMS/TMM)",
 }
@@ -299,11 +336,10 @@ def check_ported(sim: cfg.BinarySimConfig):
     configuration the port does not run yet."""
     d = sim.decoder
     if d.msg_dtype != "float32":
-        raise not_ported("msg_dtype")
-    if sim.engine == "stream":
-        raise not_ported("engine=stream")
-    if sim.engine != "batch":
-        raise ValueError(f"unknown engine {sim.engine!r}")
+        raise not_ported("msg_dtype", f"msg_dtype={d.msg_dtype}")
+    if sim.engine not in ("batch", "stream"):
+        raise ValueError(f"unknown engine {sim.engine!r} "
+                         "(expected 'batch' or 'stream')")
     if sim.tx == "random":
         raise not_ported("tx=random")
     if sim.tx != "zero":
@@ -344,6 +380,31 @@ def _counters(res: minsum.DecodeResult, msg_cols: int) -> torch.Tensor:
                         res.iters.to(torch.int64)])
 
 
+def _binary_source(code: QCBinaryCode, sim: cfg.BinarySimConfig, B: int,
+                   device: torch.device) -> Callable:
+    """Frame source: (generator, sigma) -> chan [B, L, Z], the all-zero
+    codeword through BPSK and AWGN.  ``sigma`` is a float or a [B] tensor
+    (per-frame noise levels)."""
+    cw = torch.zeros((code.L, code.Z), dtype=torch.float32, device=device)
+
+    def fresh(generator: torch.Generator, sigma) -> torch.Tensor:
+        if sim.add_noise:
+            chan = channel.bpsk_awgn_llr(generator, cw, sigma, B)
+        else:
+            chan = channel.bpsk(cw).expand(B, -1, -1).contiguous()
+        if sim.decoder.rule == "bp":
+            # min-sum is scale-invariant, so it takes the raw samples as the
+            # reference does (LDPC_Decoder.cu:203); sum-product needs the
+            # true LLRs 2y/sigma^2
+            scale = 2.0 / (sigma * sigma)
+            if isinstance(scale, torch.Tensor):
+                scale = scale.to(torch.float32).reshape(-1, 1, 1)
+            chan = chan.mul_(scale)
+        return chan
+
+    return fresh
+
+
 def make_binary_step(code: QCBinaryCode, sim: cfg.BinarySimConfig,
                      device: torch.device):
     """Batch step: all-zero codeword -> BPSK -> AWGN -> flooding or layered
@@ -354,20 +415,12 @@ def make_binary_step(code: QCBinaryCode, sim: cfg.BinarySimConfig,
     B = sim.batch_per_device
     decode = _pick_binary_decode(dec, device)
     msg_cols = code.L - code.J if dec.message_only else code.L
-    cw = torch.zeros((code.L, code.Z), dtype=torch.float32, device=device)
+    fresh = _binary_source(code, sim, B, device)
 
     def step(generator: torch.Generator, sigma: float) -> torch.Tensor:
-        if sim.add_noise:
-            chan = channel.bpsk_awgn_llr(generator, cw, sigma, B)
-        else:
-            chan = channel.bpsk(cw).expand(B, -1, -1).contiguous()
-        if dec.rule == "bp":
-            # min-sum is scale-invariant, so it takes the raw samples as the
-            # reference does (LDPC_Decoder.cu:203); sum-product needs the
-            # true LLRs 2y/sigma^2
-            chan = chan.mul_(2.0 / (sigma * sigma))
-        res = decode(chan, code, dec.max_iters, alpha=dec.alpha,
-                     beta=dec.beta, check=dec.check, rule=dec.rule)
+        res = decode(fresh(generator, sigma), code, dec.max_iters,
+                     alpha=dec.alpha, beta=dec.beta, check=dec.check,
+                     rule=dec.rule)
         return _counters(res, msg_cols)
 
     return step, B
@@ -421,13 +474,20 @@ def _ref_channel_source(code: QCBinaryCode, B: int):
     return Source()
 
 
-def batch_seed(seed: int, snr_idx: int, batch_idx: int) -> int:
-    """The device generator's seed for one batch: a fixed function of
-    (seed, snr index, batch index), so a resumed sweep redraws the same
-    noise and neighbouring batches draw unrelated streams."""
+def batch_seed(seed: int, *indices: int) -> int:
+    """The device generator's seed for one draw: a fixed function of the
+    seed and the draw's indices, e.g. (snr index, batch index) for the batch
+    engine (module docstring), so a resumed sweep redraws the same noise and
+    neighbouring draws are unrelated streams."""
     words = np.random.SeedSequence(
-        [seed % 2**64, snr_idx, batch_idx]).generate_state(2, np.uint32)
+        [seed % 2**64, *indices]).generate_state(2, np.uint32)
     return (int(words[0]) << 31) ^ int(words[1])
+
+
+def _generator(device: torch.device, seed: int, *indices: int):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(batch_seed(seed, *indices))
+    return gen
 
 
 class _Fetch:
@@ -468,8 +528,9 @@ def run_binary_sweep(sim: cfg.BinarySimConfig,
                      out_dir: str | None = None,
                      checkpoint: str | None = None,
                      quiet: bool = False) -> SweepResult:
-    """Binary QC-LDPC FER sweep on ``device`` (batch engine, flooding or
-    layered min-sum or bp, all-zero codeword)."""
+    """Binary QC-LDPC FER sweep on ``device``, one SNR point at a time (batch
+    or stream engine, flooding or layered min-sum or bp, all-zero
+    codeword)."""
     device = resolve_device(device)
     code = QCBinaryCode.from_registry(sim.code)
     if sim.channel == "reference":
@@ -478,19 +539,14 @@ def run_binary_sweep(sim: cfg.BinarySimConfig,
     if sim.channel not in ("device", "jax"):
         raise ValueError(f"unknown channel {sim.channel!r} "
                          "(expected 'device' or 'reference')")
+    if sim.engine == "stream":
+        return _run_binary_stream(code, sim, device, out_dir, checkpoint,
+                                  quiet)
     fn, B = make_binary_step(code, sim, device)
     sweep = sim.sweep
     d = sim.decoder
-    _write_logo("binary", [
-        f" code: {code!r}",
-        f" decoder: {d.schedule} {RULE_NAMES[d.rule]}, maxIT={d.max_iters}, "
-        f"alpha={d.alpha}, beta={d.beta}, check={d.check}, "
-        f"kernel={d.kernel}, dtype={d.msg_dtype}",
-        f" tx: {sim.tx}, noise: {sim.add_noise}, batch: {B} ({device})",
-        f" sweep: {sweep.snr_type} {sweep.snr_start}:{sweep.snr_step}:"
-        f"{sweep.snr_stop}, stop at >={sweep.least_error_frames} errors & "
-        f">={sweep.least_test_frames} frames, seed={sweep.seed}",
-    ], out_dir, quiet)
+    _write_logo("binary", _binary_banner(code, sim, B, device, "batch engine"),
+                out_dir, quiet)
     msg_cols = code.L - code.J if d.message_only else code.L
 
     def step(si, bi, snr):
@@ -542,6 +598,307 @@ def _run_binary_sweep_ref(code, sim: cfg.BinarySimConfig, device, out_dir,
                       out_dir, checkpoint, key_salt, quiet, pipeline=False)
 
 
+def _binary_sigmas(code: QCBinaryCode, sweep: cfg.SweepConfig) -> np.ndarray:
+    return np.array([channel.sigma_from_snr(s, code.rate, sweep.snr_type)
+                     for s in sweep.snr_points()], dtype=np.float32)
+
+
+def _binary_banner(code: QCBinaryCode, sim: cfg.BinarySimConfig, B: int,
+                   device: torch.device, engine: str) -> list[str]:
+    d, sweep = sim.decoder, sim.sweep
+    return [
+        f" code: {code!r}  [{engine}]",
+        f" decoder: {d.schedule} {RULE_NAMES[d.rule]}, maxIT={d.max_iters}, "
+        f"alpha={d.alpha}, beta={d.beta}, check={d.check}, "
+        f"kernel={d.kernel}, dtype={d.msg_dtype}",
+        f" tx: {sim.tx}, noise: {sim.add_noise}, batch: {B} ({device})",
+        f" sweep: {sweep.snr_type} {sweep.snr_start}:{sweep.snr_step}:"
+        f"{sweep.snr_stop}, stop at >={sweep.least_error_frames} errors & "
+        f">={sweep.least_test_frames} frames, seed={sweep.seed}",
+    ]
+
+
+def make_binary_packed_step(code: QCBinaryCode, sim: cfg.BinarySimConfig,
+                            n_points: int, device: torch.device):
+    """Packed multi-SNR batch step: each frame carries its own sigma and
+    SNR-point id; decodes with K1/K2 (or their plain versions) through
+    ``_pick_binary_decode``; returns per-point counters [S, 6] (frames,
+    error frames, error bits, undetected, false alarm, iterations), the
+    batch-global iteration count per frame as in sim.py:927-932 of the JAX
+    package.  Returns (fn(generator, sigma_vec [B], pid [B]), batch)."""
+    check_ported(sim)
+    dec = sim.decoder
+    B = sim.batch_per_device
+    decode = _pick_binary_decode(dec, device)
+    msg_cols = code.L - code.J if dec.message_only else code.L
+    fresh = _binary_source(code, sim, B, device)
+
+    def step(generator, sigma_vec, pid):
+        res = decode(fresh(generator, sigma_vec), code, dec.max_iters,
+                     alpha=dec.alpha, beta=dec.beta, check=dec.check,
+                     rule=dec.rule)
+        errbits = res.hard[:, :msg_cols].sum(dim=(1, 2), dtype=torch.int64)
+        has_err = errbits > 0
+        per = torch.stack([torch.ones_like(errbits), (has_err | ~res.ok).long(),
+                           errbits, (has_err & res.ok).long(),
+                           (~has_err & ~res.ok).long(),
+                           res.iters.long().expand(B)], dim=1)
+        return _segment_sum(per, pid, n_points)
+
+    return step, B
+
+
+def run_binary_sweep_packed(sim: cfg.BinarySimConfig,
+                            device: str | torch.device = "cuda",
+                            out_dir: str | None = None,
+                            checkpoint: str | None = None,
+                            quiet: bool = False) -> SweepResult:
+    """All SNR points of a binary sweep at once, in packed batches."""
+    device = resolve_device(device)
+    code = QCBinaryCode.from_registry(sim.code)
+    sweep = sim.sweep
+    points = sweep.snr_points()
+    fn, B = make_binary_packed_step(code, sim, len(points), device)
+    msg_cols = code.L - code.J if sim.decoder.message_only else code.L
+    banner = _binary_banner(code, sim, B, device,
+                            f"PACKED multi-SNR sweep, {len(points)} points")
+    return _run_packed("binary", sweep, points, _binary_sigmas(code, sweep),
+                       fn, B, msg_cols * code.Z, code.k, out_dir, quiet,
+                       banner, device, checkpoint,
+                       _config_key(sim, {"kind": "binary_packed", "B": B,
+                                         "backend": f"torch-{device.type}"}))
+
+
+class StreamEngine(NamedTuple):
+    """A continuous-batching engine (the JAX package's (init_fn, run_fn,
+    drain_fn, B)).  The state is a list of tensors; every frame carries an
+    SNR-point id, and the sequential sweeps use one point.
+
+      init(generator, sig_table [S], pid [B]) -> state
+      run(state, seeds, sig_table, refill_pid [B]) -> (state, counters)
+      drain(state) -> (state, counters)
+
+    ``seeds`` are the leading arguments of ``batch_seed`` for the call's
+    refills.  counters [S, 6]: frames, error frames, error units,
+    undetected, false alarm and iterations of the frames that finished in
+    the call, summed per point id.  ``kernel`` tells the engine that runs
+    the CUDA stream step (per-call refill) from the plain one
+    (per-iteration refill)."""
+    init: Callable
+    run: Callable
+    drain: Callable
+    B: int
+    kernel: bool
+
+
+def _segment_sum(per: torch.Tensor, pid: torch.Tensor,
+                 n_points: int) -> torch.Tensor:
+    """Per-frame counter rows [B, 6] summed by point id -> [S, 6] int64."""
+    return torch.zeros((n_points, per.shape[1]), dtype=torch.int64,
+                       device=per.device).index_add_(0, pid, per)
+
+
+def _slot_counts(done, ok, errs, t) -> torch.Tensor:
+    """Counter rows [B, 6] of the frames that finished (done [B] bool): 1,
+    has an error, errors, undetected error, false alarm, iterations."""
+    d = done.long()
+    has_err = errs > 0
+    return torch.stack([d, d * has_err, d * errs, d * (has_err & ok),
+                        d * (~has_err & ~ok), d * t.long()], dim=1)
+
+
+def _plain_stream(core, ok_of: Callable, errors: Callable, fresh: Callable,
+                  B: int, n_points: int, max_iters: int, steps: int,
+                  device: torch.device) -> StreamEngine:
+    """The plain engine over a decoder core (minsum.build_core or
+    nb_decode.build_core): every iteration decides, checks and counts the
+    finished frames, runs the core's step for the others, and puts fresh
+    frames into the finished slots at once (the JAX package's jnp engine,
+    sim.py:577-619 and 1562-1607)."""
+
+    def init(gen, sig_table, pid):
+        c0, c1 = core.init(fresh(gen, sig_table[pid]))
+        return [c0, c1, torch.zeros(B, dtype=torch.int32, device=device),
+                torch.ones(B, dtype=torch.bool, device=device), pid.clone()]
+
+    def one_pass(state, counters, refill=None):
+        c0, c1, t, alive, pid = state
+        hard, totals = core.decide((c0, c1))
+        ok = ok_of(hard)
+        done = alive & (ok | (t >= max_iters))
+        counters.index_add_(0, pid, _slot_counts(done, ok, errors(hard), t))
+        cont = alive & ~done
+        c0, c1 = core.step((c0, c1), totals, cont)
+        if refill is None:               # drain: finished slots stay empty
+            return [c0, c1, torch.where(cont, t + 1, t), cont, pid]
+        gen, sig_table, refill_pid = refill
+        pid = torch.where(done, refill_pid, pid)
+        n0, n1 = core.init(fresh(gen, sig_table[pid]))
+        return [minsum._freeze(done, n0, c0), minsum._freeze(done, n1, c1),
+                torch.where(done, 0, t + 1), alive, pid]
+
+    def run(state, seeds, sig_table, refill_pid):
+        counters = torch.zeros((n_points, 6), dtype=torch.int64, device=device)
+        for i in range(steps):
+            state = one_pass(state, counters, (_generator(device, *seeds, i),
+                                               sig_table, refill_pid))
+        return state, counters
+
+    def drain(state):
+        # every running frame finishes within max_iters + 1 passes
+        counters = torch.zeros((n_points, 6), dtype=torch.int64, device=device)
+        for _ in range(max_iters + 1):
+            if not bool(state[3].any()):
+                break
+            state = one_pass(state, counters)
+        return state, counters
+
+    return StreamEngine(init, run, drain, B, False)
+
+
+def _kernel_stream(kstep: Callable, msg_shape: tuple, errors: Callable,
+                   fresh: Callable, B: int, n_points: int, max_iters: int,
+                   steps: int, device: torch.device) -> StreamEngine:
+    """The kernel engine: one call of the stream step ``kstep`` (K4 or K7)
+    runs ``steps`` passes; between calls the finished slots get fresh
+    channel values and their counts reset (their messages leave the kernel
+    zeroed).  The drain call runs max_iters + 1 passes, enough to finish
+    every frame (the JAX package's fused engines, sim.py:702-734 and
+    1888-1905)."""
+
+    def init(gen, sig_table, pid):
+        flags = [torch.zeros(B, dtype=torch.int32, device=device)
+                 for _ in range(3)]
+        return [fresh(gen, sig_table[pid]),
+                torch.zeros((B,) + msg_shape, dtype=torch.float32,
+                            device=device), *flags, pid.clone()]
+
+    def call(state, k):
+        chan, msgs, t, done, okf, pid = state
+        hard = kstep(chan, msgs, t, done, okf, k=k)[2]
+        per = _slot_counts(done.bool(), okf.bool(), errors(hard), t)
+        return _segment_sum(per, pid, n_points)
+
+    def run(state, seeds, sig_table, refill_pid):
+        counters = call(state, steps)
+        chan, msgs, t, done, okf, pid = state
+        fin = done.bool()
+        pid = torch.where(fin, refill_pid, pid)
+        new = fresh(_generator(device, *seeds), sig_table[pid])
+        chan = minsum._freeze(fin, new, chan)
+        t.mul_((~fin).to(torch.int32))
+        done.zero_()
+        okf.zero_()
+        return [chan, msgs, t, done, okf, pid], counters
+
+    def drain(state):
+        return state, call(state, max_iters + 1)
+
+    return StreamEngine(init, run, drain, B, True)
+
+
+def _stream_uses_kernel(kernel: str, device: torch.device) -> bool:
+    """``auto`` on a CUDA device and ``cuda`` take the kernel engine,
+    ``auto`` on the CPU and ``torch`` the plain one; ``cuda`` on the CPU
+    raises."""
+    if kernel not in ("auto", "torch", "cuda"):
+        raise ValueError(f"unknown kernel {kernel!r} (expected auto|torch|cuda)")
+    if kernel == "cuda" or (kernel == "auto" and device.type == "cuda"):
+        if device.type != "cuda":
+            raise ValueError(f"kernel='cuda' needs a CUDA device, got {device}")
+        return True
+    return False
+
+
+def make_binary_stream_engine(code: QCBinaryCode, sim: cfg.BinarySimConfig,
+                              device: torch.device,
+                              n_points: int = 1) -> StreamEngine:
+    """The binary continuous-batching engine: K4 (csrc/minsum_stream.cu)
+    with per-call refill under ``auto`` on a card and ``cuda``; the plain
+    per-iteration engine over minsum.build_core under ``torch`` and on the
+    CPU.  ``n_points`` > 1 for the packed stream."""
+    check_ported(sim)
+    dec = sim.decoder
+    if dec.check == "none":
+        raise ValueError("engine='stream' needs a per-frame check "
+                         "('zero' or 'syndrome')")
+    use_kernel = _stream_uses_kernel(dec.kernel, device)
+    B = sim.batch_per_device
+    msg_cols = code.L - code.J if dec.message_only else code.L
+    fresh = _binary_source(code, sim, B, device)
+
+    def errors(hard):
+        return hard[:, :msg_cols].sum(dim=(1, 2), dtype=torch.int64)
+
+    args = (errors, fresh, B, n_points, dec.max_iters, sim.stream_steps,
+            device)
+    if use_kernel:
+        kstep = functools.partial(
+            cuda_minsum_stream.stream_step, code=code,
+            max_iters=dec.max_iters, alpha=dec.alpha, beta=dec.beta,
+            check=dec.check, rule=dec.rule,
+            layered=dec.schedule == "layered")
+        return _kernel_stream(kstep, (code.num_edges, code.Z), *args)
+    core = minsum.build_core(code, rule=dec.rule, schedule=dec.schedule,
+                             alpha=dec.alpha, beta=dec.beta)
+    return _plain_stream(core, lambda hard: minsum._check(code, hard,
+                                                          dec.check),
+                         *args)
+
+
+def _run_binary_stream(code: QCBinaryCode, sim: cfg.BinarySimConfig,
+                       device: torch.device, out_dir, checkpoint,
+                       quiet) -> SweepResult:
+    engine = make_binary_stream_engine(code, sim, device)
+    sweep = sim.sweep
+    msg_cols = code.L - code.J if sim.decoder.message_only else code.L
+    banner = _binary_banner(code, sim, engine.B, device,
+                            _stream_label(sim.stream_steps, engine))
+    return _run_stream("binary", sweep, _binary_sigmas(code, sweep), engine,
+                       msg_cols * code.Z, code.k, banner, out_dir,
+                       checkpoint, quiet, device,
+                       _stream_key(sim, "binary_stream", engine, device))
+
+
+def run_binary_stream_packed(sim: cfg.BinarySimConfig,
+                             device: str | torch.device = "cuda",
+                             out_dir: str | None = None,
+                             checkpoint: str | None = None,
+                             quiet: bool = False) -> SweepResult:
+    """All SNR points of a binary sweep at once on one continuous-batching
+    slot pool."""
+    device = resolve_device(device)
+    code = QCBinaryCode.from_registry(sim.code)
+    sweep = sim.sweep
+    points = sweep.snr_points()
+    engine = make_binary_stream_engine(code, sim, device, len(points))
+    msg_cols = code.L - code.J if sim.decoder.message_only else code.L
+    banner = _binary_banner(
+        code, sim, engine.B, device,
+        f"PACKED {_stream_label(sim.stream_steps, engine)}, "
+        f"{len(points)} points")
+    return _run_stream_packed(
+        "binary", sweep, points, _binary_sigmas(code, sweep), engine,
+        msg_cols * code.Z, code.k, banner, out_dir, checkpoint, quiet, device,
+        _stream_key(sim, "binary_stream_packed", engine, device))
+
+
+def _stream_label(steps: int, engine: StreamEngine) -> str:
+    if engine.kernel:
+        return f"STREAMING engine, kernel, {steps} iters/call"
+    return f"STREAMING engine, plain, {steps} iters/call, per-iteration refill"
+
+
+def _stream_key(sim, kind: str, engine: StreamEngine,
+                device: torch.device) -> str:
+    # the device generator and the refill granularity decide the noise, so
+    # a checkpoint resumes only on the same device type and engine
+    return _config_key(sim, {"kind": kind, "B": engine.B,
+                             "backend": f"torch-{device.type}",
+                             "refill": "call" if engine.kernel
+                             else "iteration"})
+
+
 # --------------------------------------------------------------------------
 # non-binary simulator
 # --------------------------------------------------------------------------
@@ -561,10 +918,9 @@ def check_nb_ported(sim: cfg.NBSimConfig):
                          f"(expected one of {nb_decode.METHODS})")
     if method not in nb_decode.QSPA_METHODS:
         raise not_ported("nb method", f"method={method}")
-    if sim.engine == "stream":
-        raise not_ported("nb engine=stream", "nb --engine stream")
-    if sim.engine != "batch":
-        raise ValueError(f"unknown engine {sim.engine!r}")
+    if sim.engine not in ("batch", "stream"):
+        raise ValueError(f"unknown engine {sim.engine!r} "
+                         "(expected 'batch' or 'stream')")
     if sim.tx == "random":
         raise not_ported("nb tx=random", "nb --tx random")
     if sim.tx not in ("zero", "fixture"):
@@ -621,18 +977,20 @@ def _nb_tx(code: NBCode, sim: cfg.NBSimConfig):
 
 def _make_nb_source(code: NBCode, sim: cfg.NBSimConfig, B: int,
                     device: torch.device):
-    """Frame source: (generator, sigma) -> (L [B, N, q], tx [N]).  tx='zero'
-    | 'fixture' transmit a constant codeword (the reference's only modes —
-    it has no encoder, myNBLDPC/include/codeword_test.h:1)."""
+    """Frame source: (generator, sigma) -> (L [B, N, q], tx [N]), with
+    ``sigma`` a float or a [B] tensor; ``src.tx`` is tx.  tx='zero' |
+    'fixture' transmit a constant codeword (the reference's only modes — it
+    has no encoder, myNBLDPC/include/codeword_test.h:1)."""
     pts = constellation(sim.n_qam)
     tx_labels, tx_syms = _nb_tx(code, sim)
     tx_dev = torch.as_tensor(tx_syms, dtype=torch.int32, device=device)
 
-    def src(generator: torch.Generator, sigma: float):
+    def src(generator: torch.Generator, sigma):
         L = demod.nb_channel_llr(generator, tx_labels, pts, sigma, batch=B,
                                  q=code.q, device=device)
         return L, tx_dev
 
+    src.tx = tx_dev
     return src
 
 
@@ -668,22 +1026,16 @@ def make_nb_step(code: NBCode, sim: cfg.NBSimConfig, device: torch.device):
 def run_nb_sweep(sim: cfg.NBSimConfig, device: str | torch.device = "cuda",
                  out_dir: str | None = None, checkpoint: str | None = None,
                  quiet: bool = False) -> SweepResult:
-    """GF(q) LDPC FER sweep on ``device`` (batch engine, FFT-QSPA family)."""
+    """GF(q) LDPC FER sweep on ``device``, one SNR point at a time (batch or
+    stream engine, FFT-QSPA family)."""
     device = resolve_device(device)
     code = NBCode.from_registry(sim.code)
+    if sim.engine == "stream":
+        return _run_nb_stream(code, sim, device, out_dir, checkpoint, quiet)
     fn, B = make_nb_step(code, sim, device)
     sweep = sim.sweep
-    d = sim.decoder
-    _write_logo("nb", [
-        f" code: {code!r}",
-        f" decoder: {d.method}, Nm={d.nm}, Nc={d.nc}, maxIT={d.max_iters}, "
-        f"kernel={d.kernel}",
-        f" modulation: {'BPSK' if sim.n_qam == 2 else f'{sim.n_qam}-QAM'}, "
-        f"tx: {sim.tx}, batch: {B} ({device})",
-        f" sweep: {sweep.snr_type} {sweep.snr_start}:{sweep.snr_step}:"
-        f"{sweep.snr_stop}, stop at >={sweep.least_error_frames} errors & "
-        f">={sweep.least_test_frames} frames, seed={sweep.seed}",
-    ], out_dir, quiet)
+    _write_logo("nb", _nb_banner(code, sim, B, device, "batch engine"),
+                out_dir, quiet)
     bits_per_sym = float(np.log2(sim.n_qam))
 
     def step(si, bi, snr):
@@ -704,3 +1056,420 @@ def run_nb_sweep(sim: cfg.NBSimConfig, device: str | torch.device = "cuda",
                                  "backend": f"torch-{device.type}"})
     return _run_sweep("nb", sweep, code.n_sym, code.k_sym * code.q_bit, B,
                       step, out_dir, checkpoint, key_salt, quiet)
+
+
+def _nb_sigmas(code: NBCode, sim: cfg.NBSimConfig) -> np.ndarray:
+    bits_per_sym = float(np.log2(sim.n_qam))
+    return np.array([channel.sigma_from_snr(s, code.rate, sim.sweep.snr_type,
+                                            bits_per_sym)
+                     for s in sim.sweep.snr_points()], dtype=np.float32)
+
+
+def _nb_banner(code: NBCode, sim: cfg.NBSimConfig, B: int,
+               device: torch.device, engine: str) -> list[str]:
+    d, sweep = sim.decoder, sim.sweep
+    return [
+        f" code: {code!r}  [{engine}]",
+        f" decoder: {d.method}, Nm={d.nm}, Nc={d.nc}, maxIT={d.max_iters}, "
+        f"kernel={d.kernel}",
+        f" modulation: {'BPSK' if sim.n_qam == 2 else f'{sim.n_qam}-QAM'}, "
+        f"tx: {sim.tx}, batch: {B} ({device})",
+        f" sweep: {sweep.snr_type} {sweep.snr_start}:{sweep.snr_step}:"
+        f"{sweep.snr_stop}, stop at >={sweep.least_error_frames} errors & "
+        f">={sweep.least_test_frames} frames, seed={sweep.seed}",
+    ]
+
+
+def make_nb_packed_step(code: NBCode, sim: cfg.NBSimConfig, n_points: int,
+                        device: torch.device):
+    """Packed multi-SNR GF(q) batch step: per-frame sigma and point id,
+    decoded with K5/K6 (or the plain version) through ``_nb_decoder_fn``;
+    per-point counters [S, 6].  Returns (fn(generator, sigma_vec, pid),
+    batch)."""
+    check_nb_ported(sim)
+    B = sim.batch_per_device
+    src = _make_nb_source(code, sim, B, device)
+    decoder = _nb_decoder_fn(code, sim.decoder, device)
+
+    def step(generator, sigma_vec, pid):
+        L, tx = src(generator, sigma_vec)
+        res = decoder(L)
+        errsyms = (res.hard != tx).sum(dim=1, dtype=torch.int64)
+        has_err = errsyms > 0
+        per = torch.stack([torch.ones_like(errsyms), has_err.long(), errsyms,
+                           (has_err & res.ok).long(),
+                           (~has_err & ~res.ok).long(), res.iters.long()],
+                          dim=1)
+        return _segment_sum(per, pid, n_points)
+
+    return step, B
+
+
+def run_nb_sweep_packed(sim: cfg.NBSimConfig,
+                        device: str | torch.device = "cuda",
+                        out_dir: str | None = None,
+                        checkpoint: str | None = None,
+                        quiet: bool = False) -> SweepResult:
+    """All SNR points of a GF(q) sweep at once, in packed batches."""
+    device = resolve_device(device)
+    code = NBCode.from_registry(sim.code)
+    points = sim.sweep.snr_points()
+    fn, B = make_nb_packed_step(code, sim, len(points), device)
+    banner = _nb_banner(code, sim, B, device,
+                        f"PACKED multi-SNR sweep, {len(points)} points")
+    return _run_packed("nb", sim.sweep, points, _nb_sigmas(code, sim), fn, B,
+                       code.n_sym, code.k_sym * code.q_bit, out_dir, quiet,
+                       banner, device, checkpoint,
+                       _config_key(sim, {"kind": "nb_packed", "B": B,
+                                         "backend": f"torch-{device.type}"}))
+
+
+def make_nb_stream_engine(code: NBCode, sim: cfg.NBSimConfig,
+                          device: torch.device,
+                          n_points: int = 1) -> StreamEngine:
+    """The GF(q) continuous-batching engine: K7 (csrc/qspa_stream.cu) with
+    per-call refill under ``auto`` on a card and ``cuda``, for qspa and
+    layered_qspa on the codes K7 takes, raising for any other pair; the
+    plain per-iteration engine over nb_decode.build_core (any QSPA method,
+    any code) under ``torch`` and on the CPU."""
+    check_nb_ported(sim)
+    dec = sim.decoder
+    use_kernel = _stream_uses_kernel(dec.kernel, device)
+    layered = {"qspa": False, "layered_qspa": True}.get(dec.method)
+    if use_kernel and (layered is None or not cuda_qspa_stream.supports(code)):
+        raise ValueError(f"no CUDA stream kernel decodes {code.name} with "
+                         f"method={dec.method!r} yet (ROADMAP.md "
+                         f"{NO_KERNEL_ITEM}); --kernel torch runs the plain "
+                         "PyTorch version")
+    B = sim.batch_per_device
+    src = _make_nb_source(code, sim, B, device)
+    tx = src.tx
+
+    def fresh(gen, sigma):
+        return src(gen, sigma)[0]
+
+    def errors(hard):
+        return (hard != tx).sum(dim=1, dtype=torch.int64)
+
+    args = (errors, fresh, B, n_points, dec.max_iters, sim.stream_steps,
+            device)
+    if use_kernel:
+        kstep = functools.partial(cuda_qspa_stream.stream_step, code=code,
+                                  max_iters=dec.max_iters, layered=layered)
+        E = int(code.cn_mask.sum())
+        return _kernel_stream(kstep, (E, code.q), *args)
+    core = nb_decode.build_core(code, dec.method, device)
+    return _plain_stream(core, lambda hard: nb_decode._syndrome_ok(core.g,
+                                                                   hard),
+                         *args)
+
+
+def _run_nb_stream(code: NBCode, sim: cfg.NBSimConfig, device: torch.device,
+                   out_dir, checkpoint, quiet) -> SweepResult:
+    engine = make_nb_stream_engine(code, sim, device)
+    banner = _nb_banner(code, sim, engine.B, device,
+                        _stream_label(sim.stream_steps, engine))
+    return _run_stream("nb", sim.sweep, _nb_sigmas(code, sim), engine,
+                       code.n_sym, code.k_sym * code.q_bit, banner, out_dir,
+                       checkpoint, quiet, device,
+                       _stream_key(sim, "nb_stream", engine, device))
+
+
+def run_nb_stream_packed(sim: cfg.NBSimConfig,
+                         device: str | torch.device = "cuda",
+                         out_dir: str | None = None,
+                         checkpoint: str | None = None,
+                         quiet: bool = False) -> SweepResult:
+    """All SNR points of a GF(q) sweep at once on one continuous-batching
+    slot pool."""
+    device = resolve_device(device)
+    code = NBCode.from_registry(sim.code)
+    points = sim.sweep.snr_points()
+    engine = make_nb_stream_engine(code, sim, device, len(points))
+    banner = _nb_banner(code, sim, engine.B, device,
+                        f"PACKED {_stream_label(sim.stream_steps, engine)}, "
+                        f"{len(points)} points")
+    return _run_stream_packed(
+        "nb", sim.sweep, points, _nb_sigmas(code, sim), engine, code.n_sym,
+        code.k_sym * code.q_bit, banner, out_dir, checkpoint, quiet, device,
+        _stream_key(sim, "nb_stream_packed", engine, device))
+
+
+# --------------------------------------------------------------------------
+# the packed and stream sweep loops (binary and GF(q))
+# --------------------------------------------------------------------------
+
+def _round_robin(active: list[int], B: int, device) -> torch.Tensor:
+    """Point ids of B frames split equally over ``active``, in order."""
+    return torch.as_tensor(np.asarray(active, np.int64)[np.arange(B)
+                                                        % len(active)],
+                           device=device)
+
+
+def _unfinished(stats: list[SnrStats], sweep: cfg.SweepConfig) -> list[int]:
+    return [i for i, st in enumerate(stats) if not _point_done(st, sweep)]
+
+
+def _run_packed(kind: str, sweep: cfg.SweepConfig, points: list[float],
+                sigmas: np.ndarray, fn: Callable, B: int,
+                units_per_frame: int, info_bits_per_frame: int, out_dir,
+                quiet, banner: list[str], device: torch.device,
+                checkpoint: str | None, key_salt: str) -> SweepResult:
+    """Packed sweep loop (sim.py:940-1025 of the JAX package): every batch
+    is split equally over the unfinished points; ``fn(generator, sigma_vec,
+    pid)`` returns [S, 6] counters.  One batch stays in flight, so the
+    active set lags one batch and a finishing point may get one more
+    (counted) batch.  The checkpoint keeps the counters and the layout of
+    the batch in flight, so a resumed sweep gives the uninterrupted rows."""
+    sig_dev = torch.as_tensor(sigmas, device=device)
+    stats = [SnrStats(snr=s, units_per_frame=units_per_frame) for s in points]
+    ck = _Checkpoint(checkpoint, key_salt) if checkpoint else None
+    bi0, inflight0 = 0, None
+    if ck and ck.state.get("packed"):
+        saved = ck.state["packed"]
+        stats = [SnrStats.from_checkpoint(d) for d in saved["stats"]]
+        bi0 = saved["batch_idx"]
+        inflight0 = saved.get("inflight") or None
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    _write_logo(kind, banner, out_dir, quiet)
+    bi = consumed = bi0
+    pending = None           # (fetch of the [S, 6] counters, active points)
+    t_last = time.perf_counter()
+    while True:
+        active = inflight0 if inflight0 is not None else _unfinished(stats,
+                                                                     sweep)
+        inflight0 = None
+        nxt = None
+        if active:
+            pid = _round_robin(active, B, device)
+            nxt = (_Fetch(fn(_generator(device, sweep.seed, bi),
+                             sig_dev[pid], pid)), active)
+            bi += 1
+        if pending is not None:
+            seg = pending[0].wait()
+            now = time.perf_counter()
+            _accumulate(stats, seg, now - t_last, info_bits_per_frame,
+                        timed=consumed != bi0)   # the first absorbs builds
+            t_last = now
+            consumed += 1
+            if ck:
+                ck.state["packed"] = {
+                    "stats": [dataclasses.asdict(st) for st in stats],
+                    "batch_idx": consumed,
+                    "inflight": list(nxt[1]) if nxt is not None else None}
+                ck.save(None, 0, 0)
+        pending = nxt
+        if nxt is None:
+            break
+    rows = []
+    for st in stats:
+        _emit(st.row(kind), st.to_dict(kind), out_dir, quiet)
+        rows.append(st.to_dict(kind))
+    return SweepResult(rows=rows)
+
+
+def _save_state(path: str, state: list, pending: list):
+    """The slot state and the in-flight call's counters, atomically."""
+    arrs = {f"leaf{i}": x.cpu().numpy() for i, x in enumerate(state)}
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, pending=np.asarray(pending, np.int64),
+                 nleaves=len(state), **arrs)
+    os.replace(tmp, path)
+
+
+def _load_state(path: str, device: torch.device):
+    with np.load(path) as d:
+        pending = _Fetch(torch.from_numpy(d["pending"]))
+        state = [torch.from_numpy(d[f"leaf{i}"]).to(device)
+                 for i in range(int(d["nleaves"]))]
+    return pending, state
+
+
+_STREAM_TEST_INTERRUPT: int | None = None   # tests: stop after N consumes
+
+
+def _run_stream(kind: str, sweep: cfg.SweepConfig, sigmas: np.ndarray,
+                engine: StreamEngine, units_per_frame: int,
+                info_bits_per_frame: int, banner: list[str], out_dir,
+                checkpoint, quiet, device: torch.device,
+                key_salt: str) -> SweepResult:
+    """Sequential stream sweep (sim.py:2112-2237 of the JAX package): per
+    SNR point, one call in flight, the stop rule on collected counters,
+    then a drain that finishes every frame in flight, so the tally is
+    unbiased.  Every ``sweep.stream_ckpt_s`` seconds the slot state, the
+    stats, the next call index and the in-flight call's counters go to
+    ``<checkpoint>.state.npz`` and the checkpoint; a resumed sweep goes on
+    with the same calls and noise and gives the uninterrupted run's rows."""
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    _write_logo(kind, banner, out_dir, quiet)
+    ck = _Checkpoint(checkpoint, key_salt)
+    spath = (checkpoint + ".state.npz") if checkpoint else None
+    rows: list[dict] = []
+    drain_first = True
+    consumed_calls = 0
+    zero_pid = torch.zeros(engine.B, dtype=torch.int64, device=device)
+    for si, snr in enumerate(sweep.snr_points()):
+        done_row = ck.done_rows().get(f"{snr:g}")
+        if done_row is not None:
+            rows.append(done_row)
+            continue
+        sig_table = torch.as_tensor(sigmas[si:si + 1], device=device)
+        stats = [SnrStats(snr=snr, units_per_frame=units_per_frame)]
+        ci, pending = 1, None
+        cur = ck.current(snr)
+        if cur and cur.get("stream_ci") and spath and os.path.exists(spath):
+            stats = [SnrStats.from_checkpoint(cur["stats"])]
+            ci = cur["stream_ci"]
+            pending, state = _load_state(spath, device)
+        else:
+            state = engine.init(_generator(device, sweep.seed, si, 0),
+                                sig_table, zero_pid)
+        t_last = t_ckpt = time.perf_counter()
+        first = True             # the first consume absorbs builds; untimed
+        st = stats[0]
+        next_display = (st.frames // sweep.display_step + 1) * sweep.display_step
+
+        def consume(fetch, timed=True):
+            nonlocal t_last, next_display
+            now = time.perf_counter()
+            _accumulate(stats, [fetch.wait()], now - t_last,
+                        info_bits_per_frame, timed)
+            t_last = now
+            if st.frames >= next_display:
+                _emit(st.row(kind), st.to_dict(kind), out_dir, quiet)
+                next_display = ((st.frames // sweep.display_step + 1)
+                                * sweep.display_step)
+
+        def save(out, ci_now):
+            if spath:
+                _save_state(spath, state, out.wait())
+                ck.save(st, 0, units_per_frame, {"stream_ci": ci_now})
+
+        while True:
+            # the stop rule before each launch: a sweep resumed from a save
+            # made at the point's last call stops where the uninterrupted
+            # run stopped
+            if pending is not None and _point_done(st, sweep):
+                break
+            state, out = engine.run(state, (sweep.seed, si, ci), sig_table,
+                                    zero_pid)
+            out = _Fetch(out[0])
+            ci += 1
+            if pending is not None:
+                consume(pending, timed=not first)
+                first = False
+                consumed_calls += 1
+                if (_STREAM_TEST_INTERRUPT is not None
+                        and consumed_calls >= _STREAM_TEST_INTERRUPT):
+                    save(out, ci)
+                    raise KeyboardInterrupt("stream test interrupt")
+                now = time.perf_counter()
+                if now - t_ckpt >= sweep.stream_ckpt_s:
+                    save(out, ci)
+                    t_ckpt = now
+            pending = out
+        consume(pending, timed=not first)
+        state, out = engine.drain(state)
+        # the first drain of the sweep may absorb a kernel build: untimed
+        consume(_Fetch(out[0]), timed=not drain_first)
+        drain_first = False
+        _emit(st.row(kind), st.to_dict(kind), out_dir, quiet)
+        ck.finish_point(st, kind)
+        if spath and os.path.exists(spath):
+            os.remove(spath)             # state consumed; drop the stale npz
+        rows.append(st.to_dict(kind))
+    return SweepResult(rows=rows)
+
+
+def _run_stream_packed(kind: str, sweep: cfg.SweepConfig,
+                       points: list[float], sigmas: np.ndarray,
+                       engine: StreamEngine, units_per_frame: int,
+                       info_bits_per_frame: int, banner: list[str], out_dir,
+                       checkpoint, quiet, device: torch.device,
+                       key_salt: str) -> SweepResult:
+    """Packed stream sweep (sim.py:1911-2047 of the JAX package): one slot
+    pool serves every unfinished point; each call's refills take point ids
+    round-robin over the unfinished set; one call in flight; a final drain
+    finishes every frame in flight.  The checkpoint keeps the counters, the
+    slot state and the in-flight call's counters (<checkpoint>.pstate.npz):
+    no started frame is lost, and a resumed sweep repeats the uninterrupted
+    run's calls, noise and rows."""
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    _write_logo(kind, banner, out_dir, quiet)
+    ck = _Checkpoint(checkpoint, key_salt)
+    spath = (checkpoint + ".pstate.npz") if checkpoint else None
+    done_rows = [ck.done_rows().get(f"{s:g}") for s in points]
+    if all(r is not None for r in done_rows):
+        return SweepResult(rows=done_rows)      # a finished sweep re-run
+    sig_table = torch.as_tensor(sigmas, device=device)
+    stats = [SnrStats(snr=s, units_per_frame=units_per_frame) for s in points]
+    B = engine.B
+    ci, pending = 1, None
+    saved = ck.state.get("stream_packed")
+    if saved and spath and os.path.exists(spath):
+        stats = [SnrStats.from_checkpoint(d) for d in saved["stats"]]
+        ci = saved["ci"]
+        pending, state = _load_state(spath, device)
+    else:
+        state = engine.init(_generator(device, sweep.seed, 0), sig_table,
+                            _round_robin(_unfinished(stats, sweep), B,
+                                         device))
+    t_last = t_ckpt = time.perf_counter()
+    first = True
+    consumed = 0
+
+    def consume(fetch, timed=True):
+        nonlocal t_last
+        now = time.perf_counter()
+        _accumulate(stats, fetch.wait(), now - t_last, info_bits_per_frame,
+                    timed)
+        t_last = now
+
+    def save(out, ci_now):
+        if spath:
+            _save_state(spath, state, out.wait())
+            ck.state["stream_packed"] = {
+                "stats": [dataclasses.asdict(st) for st in stats],
+                "ci": ci_now}
+            ck.save(None, 0, 0)
+
+    while True:
+        active = _unfinished(stats, sweep)
+        nxt = None
+        if active:
+            state, out = engine.run(state, (sweep.seed, ci), sig_table,
+                                    _round_robin(active, B, device))
+            nxt = _Fetch(out)
+            ci += 1
+        if pending is not None:
+            consume(pending, timed=not first)
+            first = False
+            consumed += 1
+            if (_STREAM_TEST_INTERRUPT is not None and nxt is not None
+                    and consumed >= _STREAM_TEST_INTERRUPT):
+                save(nxt, ci)
+                raise KeyboardInterrupt("packed stream test interrupt")
+            now = time.perf_counter()
+            if nxt is not None and now - t_ckpt >= sweep.stream_ckpt_s:
+                save(nxt, ci)
+                t_ckpt = now
+        pending = nxt
+        if nxt is None:
+            break
+    state, out = engine.drain(state)
+    consume(_Fetch(out), timed=False)      # the drain may absorb a build
+    rows = []
+    for st in stats:
+        _emit(st.row(kind), st.to_dict(kind), out_dir, quiet)
+        rows.append(st.to_dict(kind))
+    if ck.path:
+        ck.state.pop("stream_packed", None)
+        for st in stats:
+            ck.finish_point(st, kind)
+    if spath and os.path.exists(spath):
+        os.remove(spath)
+    return SweepResult(rows=rows)

@@ -171,7 +171,11 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "cuda_ldpc_torch.ops.cuda_qspa_qc", "cuda_ldpc_torch.ops.nb_decode",
             "cuda_ldpc_torch.ops.demod", "cuda_ldpc_torch.models.nb_code",
             "cuda_ldpc_torch.utils.gf",
-            "cuda_ldpc_torch.utils.constellations"} <= set(mods)
+            "cuda_ldpc_torch.utils.constellations",
+            "cuda_ldpc_torch.ops.minsum_stream",
+            "cuda_ldpc_torch.ops.qspa_stream",
+            "cuda_ldpc_torch.ops.cuda_minsum_stream",
+            "cuda_ldpc_torch.ops.cuda_qspa_stream"} <= set(mods)
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "cuda_ldpc_torch"])

@@ -104,8 +104,8 @@ def test_nb_dispatch():
     (["--method", "layered_tmm"], "K8"),
     (["--method", "glayered_tmm"], "K8"),
     (["--method", "qspa", "--tx", "random"], "NBEncoder"),
-    (["--method", "qspa", "--packed"], "item 14"),
-    (["--method", "qspa", "--engine", "stream"], "item 14"),
+    (["--method", "qspa", "--packed", "--tx", "random"], "NBEncoder"),
+    (["--method", "ems", "--engine", "stream"], "item 12"),
     (["--method", "qspa", "--profile", "trace"], "item 6"),
 ])
 def test_cli_nb_refuses_unported_options(argv, item, capsys):

@@ -216,9 +216,11 @@ def test_clopper_pearson_matches_jax(errors, frames):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--rule", "bp", "--packed"], ["--schedule", "layered", "--engine",
-                                   "stream"], ["--packed"],
-    ["--engine", "stream"], ["--tx", "random"], ["--profile", "trace"],
+    ["--rule", "bp", "--packed", "--tx", "random"],
+    ["--schedule", "layered", "--engine", "stream", "--msg-dtype",
+     "bfloat16"], ["--packed", "--profile", "trace"],
+    ["--engine", "stream", "--tx", "random"], ["--tx", "random"],
+    ["--profile", "trace"],
 ])
 def test_cli_rejects_unported_options(argv, capsys):
     with pytest.raises(SystemExit) as exc:
