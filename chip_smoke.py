@@ -74,6 +74,22 @@ The stream steps K4 (binary) and K7 (GF(q)) join each phase:
               and K7, BDS, B=4096, 10 passes at 0 dB from fresh slots, each
               with its plain version in turns; the refill of one call; the
               stream sweeps' throughput beside the batch sweeps'
+The max-domain decoder K8 (EMS Nm=2/Nc=2, TMM, layered TMM) joins each
+phase:
+  parity      K8 against its plain version, each method on
+              BDS.576.288.GF.64 and LDPC_N576_K288_GF64_d1_exp: B=4096
+              where most frames converge and where few do, a ragged 37,
+              max_iters 0, 1 and 20; hard, ok and iters exactly equal
+  main        `nb` with no --method (ems) on BDS at Eb/N0 1 and 2 dB, then
+              tmm and layered_tmm, FER compatible with VALIDATION.md:19,
+              23, 24; `nb --packed` ems; `nb --engine stream --method ems`
+              refused on the card, naming the ROADMAP item; the committed
+              GF(q) workload (ems, maxIT 20, Eb/N0 0:0.5:5, >=50 errors and
+              >=1000 frames) as one packed sweep with a frame cap, each
+              point reported as stopped by the rule or by the cap
+  timing      K8, BDS, B=4096, at most 10 passes at 0 dB from fresh frames,
+              each method against its plain version in turns, and the c2v
+              messages in shared memory against device memory in turns
 The last lines are the card line, the kernels' JSON and
 {"ok": true, "device": {...}}.
 """
@@ -115,6 +131,12 @@ KERNELS = [
      "cuda_ldpc_tpu/ops/pallas_minsum_stream.py:54"),
     ("qspa_stream", "cuda_ldpc_torch/csrc/qspa_stream.cu",
      "cuda_ldpc_tpu/ops/pallas_qspa_stream.py:136"),
+    ("nbms_ems", "cuda_ldpc_torch/csrc/nbms.cu",
+     "cuda_ldpc_tpu/ops/pallas_nbms.py:376"),
+    ("nbms_tmm", "cuda_ldpc_torch/csrc/nbms.cu",
+     "cuda_ldpc_tpu/ops/pallas_nbms.py:376"),
+    ("nbms_layered_tmm", "cuda_ldpc_torch/csrc/nbms.cu",
+     "cuda_ldpc_tpu/ops/pallas_nbms.py:376"),
 ]
 BINARY = KERNELS[:4]
 
@@ -237,10 +259,49 @@ def qspa_stream_bound_ms(N: int, E: int, q: int, batch: int, passes: int,
                                        else "operations")
 
 
+def nbms_bound_ms(N: int, M: int, E: int, q: int, batch: int, iters,
+                  max_iters: int, method: str) -> tuple[float, str]:
+    """The least time the card could take for one K8 decode call that gave
+    per-frame iteration counts ``iters``: the larger of the bytes it must
+    move (chan [B, N, q] f32 read once; hard [B, N] i32, ok [B] and iters
+    [B] i32 written once) over the HBM rate, and its fp32 operations over
+    the fp32 peak.  Updates and passes per frame as in ``qspa_bound_ms``.
+    Operations are counted from csrc/nbms.cu, each add, subtract,
+    multiply, fma, compare, max, min or select as one (index and GF table
+    arithmetic not counted), on full rows of dc = E / M edges.  EMS, per
+    edge and symbol and update: 1 (v2c) + 3 (max, first argmax) + 1 (W) +
+    4 (the best non-zero offset) + (dc - 2) (max over the other edges) + 2
+    (output); per edge, the (dc-1)(dc-2)/2 pairs of other edges at 1 + q
+    each.  TMM, per edge and symbol: 1 (v2c) + 3 (min, first argmin) + 1
+    (dU) + 4 (min1, min2, column) + 4 (the output, 3 more for layered's
+    write-back); per row, q^2 candidates at 10 (three compares, two ands,
+    a max, a select, a compare, two selects) and 6 per eta for the I/E
+    choice.  Per pass, 2 per VN and symbol for the decision and, flooding,
+    1 add per edge and symbol plus 1 per VN and symbol for the totals."""
+    iters = [int(i) for i in iters]
+    updates = sum(min(i, max_iters - 1) for i in iters)
+    passes = sum(min(i + 1, max_iters) for i in iters)
+    dc = E // M
+    if method == "ems":
+        per_update = (E * q * (11 + dc - 2)
+                      + E * (dc - 1) * (dc - 2) // 2 * (1 + q))
+    else:
+        per_update = (E * q * (13 + (3 if method == "layered_tmm" else 0))
+                      + M * (10 * q * q + 6 * q))
+    ops = updates * per_update + passes * 2 * N * q
+    if method != "layered_tmm":
+        ops += passes * (E + N) * q
+    nbytes = batch * N * q * 4 + batch * N * 4 + batch * 5
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
 def time_turns(launch, reps: dict) -> dict:
-    """Milliseconds per batch of ``launch(which, i)`` for which in
-    'plain' and 'kernel', in turns plain, kernel, kernel, plain: host clock,
-    one batch in flight, device synchronised."""
+    """Milliseconds per batch of ``launch(which, i)`` for the two keys of
+    ``reps`` ('plain' and 'kernel' unless named otherwise), in turns a, b,
+    b, a with 'plain' first: host clock, one batch in flight, device
+    synchronised."""
     import torch
 
     def time_one(which: str) -> float:
@@ -261,8 +322,9 @@ def time_turns(launch, reps: dict) -> dict:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / reps[which]
 
-    runs = {"kernel": [], "plain": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
+    a, b = sorted(reps, key=lambda k: k != "plain")
+    runs = {a: [], b: []}
+    for which in (a, b, b, a):
         runs[which].append(time_one(which))
     return runs
 
@@ -292,7 +354,7 @@ def main() -> int:
     from cuda_ldpc_torch import NBCode, QCBinaryCode, cli, sim
     from cuda_ldpc_torch import config as cfg
     from cuda_ldpc_torch.ops import (_build, channel, cuda_minsum,
-                                     cuda_minsum_stream, cuda_qspa,
+                                     cuda_minsum_stream, cuda_nbms, cuda_qspa,
                                      cuda_qspa_qc, cuda_qspa_stream, demod,
                                      minsum, minsum_stream, nb_decode,
                                      qspa_stream)
@@ -301,7 +363,7 @@ def main() -> int:
     from cuda_ldpc_torch.utils.stats import rates_compatible
 
     wrappers = (cuda_minsum, cuda_qspa, cuda_qspa_qc, cuda_minsum_stream,
-                cuda_qspa_stream)
+                cuda_qspa_stream, cuda_nbms)
 
     # ---- 1. device
     dev = torch.device("cuda", 0)
@@ -472,6 +534,49 @@ def main() -> int:
                                  f"{nb_cases[i]}")
         del a, b, L, hard_diff
     torch.cuda.empty_cache()
+
+    # K8 against the plain nb_decode: every output exactly equal
+    k8_pairs = {
+        "nbms_ems": (cuda_nbms.decode_ems, nb_decode.decode_ems),
+        "nbms_tmm": (cuda_nbms.decode_tmm, nb_decode.decode_tmm),
+        "nbms_layered_tmm": (cuda_nbms.decode_layered_tmm,
+                             nb_decode.decode_layered_tmm),
+    }
+    k8_cases = [
+        # code, Eb/N0, batch, iterations
+        ("BDS.576.288.GF.64", 3.0, 4096, 20),       # most frames converge
+        ("BDS.576.288.GF.64", 0.5, 1024, 20),       # few do
+        ("BDS.576.288.GF.64", 1.0, 4096, 1),
+        ("BDS.576.288.GF.64", 2.0, 37, 20),
+        ("BDS.576.288.GF.64", 2.0, 64, 0),
+        ("LDPC_N576_K288_GF64_d1_exp", 3.0, 4096, 20),
+        ("LDPC_N576_K288_GF64_d1_exp", 1.0, 512, 20),
+    ]
+    for key in k8_pairs:
+        for i, (name, ebn0, B, iters) in enumerate(k8_cases):
+            code = nb_code(name)
+            L = nb_chan(code, ebn0, B, seed=800 + i)
+            kernel, plain = k8_pairs[key]
+            a = kernel(L, code, iters)
+            b = plain(L, code, iters)
+            torch.cuda.synchronize()
+            counts = {"hard": int((a.hard != b.hard).sum()),
+                      "ok": int((a.ok != b.ok).sum()),
+                      "iters": int((a.iters != b.iters).sum())}
+            err = max([int((a.hard - b.hard).abs().max()) if B else 0,
+                       counts["ok"] > 0,
+                       int((a.iters - b.iters).abs().max()) if B else 0])
+            max_err[key] = max(max_err[key], float(err))
+            mismatches[key] += sum(counts.values())
+            _emit("parity", kernel=key, code=name, ebn0=ebn0, batch=B,
+                  iters=iters, frames_ok=int(b.ok.sum()),
+                  avg_iters=float(b.iters.float().mean()),
+                  mismatches=counts, max_abs_err=err)
+            if any(counts.values()):
+                raise AssertionError(f"K8 != plain on {key} {k8_cases[i]}: "
+                                     f"{counts}")
+            del a, b, L
+        torch.cuda.empty_cache()
 
     # K4 and K7 against their plain versions over the stream engines' call
     # sequence: k = 1, refill, k = 16, refill, drain (k = max_iters + 1);
@@ -876,6 +981,64 @@ def main() -> int:
         else:
             raise AssertionError("the stream engine ran Tanner_74_9_Z128_"
                                  "GF16 under kernel auto")
+        # ---- the max-domain decoders through the CLI: K8
+        # VALIDATION.md:19, 23, 24 (2048 frames a point): ems 0.999 and
+        # 0.7886, tmm 0.9805 and 0.5483, layered_tmm 0.5303 and 0.01465 at
+        # Eb/N0 1 and 2 dB
+        for label, kernel, method, refs in [
+                ("bds_ems", "nbms_ems", None, ((2046, 2048), (1615, 2048))),
+                ("bds_tmm", "nbms_tmm", "tmm", ((2008, 2048), (1123, 2048))),
+                ("bds_layered_tmm", "nbms_layered_tmm", "layered_tmm",
+                 ((1086, 2048), (30, 2048)))]:
+            got, n = drive(tmp, label, kernel,
+                           bds12 + (["--method", method] if method else []))
+            launches[kernel] = n
+            for r, ref in zip(got, refs):
+                anchor(label, "BDS.576.288.GF.64", r["snr"], r, ref)
+        got, _ = drive(tmp, "bds_ems_packed", "nbms_ems", bds12 + ["--packed"])
+        for r, ref in zip(got, ((2046, 2048), (1615, 2048))):
+            anchor("bds_ems_packed", "BDS.576.288.GF.64", r["snr"], r, ref)
+        try:
+            _sweep(cli, os.path.join(tmp, "refused_ems_stream"),
+                   bds12 + stream + ["--method", "ems"])
+        except ValueError as e:
+            if "ROADMAP.md Queue 1 item 20" not in str(e):
+                raise
+            _emit("refused", sweep="bds ems --engine stream", error=str(e))
+        else:
+            raise AssertionError("the stream engine ran ems under kernel "
+                                 "auto")
+
+        # the GF(q) committed workload (myNBLDPC/include/define.h:23-61),
+        # capped here at 40,960 frames a point
+        cap = 40960
+        committed = ["nb", "--code", "BDS.576.288.GF.64", "--packed",
+                     "--snr", "0:0.5:5", "--snr-type", "ebn0",
+                     "--max-iters", "20", "--batch", "4096",
+                     "--least-error-frames", "50", "--least-test-frames",
+                     "1000", "--max-frames", str(cap)]
+        t0 = time.perf_counter()
+        grid, _ = drive(tmp, "bds_ems_committed", "nbms_ems", committed)
+        grid_s = time.perf_counter() - t0
+        met = [r["snr"] for r in grid
+               if r["error_frames"] >= 50 and r["frames"] >= 1000]
+        _emit("committed_gfq", points=len(grid), seconds=grid_s, cap=cap,
+              stop_rule_met=met,
+              capped=[r["snr"] for r in grid if r["snr"] not in met],
+              card=card)
+        if len(grid) != 11:
+            raise AssertionError(f"the GF(q) grid has {len(grid)} points")
+        for r in grid:
+            if abs(r["snr"] - 1.0) < 1e-6:
+                anchor("bds_ems_committed", "BDS.576.288.GF.64", 1.0, r,
+                       (2046, 2048))
+            elif abs(r["snr"] - 2.0) < 1e-6:
+                anchor("bds_ems_committed", "BDS.576.288.GF.64", 2.0, r,
+                       (1615, 2048))
+            elif abs(r["snr"] - 3.0) < 1e-6:
+                anchor("bds_ems_committed", "BDS.576.288.GF.64", 3.0, r,
+                       (105, 2048))
+
         _emit("stream_vs_batch", card=card, info_mbps=[
             (label, [(a["snr"], a["info_mbps"], b["info_mbps"])
                      for a, b in zip(got, batch_rows)])
@@ -1059,6 +1222,49 @@ def main() -> int:
               bound_ms=bound, bound_by=bound_by)
         del states
         torch.cuda.empty_cache()
+
+    # K8: BDS.576.288.GF.64, B=4096, at most 10 passes at 0 dB from fresh
+    # frames, each method against its plain version in turns; then the c2v
+    # messages in device memory (the default) against shared memory, in
+    # turns, each checked against the plain result
+    code, B, iters = nb_code("BDS.576.288.GF.64"), 4096, 10
+    chans = [nb_chan(code, 0.0, B, seed=47 + i) for i in range(2)]
+    plan = cuda_nbms.make_plan(code)
+    for key, (kernel, plain) in k8_pairs.items():
+        decoders = {"kernel": kernel, "plain": plain}
+
+        def launch(which, i):
+            return decoders[which](chans[i % 2], code, iters)
+
+        runs = time_turns(launch, {
+            "plain": 1 if key == "nbms_layered_tmm" else 3, "kernel": 20})
+        ms = {k: statistics.median(v) for k, v in runs.items()}
+        ref = launch("plain", 0)
+        res = launch("kernel", 0)
+        bound, bound_by = nbms_bound_ms(code.n_sym, code.m_sym, plan.E,
+                                        code.q, B, res.iters.tolist(), iters,
+                                        key[len("nbms_"):])
+
+        def placed(which, i):
+            return kernel(chans[i % 2], code, iters,
+                          c_shared=which == "shared")
+
+        where = time_turns(placed, {"device": 20, "shared": 20})
+        other = placed("shared", 0)
+        for x, y, z in zip(res, other, ref):
+            if not (torch.equal(x, z) and torch.equal(y, z)):
+                raise AssertionError(f"{key}: the timed calls differ from "
+                                     "the plain version")
+        timing[key] = (ms, bound, bound_by)
+        _emit("timing", kernel=key, code=code.name, batch=B, ebn0=0.0,
+              max_passes=iters, avg_iters=float(res.iters.float().mean()),
+              card=card, ms_per_batch=runs, c2v_placement_ms=where,
+              info_mbps={k: B * code.k_sym * code.q_bit / (v / 1e3) / 1e6
+                         for k, v in ms.items()},
+              bound_ms=bound, bound_by=bound_by)
+        del res, ref, other
+        torch.cuda.empty_cache()
+    del chans
 
     # ---- the kernels, the card, and the result
     if slower:

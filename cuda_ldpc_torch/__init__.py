@@ -13,15 +13,17 @@ Layout:
                structure)
     ops/       channel, demod (GF(q) symbol LLRs), minsum (plain PyTorch:
                flooding and layered, min-sum and sum-product), nb_decode
-               (plain PyTorch: GF(q) FFT-QSPA, flooding, layered and
-               grouped layered), cuda_minsum, cuda_qspa and cuda_qspa_qc
-               (kernel wrappers), _build (nvcc + ctypes loader)
+               (plain PyTorch: GF(q) FFT-QSPA, EMS and TMM, flooding,
+               layered and grouped layered), the stream steps, cuda_minsum,
+               cuda_qspa, cuda_qspa_qc, cuda_nbms and the stream kernels'
+               wrappers, _build (nvcc + ctypes loader)
     csrc/      CUDA C++ kernel sources, built at first use
     utils/     registry + io (code assets), gf (GF(2^m) tables),
                constellations, lcg + native (the reference's channel),
                device resolution, binomial confidence intervals
     config.py  sweep and decoder configuration
-    sim.py     Monte-Carlo SNR sweeps (binary and GF(q) batch engines)
+    sim.py     Monte-Carlo SNR sweeps (binary and GF(q); batch, packed and
+               stream engines)
     cli.py     python -m cuda_ldpc_torch
 """
 

@@ -137,10 +137,16 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["ems", "ems_full", "qspa", "layered_qspa",
                             "glayered_qspa", "tmm", "layered_tmm",
                             "glayered_tmm"],
-                   help="the port runs qspa, layered_qspa and glayered_qspa; "
-                        "the default, ems, is not ported yet")
-    n.add_argument("--nm", type=int, default=nd.decoder.nm)
-    n.add_argument("--nc", type=int, default=nd.decoder.nc)
+                   help="decoder: ems (the reference's default, Nm/Nc "
+                        "below), ems_full, tmm, layered_tmm, glayered_tmm "
+                        "(max domain) or qspa, layered_qspa, glayered_qspa "
+                        "(exact sum-product)")
+    n.add_argument("--nm", type=int, default=nd.decoder.nm,
+                   help="EMS: slots per edge in the configuration sets "
+                        "(EMS_NM); the card's kernel runs 2")
+    n.add_argument("--nc", type=int, default=nd.decoder.nc,
+                   help="EMS: edges that may deviate (EMS_NC); the card's "
+                        "kernel runs 2")
     n.add_argument("--max-iters", type=int, default=nd.decoder.max_iters)
     n.add_argument("--n-qam", type=int, default=nd.n_qam,
                    choices=[2, 64, 256])

@@ -1,7 +1,7 @@
 // Shared by the GF(q) FFT-QSPA decoders (qspa.cu, K5; qspa_qc.cu, K6;
-// qspa_stream.cu, K7): the GF(q) tables, the phases of one frame's pass on
-// the adjacency codes (K5 and K7), and the per-edge steps of the check-node
-// update on one
+// qspa_stream.cu, K7) and the max-domain decoders (nbms.cu, K8): the GF(q)
+// tables, the phases of one frame's pass on the adjacency codes (K5, K7 and
+// K8), and the per-edge steps of the check-node update on one
 // q-vector spread over a group of W lanes (W = 32 for K5, W = q for K6),
 // R = q / W registers per lane: symbol y sits in lane y % W, register y / W.
 //
@@ -153,6 +153,31 @@ static __device__ __forceinline__ int group_argmax(const float (&x)[R],
   return arg;
 }
 
+// First minimum of a q-vector (the smallest symbol on ties, torch.argmin's
+// rule), returned to every lane of the group.
+template <int R, int W>
+static __device__ __forceinline__ int group_argmin(const float (&x)[R],
+                                                   int lane) {
+  float best = x[0];
+  int arg = lane;
+#pragma unroll
+  for (int j = 1; j < R; ++j)
+    if (x[j] < best) {
+      best = x[j];
+      arg = lane + W * j;
+    }
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1) {
+    const float ob = __shfl_xor_sync(kFull, best, o, W);
+    const int oa = __shfl_xor_sync(kFull, arg, o, W);
+    if (ob < best || (ob == best && oa < arg)) {
+      best = ob;
+      arg = oa;
+    }
+  }
+  return arg;
+}
+
 // ---- The phases of one frame's pass for the adjacency-code kernels (K5,
 // qspa.cu; K7, qspa_stream.cu): one block per frame, 32 * max_dc threads,
 // the totals T [N, Q] in shared memory, the frame's c2v messages Cb [E, Q]
@@ -177,9 +202,10 @@ static __device__ __forceinline__ void frame_totals(
   }
 }
 
-// The decisions hs[n] = argmax T[n], one warp per VN, then the GF syndrome:
-// returns 1 to every thread when some row's XOR of h * x is not 0.
-template <int R>
+// The decisions hs[n] = argmax T[n] (argmin when kMin, the max-domain TMM
+// decoders of nbms.cu), one warp per VN, then the GF syndrome: returns 1 to
+// every thread when some row's XOR of h * x is not 0.
+template <int R, bool kMin = false>
 static __device__ __forceinline__ int frame_decide_check(
     const float* T, int* hs, const int* lg, const int* ex,
     const int* __restrict__ row_ptr, const int* __restrict__ edge_vn,
@@ -191,7 +217,8 @@ static __device__ __forceinline__ int frame_decide_check(
     float x[R];
 #pragma unroll
     for (int j = 0; j < R; ++j) x[j] = T[n * Q + lane + 32 * j];
-    const int arg = group_argmax<R, 32>(x, lane);
+    const int arg =
+        kMin ? group_argmin<R, 32>(x, lane) : group_argmax<R, 32>(x, lane);
     if (lane == 0) hs[n] = arg;
   }
   __syncthreads();

@@ -139,6 +139,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                   # device
         + [p])                    # stream
     lib.ldpc_qspa_qc.restype = i
+    lib.ldpc_nbms.argtypes = (
+        [p] * 12                  # chan C hard ok iters + 5 edge tables +
+                                  # gf_log gf_exp
+        + [i] * 9                 # B N M E q max_dc num_iters method
+                                  # c_shared
+        + [i, p])                 # device stream
+    lib.ldpc_nbms.restype = i
     lib.ldpc_error_string.argtypes = [i]
     lib.ldpc_error_string.restype = ctypes.c_char_p
     lib.ldpc_max_row_degree.argtypes = []

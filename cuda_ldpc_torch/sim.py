@@ -56,6 +56,7 @@ from cuda_ldpc_torch import config as cfg
 from cuda_ldpc_torch.models.nb_code import NBCode
 from cuda_ldpc_torch.models.qc_binary import QCBinaryCode
 from cuda_ldpc_torch.ops import (channel, cuda_minsum, cuda_minsum_stream,
+                                 cuda_nbms,
                                  cuda_qspa, cuda_qspa_qc, cuda_qspa_stream,
                                  demod, minsum, nb_decode)
 from cuda_ldpc_torch.utils import lcg as pylcg
@@ -318,7 +319,6 @@ NOT_PORTED = {
     "profile": "Queue 1 item 6 (bench and tracing)",
     "msg_dtype": "Queue 1 item 4 (bfloat16 message storage)",
     "nb tx=random": "Queue 1 items 7 and 11 (NBEncoder)",
-    "nb method": "Queue 1 item 12 and kernel K8 (EMS/TMM)",
 }
 
 
@@ -903,10 +903,19 @@ def _stream_key(sim, kind: str, engine: StreamEngine,
 # non-binary simulator
 # --------------------------------------------------------------------------
 
-# (code, method) pairs with no CUDA kernel yet: the kernels run the qspa and
-# layered_qspa schedules on the adjacency codes (K5) and qspa and
-# glayered_qspa on the QC code (K6).
+# (code, method) pairs with no CUDA kernel yet, and the ROADMAP.md item that
+# ports them: the QSPA kernels run qspa and layered_qspa on the adjacency
+# codes (K5) and qspa and glayered_qspa on the QC code (K6); the max-domain
+# kernel K8 runs ems (Nm = Nc = 2), tmm and layered_tmm on the adjacency
+# codes whose rows are full; no stream kernel runs a max-domain method.
 NO_KERNEL_ITEM = "Queue 1 item 13 (GF(q) kernels for the other (code, method) pairs)"
+NO_MAXDOMAIN_KERNEL_ITEM = ("Queue 1 item 19 (max-domain kernels beyond K8: "
+                            "ems_full, glayered_tmm, EMS with Nm/Nc other "
+                            "than 2/2, codes K8 does not take)")
+NO_MAXDOMAIN_STREAM_ITEM = ("Queue 1 item 20 (a stateful K8 for the stream "
+                            "engine)")
+K8_METHODS = {"ems": "decode_ems", "tmm": "decode_tmm",
+              "layered_tmm": "decode_layered_tmm"}
 
 
 def check_nb_ported(sim: cfg.NBSimConfig):
@@ -916,8 +925,6 @@ def check_nb_ported(sim: cfg.NBSimConfig):
     if method not in nb_decode.METHODS:
         raise ValueError(f"unknown NB decoder method {method!r} "
                          f"(expected one of {nb_decode.METHODS})")
-    if method not in nb_decode.QSPA_METHODS:
-        raise not_ported("nb method", f"method={method}")
     if sim.engine not in ("batch", "stream"):
         raise ValueError(f"unknown engine {sim.engine!r} "
                          "(expected 'batch' or 'stream')")
@@ -931,11 +938,13 @@ def _nb_decoder_fn(code: NBCode, dec: cfg.NBDecoderConfig,
                    device: torch.device) -> Callable:
     """GF(q) decoder dispatch.  ``auto`` on a CUDA device (and ``cuda``)
     takes K5 (csrc/qspa.cu) for qspa and layered_qspa on the codes it
-    supports and K6 (csrc/qspa_qc.cu) for qspa and glayered_qspa on the QC
-    code, and raises for a pair neither kernel runs, rather than run the
-    plain version silently; ``auto`` on the CPU and ``torch`` anywhere take
-    the plain version; ``cuda`` on the CPU raises.  Unlike the JAX package
-    (sim.py:1143-1152), K5 also serves flooding on the tiny GF(256) code."""
+    supports, K6 (csrc/qspa_qc.cu) for qspa and glayered_qspa on the QC
+    code and K8 (csrc/nbms.cu) for ems (Nm = Nc = 2), tmm and layered_tmm
+    on the codes it supports, and raises for a pair no kernel runs, rather
+    than run the plain version silently; ``auto`` on the CPU and ``torch``
+    anywhere take the plain version; ``cuda`` on the CPU raises.  Unlike
+    the JAX package (sim.py:1143-1187), whose ``auto`` keeps EMS and TMM on
+    jnp, the kernels serve every pair they take."""
     method, want = dec.method, dec.kernel
     if want not in ("auto", "torch", "cuda"):
         raise ValueError(f"unknown kernel {want!r} (expected auto|torch|cuda)")
@@ -951,12 +960,20 @@ def _nb_decoder_fn(code: NBCode, dec: cfg.NBDecoderConfig,
             if method in names and module.supports(code):
                 return functools.partial(getattr(module, names[method]),
                                          code=code, max_iters=dec.max_iters)
+        nmnc = (dec.nm, dec.nc) if method == "ems" else (2, 2)
+        if method in K8_METHODS and cuda_nbms.supports(code, *nmnc):
+            return functools.partial(getattr(cuda_nbms, K8_METHODS[method]),
+                                     code=code, max_iters=dec.max_iters)
+        item = (NO_KERNEL_ITEM if method in nb_decode.QSPA_METHODS
+                else NO_MAXDOMAIN_KERNEL_ITEM)
         raise ValueError(f"no CUDA kernel decodes {code.name} with "
-                         f"method={method!r} yet (ROADMAP.md "
-                         f"{NO_KERNEL_ITEM}); --kernel torch runs the plain "
-                         "PyTorch version")
+                         f"method={method!r}"
+                         + (f" Nm={dec.nm} Nc={dec.nc}" if method == "ems"
+                            else "")
+                         + f" yet (ROADMAP.md {item}); --kernel torch runs "
+                         "the plain PyTorch version")
     return functools.partial(nb_decode.decode, code=code, method=method,
-                             max_iters=dec.max_iters)
+                             max_iters=dec.max_iters, nm=dec.nm, nc=dec.nc)
 
 
 def _nb_tx(code: NBCode, sim: cfg.NBSimConfig):
@@ -1009,8 +1026,8 @@ def _nb_counters(res: nb_decode.NBDecodeResult,
 
 def make_nb_step(code: NBCode, sim: cfg.NBSimConfig, device: torch.device):
     """Batch step: codeword -> BPSK or QAM -> complex AWGN -> symbol LLRs ->
-    QSPA decode -> five counters on the device.  Returns
-    (fn(generator, sigma), batch)."""
+    decode with the configured method -> five counters on the device.
+    Returns (fn(generator, sigma), batch)."""
     check_nb_ported(sim)
     B = sim.batch_per_device
     src = _make_nb_source(code, sim, B, device)
@@ -1027,7 +1044,7 @@ def run_nb_sweep(sim: cfg.NBSimConfig, device: str | torch.device = "cuda",
                  out_dir: str | None = None, checkpoint: str | None = None,
                  quiet: bool = False) -> SweepResult:
     """GF(q) LDPC FER sweep on ``device``, one SNR point at a time (batch or
-    stream engine, FFT-QSPA family)."""
+    stream engine, any method of nb_decode.METHODS)."""
     device = resolve_device(device)
     code = NBCode.from_registry(sim.code)
     if sim.engine == "stream":
@@ -1070,8 +1087,9 @@ def _nb_banner(code: NBCode, sim: cfg.NBSimConfig, B: int,
     d, sweep = sim.decoder, sim.sweep
     return [
         f" code: {code!r}  [{engine}]",
-        f" decoder: {d.method}, Nm={d.nm}, Nc={d.nc}, maxIT={d.max_iters}, "
-        f"kernel={d.kernel}",
+        f" decoder: {d.method}"
+        + (f", Nm={d.nm}, Nc={d.nc}" if d.method == "ems" else "")
+        + f", maxIT={d.max_iters}, kernel={d.kernel}",
         f" modulation: {'BPSK' if sim.n_qam == 2 else f'{sim.n_qam}-QAM'}, "
         f"tx: {sim.tx}, batch: {B} ({device})",
         f" sweep: {sweep.snr_type} {sweep.snr_start}:{sweep.snr_step}:"
@@ -1083,7 +1101,7 @@ def _nb_banner(code: NBCode, sim: cfg.NBSimConfig, B: int,
 def make_nb_packed_step(code: NBCode, sim: cfg.NBSimConfig, n_points: int,
                         device: torch.device):
     """Packed multi-SNR GF(q) batch step: per-frame sigma and point id,
-    decoded with K5/K6 (or the plain version) through ``_nb_decoder_fn``;
+    decoded with K5/K6/K8 (or the plain version) through ``_nb_decoder_fn``;
     per-point counters [S, 6].  Returns (fn(generator, sigma_vec, pid),
     batch)."""
     check_nb_ported(sim)
@@ -1129,18 +1147,20 @@ def make_nb_stream_engine(code: NBCode, sim: cfg.NBSimConfig,
                           n_points: int = 1) -> StreamEngine:
     """The GF(q) continuous-batching engine: K7 (csrc/qspa_stream.cu) with
     per-call refill under ``auto`` on a card and ``cuda``, for qspa and
-    layered_qspa on the codes K7 takes, raising for any other pair; the
-    plain per-iteration engine over nb_decode.build_core (any QSPA method,
-    any code) under ``torch`` and on the CPU."""
+    layered_qspa on the codes K7 takes, raising for any other pair (no
+    stream kernel runs a max-domain method yet); the plain per-iteration
+    engine over nb_decode.build_core (any method, any code) under ``torch``
+    and on the CPU."""
     check_nb_ported(sim)
     dec = sim.decoder
     use_kernel = _stream_uses_kernel(dec.kernel, device)
     layered = {"qspa": False, "layered_qspa": True}.get(dec.method)
     if use_kernel and (layered is None or not cuda_qspa_stream.supports(code)):
+        item = (NO_KERNEL_ITEM if dec.method in nb_decode.QSPA_METHODS
+                else NO_MAXDOMAIN_STREAM_ITEM)
         raise ValueError(f"no CUDA stream kernel decodes {code.name} with "
-                         f"method={dec.method!r} yet (ROADMAP.md "
-                         f"{NO_KERNEL_ITEM}); --kernel torch runs the plain "
-                         "PyTorch version")
+                         f"method={dec.method!r} yet (ROADMAP.md {item}); "
+                         "--kernel torch runs the plain PyTorch version")
     B = sim.batch_per_device
     src = _make_nb_source(code, sim, B, device)
     tx = src.tx
@@ -1158,7 +1178,8 @@ def make_nb_stream_engine(code: NBCode, sim: cfg.NBSimConfig,
                                   max_iters=dec.max_iters, layered=layered)
         E = int(code.cn_mask.sum())
         return _kernel_stream(kstep, (E, code.q), *args)
-    core = nb_decode.build_core(code, dec.method, device)
+    core = nb_decode.build_core(code, dec.method, device, nm=dec.nm,
+                                nc=dec.nc)
     return _plain_stream(core, lambda hard: nb_decode._syndrome_ok(core.g,
                                                                    hard),
                          *args)

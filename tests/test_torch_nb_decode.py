@@ -220,10 +220,14 @@ def test_early_stop_changes_no_output():
 
 
 def test_other_methods_wait_for_their_slice():
+    """The max-domain methods came with their slice: each decodes here
+    (tests/test_torch_nb_maxdomain.py holds them to the JAX package); an
+    unknown method still raises."""
     code, _ = codes("BDS.576.288.GF.64")
-    L = torch.zeros(1, code.n_sym, code.q)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        nb_decode.decode(L, code, "ems", 2)
+    L = torch.from_numpy(channel_llr(code, 2, 6.0, seed=2))
+    for method in ("ems", "ems_full", "tmm", "layered_tmm", "glayered_tmm"):
+        res = nb_decode.decode(L, code, method, 2)
+        assert res.ok.all() and (res.iters == 1).all()
     with pytest.raises(ValueError, match="unknown"):
         nb_decode.decode(L, code, "bogus", 2)
 

@@ -2,7 +2,8 @@
 a batch against the JAX package's formula (sim.py:1253-1265) on the JAX
 decoder's output for the same numpy LLRs (exact: integer counts of frames
 whose decisions agree, see test_torch_nb_decode.py), the dispatch table,
-the sweep loop, and the refusals of what the port does not run yet."""
+the sweep loop, a tiny CPU sweep of every max-domain method, and the
+refusals of what the port does not run yet."""
 
 import json
 
@@ -14,7 +15,8 @@ import torch
 from cuda_ldpc_tpu.ops import nb_decode as jax_nb
 from cuda_ldpc_torch import cli, sim
 from cuda_ldpc_torch import config as cfg
-from cuda_ldpc_torch.ops import cuda_qspa, cuda_qspa_qc, demod, nb_decode
+from cuda_ldpc_torch.ops import (cuda_nbms, cuda_qspa, cuda_qspa_qc, demod,
+                                 nb_decode)
 from cuda_ldpc_torch.utils import registry
 
 from test_torch_nb_decode import codes
@@ -62,17 +64,22 @@ def test_counters_of_a_batch_match_jax(tx):
     assert 0 < theirs[1] < 8              # some frames fail, some succeed
 
 
+def _pick(code, method, kernel="auto", device=torch.device("cuda", 0),
+          nm=2, nc=2):
+    """The dispatch's choice; on a card nothing runs."""
+    dec = cfg.NBDecoderConfig(method=method, kernel=kernel, max_iters=7,
+                              nm=nm, nc=nc)
+    return sim._nb_decoder_fn(code, dec, device)
+
+
 def test_nb_dispatch():
     """auto on a card: K5 for qspa and layered_qspa on the adjacency codes,
     K6 for qspa and glayered_qspa on the QC code, an error for the pairs
     with no kernel; torch: the plain version; cuda on the CPU: an error."""
     bds, _ = codes("BDS.576.288.GF.64")
     tanner = sim.NBCode.from_registry("Tanner_74_9_Z128_GF16")
-    card, cpu = torch.device("cuda", 0), torch.device("cpu")   # nothing runs
-
-    def pick(code, method, kernel="auto", device=card):
-        dec = cfg.NBDecoderConfig(method=method, kernel=kernel, max_iters=7)
-        return sim._nb_decoder_fn(code, dec, device)
+    card, cpu = torch.device("cuda", 0), torch.device("cpu")
+    pick = _pick
 
     for code, method, fn in [
             (bds, "qspa", cuda_qspa.decode_flooding),
@@ -97,15 +104,69 @@ def test_nb_dispatch():
         pick(bds, "qspa", "pallas", cpu)
 
 
+K8_DISPATCH = [
+    # code, method, (nm, nc), what auto/cuda on a card takes
+    ("BDS.576.288.GF.64", "ems", (2, 2), cuda_nbms.decode_ems),
+    ("BDS.576.288.GF.64", "tmm", (2, 2), cuda_nbms.decode_tmm),
+    ("BDS.576.288.GF.64", "layered_tmm", (2, 2),
+     cuda_nbms.decode_layered_tmm),
+    ("LDPC_N576_K288_GF64_d1_exp", "ems", (2, 2), cuda_nbms.decode_ems),
+    ("LDPC_N576_K480_GF256_exp", "layered_tmm", (2, 2),
+     cuda_nbms.decode_layered_tmm),
+    ("LDPC_N576_K480_GF256_exp", "tmm", (3, 3), cuda_nbms.decode_tmm),
+    ("BDS.576.288.GF.64", "ems", (3, 2), None),
+    ("BDS.576.288.GF.64", "ems_full", (2, 2), None),
+    ("BDS.576.288.GF.64", "glayered_tmm", (2, 2), None),
+    ("Tanner_74_9_Z128_GF16", "ems", (2, 2), None),
+    ("Tanner_74_9_Z128_GF16", "layered_tmm", (2, 2), None),
+]
+
+
+@pytest.mark.parametrize("name,method,nmnc,fn", K8_DISPATCH,
+                         ids=[f"{c[0]}-{c[1]}-{c[2][0]}{c[2][1]}"
+                              for c in K8_DISPATCH])
+def test_nb_dispatch_max_domain(name, method, nmnc, fn):
+    """The max-domain methods: K8 where it takes the pair (Nm/Nc matter to
+    EMS only), else an error naming ROADMAP.md Queue 1 item 19 under auto
+    and cuda on a card; the plain version, with Nm/Nc, under torch and
+    under auto on the CPU; cuda on the CPU raises."""
+    code = sim.NBCode.from_registry(name)
+    cpu = torch.device("cpu")
+    for kernel in ("auto", "cuda"):
+        if fn is None:
+            with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 19"):
+                _pick(code, method, kernel, nm=nmnc[0], nc=nmnc[1])
+        else:
+            f = _pick(code, method, kernel, nm=nmnc[0], nc=nmnc[1])
+            assert f.func is fn and f.keywords == {"code": code,
+                                                   "max_iters": 7}
+    for kernel, device in [("torch", torch.device("cuda", 0)),
+                           ("torch", cpu), ("auto", cpu)]:
+        f = _pick(code, method, kernel, device, nm=nmnc[0], nc=nmnc[1])
+        assert f.func is nb_decode.decode
+        assert f.keywords == {"code": code, "method": method, "max_iters": 7,
+                              "nm": nmnc[0], "nc": nmnc[1]}
+    with pytest.raises(ValueError, match="CUDA"):
+        _pick(code, method, "cuda", cpu)
+
+
+def test_nb_stream_max_domain_refused_on_a_card():
+    """No stream kernel runs a max-domain method: auto on a card raises,
+    naming ROADMAP.md Queue 1 item 20; an unknown method raises."""
+    code, _ = codes("BDS.576.288.GF.64")
+    for method in ("ems", "tmm", "layered_tmm", "glayered_tmm"):
+        conf = _nb_cfg(code="BDS.576.288.GF.64", engine="stream",
+                       decoder=cfg.NBDecoderConfig(method=method))
+        with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 20"):
+            sim.make_nb_stream_engine(code, conf, torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="unknown NB decoder method"):
+        sim.make_nb_step(code, _nb_cfg(decoder=cfg.NBDecoderConfig(
+            method="bogus")), torch.device("cpu"))
+
+
 @pytest.mark.parametrize("argv,item", [
-    ([], "item 12"),                                   # the default, ems
-    (["--method", "ems_full"], "item 12"),
-    (["--method", "tmm"], "K8"),
-    (["--method", "layered_tmm"], "K8"),
-    (["--method", "glayered_tmm"], "K8"),
     (["--method", "qspa", "--tx", "random"], "NBEncoder"),
     (["--method", "qspa", "--packed", "--tx", "random"], "NBEncoder"),
-    (["--method", "ems", "--engine", "stream"], "item 12"),
     (["--method", "qspa", "--profile", "trace"], "item 6"),
 ])
 def test_cli_nb_refuses_unported_options(argv, item, capsys):
@@ -114,6 +175,33 @@ def test_cli_nb_refuses_unported_options(argv, item, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err and item in err
+
+
+@pytest.mark.parametrize("argv", [
+    [],                                                # the default, ems
+    ["--method", "ems_full"],
+    ["--method", "tmm"],
+    ["--method", "layered_tmm"],
+    ["--method", "glayered_tmm", "--packed", "--snr", "4:1:5"],
+    ["--method", "ems", "--nm", "3", "--engine", "stream"],
+], ids=["ems", "ems_full", "tmm", "layered_tmm", "glayered_tmm-packed",
+        "ems-nm3-stream"])
+def test_cli_nb_runs_every_max_domain_method_on_cpu(tmp_path, argv, capsys):
+    """A tiny CPU sweep of each max-domain method on BDS.576.288.GF.64
+    (the plain engines), with the method and Nm/Nc in the banner."""
+    out = tmp_path / "res"
+    assert cli.main(["nb", "--device", "cpu", "--batch", "4", "--max-iters",
+                     "3", "--least-test-frames", "4", "--max-frames", "4",
+                     "--stream-steps", "2", "--snr", "4", "--out-dir",
+                     str(out), *argv]) == 0
+    banner = capsys.readouterr().out
+    method = argv[1] if argv else "ems"
+    assert f"decoder: {method}" in banner
+    assert ("Nm=3, Nc=2" in banner) == ("--nm" in argv)
+    rows = [json.loads(x) for x in
+            (out / "results.jsonl").read_text().splitlines()]
+    assert rows and all(r["kind"] == "nb" and r["frames"] >= 4 for r in rows)
+    assert all(0.0 < r["avg_iters"] <= 3.0 for r in rows)
 
 
 def _nb_cfg(**kw):
