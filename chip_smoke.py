@@ -88,8 +88,7 @@ phase:
               >=1000 frames) as one packed sweep with a frame cap, each
               point reported as stopped by the rule or by the cap
   timing      K8, BDS, B=4096, at most 10 passes at 0 dB from fresh frames,
-              each method against its plain version in turns, and the c2v
-              messages in shared memory against device memory in turns
+              each method against its plain version in turns
 The last lines are the card line, the kernels' JSON and
 {"ok": true, "device": {...}}.
 """
@@ -1224,9 +1223,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # K8: BDS.576.288.GF.64, B=4096, at most 10 passes at 0 dB from fresh
-    # frames, each method against its plain version in turns; then the c2v
-    # messages in device memory (the default) against shared memory, in
-    # turns, each checked against the plain result
+    # frames, each method against its plain version in turns
     code, B, iters = nb_code("BDS.576.288.GF.64"), 4096, 10
     chans = [nb_chan(code, 0.0, B, seed=47 + i) for i in range(2)]
     plan = cuda_nbms.make_plan(code)
@@ -1239,30 +1236,18 @@ def main() -> int:
         runs = time_turns(launch, {
             "plain": 1 if key == "nbms_layered_tmm" else 3, "kernel": 20})
         ms = {k: statistics.median(v) for k, v in runs.items()}
-        ref = launch("plain", 0)
         res = launch("kernel", 0)
         bound, bound_by = nbms_bound_ms(code.n_sym, code.m_sym, plan.E,
                                         code.q, B, res.iters.tolist(), iters,
                                         key[len("nbms_"):])
-
-        def placed(which, i):
-            return kernel(chans[i % 2], code, iters,
-                          c_shared=which == "shared")
-
-        where = time_turns(placed, {"device": 20, "shared": 20})
-        other = placed("shared", 0)
-        for x, y, z in zip(res, other, ref):
-            if not (torch.equal(x, z) and torch.equal(y, z)):
-                raise AssertionError(f"{key}: the timed calls differ from "
-                                     "the plain version")
         timing[key] = (ms, bound, bound_by)
         _emit("timing", kernel=key, code=code.name, batch=B, ebn0=0.0,
               max_passes=iters, avg_iters=float(res.iters.float().mean()),
-              card=card, ms_per_batch=runs, c2v_placement_ms=where,
+              card=card, ms_per_batch=runs,
               info_mbps={k: B * code.k_sym * code.q_bit / (v / 1e3) / 1e6
                          for k, v in ms.items()},
               bound_ms=bound, bound_by=bound_by)
-        del res, ref, other
+        del res
         torch.cuda.empty_cache()
     del chans
 

@@ -38,9 +38,9 @@
 //   `dout` writes c2v[k] = 0.8 * Lc2p[h k ^ syn ^ Zn]; layered also writes
 //   the totals T + (fma(x, 0.8, v2c) - T), the plain version's order.
 // The totals T [N, q] live in shared memory, the c2v messages C [E, q] in
-// the caller's device buffer [B, E, q], or beside T in shared memory when
-// `c_shared`: on BDS.576.288.GF.64 that block takes 79 KB, which leaves
-// room for 2 blocks an SM instead of 7, and ran 1.8-2x slower on the H100.
+// the caller's device buffer [B, E, q]: with C beside T in shared memory a
+// BDS.576.288.GF.64 block takes 79 KB, which leaves room for 2 blocks an SM
+// instead of 7, and it ran 1.8-2x slower on the H100 (PERF.md).
 //
 // Arithmetic: adds, subtracts and multiplies through the __f*_rn
 // intrinsics (nvcc cannot contract them), the one fused multiply-add as
@@ -75,13 +75,13 @@ __device__ __forceinline__ float group_min(const float (&x)[R]) {
   return m;
 }
 
-// Scratch of one block beside T and (maybe) C, in floats: X and Y [max_dc,
-// Q], A [max(max_dc, 7), Q], the per-edge scalars [3 * 32], the GF tables
-// and the decisions.
-size_t smem_bytes(int N, int E, int q, int max_dc, bool c_shared) {
+// Dynamic shared memory of one block: T [N, Q], the row scratch X and Y
+// [max_dc, Q] and A [max(max_dc, 7), Q], the per-edge scalars [3 * 32], the
+// GF tables and the decisions.
+size_t smem_bytes(int N, int q, int max_dc) {
   const size_t aux = (size_t)(max_dc > 7 ? max_dc : 7) * q;
-  return sizeof(float) * ((size_t)N * q + (c_shared ? (size_t)E * q : 0) +
-                          2 * (size_t)max_dc * q + aux + 3 * 32) +
+  return sizeof(float) * ((size_t)N * q + 2 * (size_t)max_dc * q + aux +
+                          3 * 32) +
          sizeof(int) * ((size_t)q + 2 * (q - 1) + N);
 }
 
@@ -321,12 +321,11 @@ __global__ void __launch_bounds__(1024) nbms_kernel(
     const int* __restrict__ edge_vn, const int* __restrict__ edge_h,
     const int* __restrict__ col_ptr, const int* __restrict__ col_edge,
     const int* __restrict__ gf_log, const int* __restrict__ gf_exp, int N,
-    int M, int E, int max_dc, int num_iters, int c_shared) {
+    int M, int E, int max_dc, int num_iters) {
   constexpr int Q = 32 * R;
   extern __shared__ float smem[];
   float* T = smem;
-  float* Cs = T + N * Q;
-  float* X = Cs + (c_shared ? E * Q : 0);
+  float* X = T + N * Q;
   float* Y = X + max_dc * Q;
   float* A = Y + max_dc * Q;
   float* ef = A + (max_dc > 7 ? max_dc : 7) * Q;
@@ -337,7 +336,7 @@ __global__ void __launch_bounds__(1024) nbms_kernel(
   const int tid = threadIdx.x, nth = blockDim.x;
   const int64_t b = blockIdx.x;
   const float* L = chan + b * N * Q;
-  float* Cb = c_shared ? Cs : C + b * E * Q;
+  float* Cb = C + b * E * Q;
 
   load_gf_tables(lg, ex, gf_log, gf_exp, Q);
   for (int i = tid; i < E * Q; i += nth) Cb[i] = 0.f;
@@ -379,17 +378,16 @@ cudaError_t launch(const float* chan, float* C, int* hard, unsigned char* ok,
                    int* iters, const int* row_ptr, const int* edge_vn,
                    const int* edge_h, const int* col_ptr, const int* col_edge,
                    const int* gf_log, const int* gf_exp, int B, int N, int M,
-                   int E, int max_dc, int num_iters, int c_shared,
-                   cudaStream_t st) {
+                   int E, int max_dc, int num_iters, cudaStream_t st) {
   auto kernel = nbms_kernel<R, kMethod>;
-  const size_t smem = smem_bytes(N, E, 32 * R, max_dc, c_shared);
+  const size_t smem = smem_bytes(N, 32 * R, max_dc);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
   kernel<<<B, 32 * max_dc, smem, st>>>(chan, C, hard, ok, iters, row_ptr,
                                        edge_vn, edge_h, col_ptr, col_edge,
                                        gf_log, gf_exp, N, M, E, max_dc,
-                                       num_iters, c_shared);
+                                       num_iters);
   return cudaGetLastError();
 }
 
@@ -400,16 +398,15 @@ extern "C" {
 // Decodes the batch chan [B, N, q] (q in 32, 64, 128, 256; 2 <= max_dc <=
 // 32 edges per row) for at most `num_iters` >= 1 passes on `stream` of CUDA
 // device `device`, with `method` 0 = EMS (positive-domain LLRs), 1 = TMM,
-// 2 = layered TMM (min-domain LLRs).  C [B, E, q] is the caller's scratch
-// unless `c_shared` (then unused); hard [B, N], ok [B] and iters [B] the
-// outputs.  The tables are those of ldpc_qspa.  Returns 0 or the first CUDA
-// error met while enqueueing.
+// 2 = layered TMM (min-domain LLRs).  C [B, E, q] is the caller's scratch;
+// hard [B, N], ok [B] and iters [B] the outputs.  The tables are those of
+// ldpc_qspa.  Returns 0 or the first CUDA error met while enqueueing.
 int ldpc_nbms(const float* chan, float* C, int* hard, unsigned char* ok,
               int* iters, const int* row_ptr, const int* edge_vn,
               const int* edge_h, const int* col_ptr, const int* col_edge,
               const int* gf_log, const int* gf_exp, int B, int N, int M,
               int E, int q, int max_dc, int num_iters, int method,
-              int c_shared, int device, void* stream) {
+              int device, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if ((err = cudaSetDevice(device))) return err;
@@ -420,8 +417,7 @@ int ldpc_nbms(const float* chan, float* C, int* hard, unsigned char* ok,
           : method == kTmm ? launch<R, kTmm>                              \
                            : launch<R, kLayeredTmm>)(                     \
       chan, C, hard, ok, iters, row_ptr, edge_vn, edge_h, col_ptr,        \
-      col_edge, gf_log, gf_exp, B, N, M, E, max_dc, num_iters, c_shared,  \
-      st)
+      col_edge, gf_log, gf_exp, B, N, M, E, max_dc, num_iters, st)
   switch (q) {
     case 32: NBMS_LAUNCH(1);
     case 64: NBMS_LAUNCH(2);

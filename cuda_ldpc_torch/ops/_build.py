@@ -142,8 +142,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ldpc_nbms.argtypes = (
         [p] * 12                  # chan C hard ok iters + 5 edge tables +
                                   # gf_log gf_exp
-        + [i] * 9                 # B N M E q max_dc num_iters method
-                                  # c_shared
+        + [i] * 8                 # B N M E q max_dc num_iters method
         + [i, p])                 # device stream
     lib.ldpc_nbms.restype = i
     lib.ldpc_error_string.argtypes = [i]

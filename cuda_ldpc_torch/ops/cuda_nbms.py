@@ -13,10 +13,10 @@ refused under ``auto`` on a card): EMS with another (Nm, Nc), full EMS,
 grouped-layered TMM, rows of unequal degree (the Tanner code, q = 16).
 
 One frame's totals [N, q] live in a block's shared memory, its c2v
-messages [E, q] in device memory (a scratch [B, E, q]).  ``c_shared=True``
-puts them in shared memory too, where they fit (the GF(64) codes): on
-BDS.576.288.GF.64 at B=4096 that was 1.8-2x slower on the H100, since a
-79 KB block leaves room for 2 blocks an SM instead of 7 (PERF.md, PR 5).
+messages [E, q] in device memory (a scratch [B, E, q]).  With the messages
+in shared memory too (they fit on the GF(64) codes), BDS.576.288.GF.64 at
+B=4096 ran 1.8-2x slower on the H100: a 79 KB block leaves room for 2
+blocks an SM instead of 7 (PERF.md).
 
 Semantics are ops/nb_decode.decode's for 'ems' (nm = nc = 2), 'tmm' and
 'layered_tmm', bit for bit: every frame decides, checks and stops on its
@@ -49,14 +49,14 @@ LAUNCHES = {"nbms_ems": 0, "nbms_tmm": 0, "nbms_layered_tmm": 0}
 METHOD_IDS = {"ems": 0, "tmm": 1, "layered_tmm": 2}
 
 
-def smem_bytes(plan: Plan, c_shared: bool) -> int:
+def smem_bytes(plan: Plan) -> int:
     """The kernel's dynamic shared memory per block (csrc/nbms.cu
-    smem_bytes): T [N, q] (and C [E, q] when ``c_shared``), two row
-    scratches [max_dc, q] and one [max(max_dc, 7), q], 96 per-edge scalars
-    in f32; the GF tables and the decisions in int32."""
+    smem_bytes): T [N, q], two row scratches [max_dc, q] and one
+    [max(max_dc, 7), q], 96 per-edge scalars in f32; the GF tables and the
+    decisions in int32."""
     q, dc = plan.q, plan.max_dc
-    return 4 * (plan.N * q + (plan.E * q if c_shared else 0) + 2 * dc * q
-                + max(dc, 7) * q + 96 + q + 2 * (q - 1) + plan.N)
+    return 4 * (plan.N * q + 2 * dc * q + max(dc, 7) * q + 96 + q
+                + 2 * (q - 1) + plan.N)
 
 
 def supports(code: NBCode, nm: int = 2, nc: int = 2) -> bool:
@@ -70,18 +70,11 @@ def supports(code: NBCode, nm: int = 2, nc: int = 2) -> bool:
     if not code.cn_mask.all():
         return False
     plan = make_plan(code)
-    return (2 <= plan.max_dc <= 32
-            and smem_bytes(plan, False) <= SMEM_LIMIT)
-
-
-def c_in_shared(plan: Plan) -> bool:
-    """Whether the frame's c2v messages fit in shared memory beside the
-    totals and the scratch (BDS.576.288.GF.64: 79,096 B a block)."""
-    return smem_bytes(plan, True) <= SMEM_LIMIT
+    return 2 <= plan.max_dc <= 32 and smem_bytes(plan) <= SMEM_LIMIT
 
 
 def _decode(L_ch: torch.Tensor, code: NBCode, max_iters: int, method: str,
-            early_stop: bool, c_shared: bool = False) -> NBDecodeResult:
+            early_stop: bool) -> NBDecodeResult:
     if L_ch.device.type == "cpu":
         return nb_decode.decode(L_ch, code, method, max_iters,
                                 early_stop=early_stop)
@@ -95,14 +88,10 @@ def _decode(L_ch: torch.Tensor, code: NBCode, max_iters: int, method: str,
     B, dev = L_ch.shape[0], L_ch.device
     if B == 0 or max_iters <= 0:
         return empty_result(B, plan.N, dev)
-    if c_shared and not c_in_shared(plan):
-        raise ValueError(f"the c2v messages of {code.name} do not fit in "
-                         "shared memory")
     chan = L_ch if method == "ems" else nb_decode.to_min_domain(L_ch)
     lib = _build.load()
     tables = cuda_qspa._device_tables(plan, cuda_qspa.code_key(code), dev)
-    C = torch.empty((0,) if c_shared else (B, plan.E, plan.q),
-                    dtype=torch.float32, device=dev)
+    C = torch.empty((B, plan.E, plan.q), dtype=torch.float32, device=dev)
     res = NBDecodeResult(torch.empty((B, plan.N), dtype=torch.int32,
                                      device=dev),
                          torch.empty(B, dtype=torch.bool, device=dev),
@@ -112,7 +101,7 @@ def _decode(L_ch: torch.Tensor, code: NBCode, max_iters: int, method: str,
     err = lib.ldpc_nbms(
         ptr(chan), ptr(C), *(ptr(t) for t in res), *(ptr(t) for t in tables),
         B, plan.N, plan.M, plan.E, plan.q, plan.max_dc, int(max_iters),
-        METHOD_IDS[method], int(c_shared), dev.index,
+        METHOD_IDS[method], dev.index,
         ctypes.c_void_p(stream))
     name = f"nbms_{method}"
     if err:
@@ -123,26 +112,21 @@ def _decode(L_ch: torch.Tensor, code: NBCode, max_iters: int, method: str,
 
 
 def decode_ems(L_ch: torch.Tensor, code: NBCode, max_iters: int,
-               early_stop: bool = True,
-               c_shared: bool = False) -> NBDecodeResult:
+               early_stop: bool = True) -> NBDecodeResult:
     """Flooding EMS, Nm = Nc = 2, of L_ch [B, N, q] float32 symbol LLRs;
-    drop-in for ops/nb_decode.decode_ems at its defaults.  ``c_shared``
-    puts the c2v messages in shared memory (module docstring)."""
-    return _decode(L_ch, code, max_iters, "ems", early_stop, c_shared)
+    drop-in for ops/nb_decode.decode_ems at its defaults."""
+    return _decode(L_ch, code, max_iters, "ems", early_stop)
 
 
 def decode_tmm(L_ch: torch.Tensor, code: NBCode, max_iters: int,
-               early_stop: bool = True,
-               c_shared: bool = False) -> NBDecodeResult:
+               early_stop: bool = True) -> NBDecodeResult:
     """Flooding TMM of positive-domain L_ch [B, N, q] float32; drop-in for
     ops/nb_decode.decode_tmm."""
-    return _decode(L_ch, code, max_iters, "tmm", early_stop, c_shared)
+    return _decode(L_ch, code, max_iters, "tmm", early_stop)
 
 
 def decode_layered_tmm(L_ch: torch.Tensor, code: NBCode, max_iters: int,
-                       early_stop: bool = True,
-                       c_shared: bool = False) -> NBDecodeResult:
+                       early_stop: bool = True) -> NBDecodeResult:
     """Row-layered TMM of positive-domain L_ch [B, N, q] float32; drop-in
     for ops/nb_decode.decode_layered_tmm."""
-    return _decode(L_ch, code, max_iters, "layered_tmm", early_stop,
-                   c_shared)
+    return _decode(L_ch, code, max_iters, "layered_tmm", early_stop)

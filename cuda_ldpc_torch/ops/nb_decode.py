@@ -39,7 +39,7 @@ order is fixed here and the kernels follow it:
   (nb_decode.py:686-691), where the TPU kernel writes v2c + new directly.
   There v2c + new, with new = 0.8 x, is one fused multiply-add rounded
   once (``_fma_f32``): XLA contracts it so on the CPU, and without it a
-  third of the totals differ from the JAX package's in the last bit after
+  fifth of the totals differ from the JAX package's in the last bit after
   one pass;
 * a frame whose syndrome passes at the entry of pass t reports t iterations
   and is frozen from then on; ``max_iters = 0`` returns zeros.
@@ -328,9 +328,8 @@ def _ems_cn_core(v2c_cn: torch.Tensor, mask: torch.Tensor,
     offset (max1/max2 across edges with the exclude-own-edge argmax trick);
     conf(Nm,2) adds every pair of other edges at their top-(Nm-1) non-best
     offsets; conf(Nm,Nc>2) is a (max,+) forward/backward DP over the XOR
-    group, budgeted by deviation count, or unbudgeted for Nc >= dc-1."""
-    if nc < 1:
-        raise ValueError(f"EMS needs Nc >= 1, got Nc={nc}")
+    group, budgeted by deviation count, or unbudgeted for Nc >= dc-1
+    (``build_core`` refuses Nc < 1)."""
     maskq = mask[None, :, :, None]
     U = torch.where(maskq, _to_cn_domain(v2c_cn, h_perm), NEG)
     c0 = U.argmax(dim=-1)                                 # [B, M', dc]

@@ -56,9 +56,8 @@ from cuda_ldpc_torch import config as cfg
 from cuda_ldpc_torch.models.nb_code import NBCode
 from cuda_ldpc_torch.models.qc_binary import QCBinaryCode
 from cuda_ldpc_torch.ops import (channel, cuda_minsum, cuda_minsum_stream,
-                                 cuda_nbms,
-                                 cuda_qspa, cuda_qspa_qc, cuda_qspa_stream,
-                                 demod, minsum, nb_decode)
+                                 cuda_nbms, cuda_qspa, cuda_qspa_qc,
+                                 cuda_qspa_stream, demod, minsum, nb_decode)
 from cuda_ldpc_torch.utils import lcg as pylcg
 from cuda_ldpc_torch.utils import native, registry
 from cuda_ldpc_torch.utils.constellations import constellation
