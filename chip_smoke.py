@@ -263,33 +263,38 @@ def nbms_bound_ms(N: int, M: int, E: int, q: int, batch: int, iters,
     """The least time the card could take for one K8 decode call that gave
     per-frame iteration counts ``iters``: the larger of the bytes it must
     move (chan [B, N, q] f32 read once; hard [B, N] i32, ok [B] and iters
-    [B] i32 written once) over the HBM rate, and its fp32 operations over
-    the fp32 peak.  Updates and passes per frame as in ``qspa_bound_ms``.
-    Operations are counted from csrc/nbms.cu, each add, subtract,
-    multiply, fma, compare, max, min or select as one (index and GF table
-    arithmetic not counted), on full rows of dc = E / M edges.  EMS, per
-    edge and symbol and update: 1 (v2c) + 3 (max, first argmax) + 1 (W) +
-    4 (the best non-zero offset) + (dc - 2) (max over the other edges) + 2
-    (output); per edge, the (dc-1)(dc-2)/2 pairs of other edges at 1 + q
-    each.  TMM, per edge and symbol: 1 (v2c) + 3 (min, first argmin) + 1
-    (dU) + 4 (min1, min2, column) + 4 (the output, 3 more for layered's
-    write-back); per row, q^2 candidates at 10 (three compares, two ands,
-    a max, a select, a compare, two selects) and 6 per eta for the I/E
-    choice.  Per pass, 2 per VN and symbol for the decision and, flooding,
-    1 add per edge and symbol plus 1 per VN and symbol for the totals."""
+    [B] i32 written once) over the HBM rate, and the function's fp32
+    operations over the fp32 peak.  Updates and passes per frame as in
+    ``qspa_bound_ms``.  Each fp32 add, subtract, multiply, fma, compare,
+    max, min or select of a value counts as one; index and GF table
+    arithmetic, integer compares and selects of indices do not; rows are
+    full, dc = E / M.  EMS, per edge and symbol and update: 1 (v2c) + 2 (a
+    maximum and the compare that finds its first index) + 1 (W) + 2 (the
+    best non-zero offset) + (dc - 2) (the best single deviation of the
+    other edges) + 2 (output); per row, an add for each pair of edges, and
+    per edge a max for each pair of the other edges.  TMM, per edge and
+    symbol: 1 (v2c) + 2 (a minimum and its first index) + 1 (dU) + 4
+    (min1, min2 and the compare for the column) + 3 (the I/E select, the
+    zero at eta = 0, the 0.8), and 3 more for layered's write-back; per
+    row, the 2-deviation search over its q(q - 1)/2 unordered candidates
+    {j, eta ^ j} (the candidate and its validity are symmetric in the two,
+    so the first j of a pair decides), 4 each (the value compare, the max,
+    the compare with the best so far and its select), and 3 per eta for
+    the I/E choice.  Per pass, 2 per VN and symbol for the decision and,
+    flooding, the totals' dv adds per VN and symbol (E q in all)."""
     iters = [int(i) for i in iters]
     updates = sum(min(i, max_iters - 1) for i in iters)
     passes = sum(min(i + 1, max_iters) for i in iters)
     dc = E // M
     if method == "ems":
-        per_update = (E * q * (11 + dc - 2)
-                      + E * (dc - 1) * (dc - 2) // 2 * (1 + q))
+        per_update = (E * q * (8 + dc - 2) + M * dc * (dc - 1) // 2
+                      + E * (dc - 1) * (dc - 2) // 2)
     else:
-        per_update = (E * q * (13 + (3 if method == "layered_tmm" else 0))
-                      + M * (10 * q * q + 6 * q))
+        per_update = (E * q * (11 + (3 if method == "layered_tmm" else 0))
+                      + M * (4 * q * (q - 1) // 2 + 3 * q))
     ops = updates * per_update + passes * 2 * N * q
     if method != "layered_tmm":
-        ops += passes * (E + N) * q
+        ops += passes * E * q
     nbytes = batch * N * q * 4 + batch * N * 4 + batch * 5
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
@@ -297,10 +302,9 @@ def nbms_bound_ms(N: int, M: int, E: int, q: int, batch: int, iters,
 
 
 def time_turns(launch, reps: dict) -> dict:
-    """Milliseconds per batch of ``launch(which, i)`` for the two keys of
-    ``reps`` ('plain' and 'kernel' unless named otherwise), in turns a, b,
-    b, a with 'plain' first: host clock, one batch in flight, device
-    synchronised."""
+    """Milliseconds per batch of ``launch(which, i)`` for which in
+    'plain' and 'kernel', in turns plain, kernel, kernel, plain: host clock,
+    one batch in flight, device synchronised."""
     import torch
 
     def time_one(which: str) -> float:
@@ -321,9 +325,8 @@ def time_turns(launch, reps: dict) -> dict:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / reps[which]
 
-    a, b = sorted(reps, key=lambda k: k != "plain")
-    runs = {a: [], b: []}
-    for which in (a, b, b, a):
+    runs = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
         runs[which].append(time_one(which))
     return runs
 

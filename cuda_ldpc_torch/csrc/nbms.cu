@@ -46,9 +46,11 @@
 // intrinsics (nvcc cannot contract them), the one fused multiply-add as
 // __fmaf_rn; max, min and the GF tables are exact.
 //
-// Bound: on BDS.576.288.GF.64 a TMM pass costs about q^2 = 4,096 candidate
-// steps of ~8 operations per row, 48 rows, per frame (the 2-deviation
-// search); EMS a few dozen operations per edge and symbol.  The bytes are
+// Bound: on BDS.576.288.GF.64 the TMM function needs q(q - 1)/2 = 2,016
+// unordered 2-deviation candidates of 4 fp32 operations per row, 48 rows a
+// pass, per frame (chip_smoke.nbms_bound_ms); the search here scans all
+// q^2 ordered ones, so it does about twice the candidates the function
+// needs.  EMS needs a dozen operations per edge and symbol.  The bytes are
 // the channel and the decisions once per call; so operations bound it, and
 // in practice the barriers of the serial rows.
 
@@ -63,17 +65,6 @@ constexpr float kEmsScale = 0.833333313465118408203125f;  // f32(1 / 1.2)
 constexpr float kTmmScale = 0.800000011920928955078125f;  // f32(0.8)
 
 enum Method { kEms = 0, kTmm = 1, kLayeredTmm = 2 };
-
-template <int R, int W>
-__device__ __forceinline__ float group_min(const float (&x)[R]) {
-  float m = x[0];
-#pragma unroll
-  for (int j = 1; j < R; ++j) m = fminf(m, x[j]);
-#pragma unroll
-  for (int o = W / 2; o > 0; o >>= 1)
-    m = fminf(m, __shfl_xor_sync(kFull, m, o, W));
-  return m;
-}
 
 // Dynamic shared memory of one block: T [N, Q], the row scratch X and Y
 // [max_dc, Q] and A [max(max_dc, 7), Q], the per-edge scalars [3 * 32], the

@@ -55,6 +55,17 @@ static __device__ __forceinline__ float group_max(const float (&x)[R]) {
   return m;
 }
 
+template <int R, int W>
+static __device__ __forceinline__ float group_min(const float (&x)[R]) {
+  float m = x[0];
+#pragma unroll
+  for (int j = 1; j < R; ++j) m = fminf(m, x[j]);
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1)
+    m = fminf(m, __shfl_xor_sync(kFull, m, o, W));
+  return m;
+}
+
 // Sum in nb_decode._rtree_sum's order: symbol i with i + q/2, then again on
 // the first half.  The register steps come first (their strides are the
 // large ones), then the lane steps; the group's lane 0 ends with the sum.
