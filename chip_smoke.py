@@ -89,6 +89,24 @@ phase:
               point reported as stopped by the rule or by the cap
   timing      K8, BDS, B=4096, at most 10 passes at 0 dB from fresh frames,
               each method against its plain version in turns
+The measuring path and the probes K9-K11 (phase 6), each entry point run
+with every launch count at 0 before it and read after it:
+  bench       `python -m cuda_ldpc_torch.bench`'s run three times (K1) and
+              once with BENCH_KERNEL=torch, each line and the spread
+  profile     `binary --profile` on J15_L30_Z1280 (two points) and `nb
+              --profile` on BDS.576.288.GF.64, qspa and ems (one point
+              each): each trace holds K1's, K5's or K8's device events by
+              name, the device's busy share of each traced batch is
+              printed, the rows equal an untraced run's; `--packed
+              --profile` is refused
+  phases      `python -m cuda_ldpc_torch.tools.profile_phases`' measure
+  probes      each K9/K10 function and each K11 chain (every op class,
+              n_par 1 and 4, K = 1 and 37) against its plain version,
+              exactly (dot3 and trans within 1e-6 relative); the SASS check
+              that no K11 chain was folded; the probes' entry points (K11:
+              its rate table, per SM and per card); each probe's time, plain
+              time and bound (dot3 beside torch.matmul without TF32, roll2
+              beside torch.roll)
 The last lines are the card line, the kernels' JSON and
 {"ok": true, "device": {...}}.
 """
@@ -136,8 +154,18 @@ KERNELS = [
      "cuda_ldpc_tpu/ops/pallas_nbms.py:376"),
     ("nbms_layered_tmm", "cuda_ldpc_torch/csrc/nbms.cu",
      "cuda_ldpc_tpu/ops/pallas_nbms.py:376"),
+    # the probes, on the measuring path (phase 6)
+    ("probe_bitops", "cuda_ldpc_torch/csrc/probe_bitops.cu",
+     "tools/probe_bitops.py:28"),
+    ("probe_mosaic", "cuda_ldpc_torch/csrc/probe_mosaic.cu",
+     "tools/probe_mosaic.py:32"),
+    ("probe_oprate", "cuda_ldpc_torch/csrc/probe_oprate.cu",
+     "tools/probe_oprate.py:122"),
 ]
 BINARY = KERNELS[:4]
+# The K11 chains of the kernels line: every op class, n_par 1, this many
+# steps (the rate table itself takes K = 50,000 and 250,000)
+K11_LINE_STEPS = 1000
 
 
 def _emit(phase: str, **kw):
@@ -342,6 +370,258 @@ def profile_ms(call) -> dict:
         torch.cuda.synchronize()
     return {e.key: [e.self_device_time_total / 1e3, e.count]
             for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def trace_busy(path: str, label: str) -> dict:
+    """What a --profile trace holds: the traced batch's window (the
+    record_function span ``label``), the device's busy share of it (the
+    union of the CUDA kernels' intervals, clipped to the window, over its
+    length) and the launches of each kernel by name."""
+    from collections import Counter
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    span = [e for e in events if e.get("ph") == "X"
+            and e.get("cat") == "user_annotation" and e.get("name") == label]
+    if len(span) != 1:
+        raise AssertionError(f"{path}: no single span {label!r}")
+    t0, t1 = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
+    kernels = [e for e in events if e.get("ph") == "X"
+               and e.get("cat") == "kernel"]
+    busy, end = 0.0, t0
+    for a, b in sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1))
+                       for e in kernels):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"window_ms": (t1 - t0) / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / (t1 - t0),
+            "kernels": dict(Counter(
+                e["name"].replace("(anonymous namespace)::", "").split("(")[0]
+                for e in kernels))}
+
+
+def measuring_path(card: str, wrappers) -> None:
+    """Phase 6: the port's measuring path through its entry points, each
+    run with every launch count at 0 before it and read after it: the
+    bench (three kernel lines and one plain), --profile on the batch
+    engines (binary J15_L30_Z1280 at two points, nb BDS qspa and ems at
+    one), whose traces must hold K1's, K5's and K8's device events by name
+    and whose rows must equal an untraced run's, --packed --profile
+    refused, and profile_phases."""
+    import statistics
+
+    from cuda_ldpc_torch import bench, cli
+    from cuda_ldpc_torch.tools import profile_phases
+
+    def counted(kernel: str, run):
+        for w in wrappers:
+            for k in w.LAUNCHES:
+                w.LAUNCHES[k] = 0
+        out = run()
+        counts = {k: v for w in wrappers for k, v in w.LAUNCHES.items()}
+        if counts[kernel] <= 0:
+            raise AssertionError(f"{kernel} never launched: {counts}")
+        return out, counts
+
+    lines = []
+    for kernel in ("auto", "auto", "auto", "torch"):
+        if kernel == "auto":
+            line, counts = counted("minsum_flooding", lambda: bench.run(
+                {"BENCH_KERNEL": kernel}))
+        else:                          # the plain path launches no kernel
+            line, counts = bench.run({"BENCH_KERNEL": kernel}), None
+        if line["metric"] != "binary_minsum_info_mbps_cuda" or not (
+                line["value"] > 0):
+            raise AssertionError(f"bad bench line: {line}")
+        print(json.dumps(line), flush=True)
+        lines.append((line, counts))
+    values = [ln["value"] for ln, _ in lines[:3]]
+    _emit("bench", card=card, kernel_mbps=values,
+          spread=(max(values) - min(values)) / statistics.median(values),
+          plain_mbps=lines[3][0]["value"],
+          launches=lines[0][1]["minsum_flooding"])
+
+    keep = ("snr", "frames", "error_frames", "error_units", "iter_sum",
+            "false_frames", "alarm_frames")
+    frames = ["--batch", "4096", "--least-error-frames", "0",
+              "--least-test-frames", "8192", "--max-frames", "8192"]
+    sweeps = [
+        ("binary", "minsum_flooding", "cn_kernel",
+         ["binary", "--code", "J15_L30_Z1280", "--snr=-1.6:0.2:-1.4",
+          "--snr-type", "esn0", "--max-iters", "10"]),
+        ("nb qspa", "qspa_flooding", "qspa_kernel",
+         ["nb", "--code", "BDS.576.288.GF.64", "--method", "qspa", "--snr",
+          "1", "--max-iters", "20"]),
+        ("nb ems", "nbms_ems", "nbms_kernel",
+         ["nb", "--code", "BDS.576.288.GF.64", "--method", "ems", "--snr",
+          "1", "--max-iters", "20"]),
+    ]
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (label, kernel, name, argv) in enumerate(sweeps):
+            tdir = os.path.join(tmp, f"trace{i}")
+            traced, counts = counted(kernel, lambda: _sweep(
+                cli, os.path.join(tmp, f"traced{i}"),
+                argv + frames + ["--profile", tdir]))
+            plain = _sweep(cli, os.path.join(tmp, f"untraced{i}"),
+                           argv + frames)
+            same = ([{k: r[k] for k in keep} for r in traced]
+                    == [{k: r[k] for k in keep} for r in plain])
+            for r in traced:
+                point = f"{argv[0]}_snr{r['snr']:g}"
+                got = trace_busy(os.path.join(tdir, point, "trace.json"),
+                                 point)
+                held = sum(v for k, v in got["kernels"].items() if name in k)
+                _emit("profile_trace", sweep=label, point=point, card=card,
+                      same_rows_untraced=same, launches=counts[kernel],
+                      kernel_events=held, **got)
+                if not held:
+                    raise AssertionError(f"the {label} trace of {point} holds "
+                                         f"no {name} event: {got['kernels']}")
+            if not same:
+                raise AssertionError(f"{label}: --profile changed the rows")
+        try:
+            _sweep(cli, os.path.join(tmp, "refused"),
+                   sweeps[0][3] + frames + ["--packed", "--profile", tmp])
+        except SystemExit as e:
+            if e.code != 2:
+                raise
+            _emit("refused", sweep="binary --packed --profile", code=e.code)
+        else:
+            raise AssertionError("--packed --profile was not refused")
+
+        row, counts = counted("minsum_flooding", lambda: profile_phases.measure(
+            trace_dir=os.path.join(tmp, "phases")))
+        _emit("profile_phases", launches=counts["minsum_flooding"], **row)
+
+
+def probes(card: str, lib_path) -> dict:
+    """Phase 6, the probes K9-K11: every K9/K10 function and K11 chain (at
+    two small K) against its plain version on the card, exactly (dot3 and
+    trans within their tolerance); the SASS check that no K11 chain was
+    folded; the probes' own entry points with their launch counts at 0
+    before them (K11's runs its rate table); and each probe's time against
+    its plain version and its bound for the kernels line."""
+    import torch
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from cuda_ldpc_torch.tools import probe_bitops, probe_mosaic, probe_oprate
+    from cuda_ldpc_torch.utils.timing import time_ms
+    dev = torch.device("cuda", 0)
+    out = {}
+    x9 = torch.from_numpy(probe_bitops.tile()).to(dev)
+    x10 = torch.from_numpy(probe_mosaic.tile()).to(dev)
+    x11 = torch.from_numpy(probe_oprate.tile()).to(dev)
+
+    def extra(fn):
+        e = probe_mosaic.extra_input(fn)
+        return None if e is None else torch.from_numpy(e).to(dev)
+
+    # parity
+    cases = ([("probe_bitops", fn, lambda fn=fn: (
+        probe_bitops.compute(fn, x9), probe_bitops.plain(fn, x9)))
+              for fn in probe_bitops.FUNCTIONS]
+             + [("probe_mosaic", fn, lambda fn=fn: (
+                 probe_mosaic.compute(fn, x10, extra(fn)),
+                 probe_mosaic.plain(fn, x10, extra(fn))))
+                for fn in probe_mosaic.FUNCTIONS]
+             + [("probe_oprate", f"{op} n_par {n} K {k}",
+                 lambda op=op, n=n, k=k: (
+                     probe_oprate.chain(op, x11, n, k),
+                     probe_oprate.plain_chain(op, x11, n, k)))
+                for op in probe_oprate.OPS for n in probe_oprate.N_PARS
+                for k in probe_oprate.CHECK_KS])
+    for key, fn, run in cases:
+        got, want = run()
+        if key == "probe_mosaic":
+            bad = probe_mosaic.mismatch(fn, got, want)
+        else:
+            bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        err = float((got - want).abs().max())
+        e = out.setdefault(key, {"mismatches": 0, "max_abs_err": 0.0})
+        e["mismatches"] += bad
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        _emit("probe_parity", kernel=key, case=fn, mismatches=bad,
+              max_abs_err=err,
+              tolerance=probe_mosaic.TOLERANCE.get(fn, 0.0))
+        if bad:
+            raise AssertionError(f"{key} {fn}: {bad} lanes != plain")
+
+    sass = probe_oprate.sass_unfolded(probe_oprate.sass_counts(
+        os.path.join(CUDA_HOME, "bin", "cuobjdump"), str(lib_path)))
+    _emit("probe_sass", chains=sass)
+    if len(sass) != len(probe_oprate.OPS) * len(probe_oprate.N_PARS) or not \
+            all(r["unfolded"] for r in sass):
+        raise AssertionError(f"a K11 chain was folded: {sass}")
+
+    # the probes' entry points, counted
+    mods = {"probe_bitops": probe_bitops, "probe_mosaic": probe_mosaic,
+            "probe_oprate": probe_oprate}
+    for key, mod in mods.items():
+        mod.LAUNCHES[key] = 0
+        rows = mod.run(dev)
+        out[key]["launches"] = mod.LAUNCHES[key]
+        if out[key]["launches"] <= 0:
+            raise AssertionError(f"{key}.run never launched its kernel")
+        for row in rows:
+            if "ops_per_s_per_sm" in row:
+                _emit("oprate", card=card, **row)
+
+    # time, plain time and bound of one call of each function (K11: every
+    # class, n_par 1, K11_LINE_STEPS steps) for the kernels line
+    def tile_bytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    fns = {
+        "probe_bitops": [
+            (fn, lambda fn=fn: probe_bitops.compute(fn, x9),
+             lambda fn=fn: probe_bitops.plain(fn, x9), None,
+             2 * tile_bytes(x9), 0) for fn in probe_bitops.FUNCTIONS],
+        "probe_mosaic": [
+            (fn, lambda fn=fn, e=extra(fn): probe_mosaic.compute(fn, x10, e),
+             lambda fn=fn, e=extra(fn): probe_mosaic.plain(fn, x10, e),
+             {"dot3": lambda: torch.matmul(extra("dot3"),
+                                           x10.reshape(16, -1)),
+              "roll2": lambda: torch.roll(x10, 37, dims=2)}.get(fn),
+             2 * tile_bytes(x10) + tile_bytes(extra(fn)),
+             2 * 16 * x10.numel() if fn == "dot3" else 0)
+            for fn in probe_mosaic.FUNCTIONS],
+        "probe_oprate": [
+            (op, lambda op=op: probe_oprate.chain(op, x11, 1, K11_LINE_STEPS),
+             lambda op=op: probe_oprate.plain_chain(op, x11, 1,
+                                                    K11_LINE_STEPS),
+             None, 2 * tile_bytes(x11),
+             probe_oprate.FUNCTION_OPS[op] * K11_LINE_STEPS * x11.numel())
+            for op in probe_oprate.OPS],
+    }
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for key, items in fns.items():
+            total = {"ms": 0.0, "plain_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0}
+            for fn, kernel, plain, library, nbytes, ops in items:
+                ms = time_ms(kernel, dev, 20)
+                pms = time_ms(plain, dev, 3 if key == "probe_oprate" else 20)
+                lms = time_ms(library, dev, 20) if library else None
+                total["ms"] += ms
+                total["plain_ms"] += pms
+                total["t_bytes"] += nbytes / HBM_BYTES_PER_S
+                total["t_ops"] += ops / FP32_OPS_PER_S
+                _emit("probe_timing", kernel=key, fn=fn, card=card, ms=ms,
+                      plain_ms=pms, library_ms=lms,
+                      bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                         ops / FP32_OPS_PER_S))
+            by = "bytes" if total["t_bytes"] > total["t_ops"] else "operations"
+            out[key]["timing"] = (
+                {"kernel": total["ms"], "plain": total["plain_ms"]},
+                1e3 * max(total["t_bytes"], total["t_ops"]), by)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    _emit("probe_bound", card=card, note=(
+        "K11's bound is over the whole card's fp32 rate; its tile is 8 "
+        f"blocks, on 8 of the card's "
+        f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs"))
+    return out
 
 
 def main() -> int:
@@ -1253,6 +1533,14 @@ def main() -> int:
         del res
         torch.cuda.empty_cache()
     del chans
+
+    # ---- 6. the measuring path and the probes
+    measuring_path(card, wrappers)
+    for key, got in probes(card, lib_path).items():
+        launches[key] = got["launches"]
+        max_err[key] = got["max_abs_err"]
+        mismatches[key] = got["mismatches"]
+        timing[key] = got["timing"]
 
     # ---- the kernels, the card, and the result
     if slower:

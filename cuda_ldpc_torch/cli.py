@@ -10,6 +10,7 @@ Usage:
   python -m cuda_ldpc_torch binary --engine stream --stream-steps 16 ...
   python -m cuda_ldpc_torch nb --code BDS.576.288.GF.64 --method layered_qspa ...
   python -m cuda_ldpc_torch nb --packed --engine stream ...
+  python -m cuda_ldpc_torch binary|nb --profile DIR ...   (batch engine)
   python -m cuda_ldpc_torch list-codes
 
 Options the port does not run yet are still parsed, so that their values
@@ -61,7 +62,10 @@ def _add_sweep_args(p, d: cfg.SweepConfig):
     p.add_argument("--checkpoint", default=None,
                    help="JSON checkpoint path for resumable sweeps")
     p.add_argument("--quiet", action="store_true")
-    p.add_argument("--profile", default=None, metavar="DIR")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace batch 1 of each SNR point with torch.profiler "
+                        "into DIR/<kind>_snr<snr>/trace.json (the batch "
+                        "engine only)")
 
 
 PACKED_HELP = ("run all SNR points at once: each batch (or the stream's "
@@ -189,9 +193,8 @@ def main(argv=None) -> int:
         batch_per_device=args.batch, add_noise=not args.no_noise,
         tx=args.tx, channel=args.channel, engine=args.engine,
         stream_steps=args.stream_steps)
+    _check_profile(ap, args)
     try:
-        if args.profile is not None:
-            raise simmod.not_ported("profile")
         simmod.check_ported(simcfg)
     except NotImplementedError as e:
         ap.error(str(e))
@@ -201,8 +204,21 @@ def main(argv=None) -> int:
            (True, "stream"): simmod.run_binary_stream_packed}
     run[args.packed, args.engine](simcfg, device=args.device,
                                   out_dir=args.out_dir,
-                                  checkpoint=args.checkpoint, quiet=args.quiet)
+                                  checkpoint=args.checkpoint, quiet=args.quiet,
+                                  **_profile_kw(args))
     return 0
+
+
+def _check_profile(ap, args):
+    """--profile traces a batch of the batch engine: refused with --packed
+    or --engine stream (the JAX CLI ignores it there)."""
+    if args.profile is not None and (args.packed or args.engine != "batch"):
+        ap.error("--profile traces one batch of the batch engine a point; "
+                 "--packed and --engine stream run no such batch")
+
+
+def _profile_kw(args) -> dict:
+    return {} if args.profile is None else {"profile_dir": args.profile}
 
 
 def _main_nb(ap, args, simmod) -> int:
@@ -214,9 +230,8 @@ def _main_nb(ap, args, simmod) -> int:
         sweep=_sweep_from(args, cfg.NBSimConfig().sweep),
         n_qam=args.n_qam, batch_per_device=args.batch, tx=args.tx,
         engine=args.engine, stream_steps=args.stream_steps)
+    _check_profile(ap, args)
     try:
-        if args.profile is not None:
-            raise simmod.not_ported("profile")
         simmod.check_nb_ported(simcfg)
     except NotImplementedError as e:
         ap.error(str(e))
@@ -226,7 +241,8 @@ def _main_nb(ap, args, simmod) -> int:
            (True, "stream"): simmod.run_nb_stream_packed}
     run[args.packed, args.engine](simcfg, device=args.device,
                                   out_dir=args.out_dir,
-                                  checkpoint=args.checkpoint, quiet=args.quiet)
+                                  checkpoint=args.checkpoint, quiet=args.quiet,
+                                  **_profile_kw(args))
     return 0
 
 

@@ -145,6 +145,23 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [i] * 8                 # B N M E q max_dc num_iters method
         + [i, p])                 # device stream
     lib.ldpc_nbms.restype = i
+    lib.ldpc_probe_bitops.argtypes = (
+        [p] * 2                   # x out
+        + [i] * 4                 # rows cols fn device
+        + [p])                    # stream
+    lib.ldpc_probe_bitops.restype = i
+    lib.ldpc_probe_mosaic.argtypes = (
+        [p] * 3                   # x extra out
+        + [i] * 5                 # Q TB Z fn device
+        + [p])                    # stream
+    lib.ldpc_probe_mosaic.restype = i
+    lib.ldpc_probe_oprate.argtypes = (
+        [p] * 2                   # x out
+        + [i] * 5                 # rows cols copies op n_par
+        + [ctypes.c_longlong, i, p])   # K device stream
+    lib.ldpc_probe_oprate.restype = i
+    lib.ldpc_probe_oprate_blocks_per_sm.argtypes = [i] * 4  # op n_par cols
+    lib.ldpc_probe_oprate_blocks_per_sm.restype = i         # device
     lib.ldpc_error_string.argtypes = [i]
     lib.ldpc_error_string.restype = ctypes.c_char_p
     lib.ldpc_max_row_degree.argtypes = []

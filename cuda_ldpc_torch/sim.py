@@ -41,13 +41,14 @@ rows equal the JAX package's exactly.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import hashlib
 import json
 import os
 import time
-from typing import Callable, NamedTuple
+from typing import Callable, ContextManager, NamedTuple
 
 import numpy as np
 import torch
@@ -62,6 +63,7 @@ from cuda_ldpc_torch.utils import lcg as pylcg
 from cuda_ldpc_torch.utils import native, registry
 from cuda_ldpc_torch.utils.constellations import constellation
 from cuda_ldpc_torch.utils.device import resolve_device
+from cuda_ldpc_torch.utils.timing import profiler_activities
 
 
 @dataclasses.dataclass
@@ -241,7 +243,9 @@ def _run_sweep(kind: str, sweep: cfg.SweepConfig, units_per_frame: int,
                info_bits_per_frame: int, batch: int,
                step: Callable, out_dir: str | None, checkpoint: str | None,
                key_salt: str, quiet: bool,
-               pipeline: bool = True) -> SweepResult:
+               pipeline: bool = True,
+               profile: Callable[[str], ContextManager] | None = None
+               ) -> SweepResult:
     """Shared sweep loop.  ``step(snr_idx, batch_idx, snr)`` LAUNCHES one
     batch (asynchronously on a CUDA device) and returns a zero-arg
     ``collect`` that waits and returns ``(n_frames, err_frames, err_units,
@@ -252,7 +256,14 @@ def _run_sweep(kind: str, sweep: cfg.SweepConfig, units_per_frame: int,
     counted (the reference itself only checks between batches,
     Simulation.cu:111-146).  ``pipeline=False`` collects every batch
     synchronously, reproducing the reference's exact stop behaviour (used by
-    the reference-channel parity mode)."""
+    the reference-channel parity mode).
+
+    ``profile(label)``, when given, is a context manager that traces batch
+    1 of each point (batch 0 absorbs the builds and the warm-up), launched
+    and collected inside it; label is ``<kind>_snr<snr:g>``.  The traced
+    batch's counts are consumed when the untraced loop would consume them,
+    so the rows are those of an untraced run; its wall time includes the
+    profiler's."""
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
     ck = _Checkpoint(checkpoint, key_salt)
@@ -291,6 +302,17 @@ def _run_sweep(kind: str, sweep: cfg.SweepConfig, units_per_frame: int,
         while True:
             stopped = _point_done(stats, sweep)
             nxt = None
+            if not stopped and profile is not None and batch_idx == 1:
+                if pending is not None:       # batch 0 stays out of the trace
+                    consume(pending)
+                with profile(f"{kind}_snr{snr:g}"):
+                    counts = step(si, batch_idx, snr)()
+                pending = lambda counts=counts: counts
+                batch_idx += 1
+                if not pipeline:
+                    consume(pending)
+                    pending = None
+                continue
             if not stopped:
                 nxt = step(si, batch_idx, snr)
                 batch_idx += 1
@@ -308,6 +330,30 @@ def _run_sweep(kind: str, sweep: cfg.SweepConfig, units_per_frame: int,
     return SweepResult(rows=rows)
 
 
+@contextlib.contextmanager
+def _profiled(root: str, device: torch.device, label: str):
+    """torch.profiler around the block (CPU activity, and CUDA activity on a
+    card) inside a record_function span named ``label``; the chrome trace
+    goes to ``root/label/trace.json``.  A failure raises."""
+    with torch.profiler.profile(
+            activities=profiler_activities(device)) as prof:
+        with torch.profiler.record_function(label):
+            yield
+    os.makedirs(os.path.join(root, label), exist_ok=True)
+    prof.export_chrome_trace(os.path.join(root, label, "trace.json"))
+
+
+def _profiler(profile_dir: str | None, engine: str, device: torch.device):
+    """The sweep loop's ``profile`` for ``--profile DIR``: None without a
+    directory; refused for the stream engine, whose calls are no batch."""
+    if profile_dir is None:
+        return None
+    if engine != "batch":
+        raise ValueError("--profile traces one batch of the batch engine a "
+                         f"point; the {engine} engine has none")
+    return functools.partial(_profiled, profile_dir, device)
+
+
 # --------------------------------------------------------------------------
 # binary simulator
 # --------------------------------------------------------------------------
@@ -315,7 +361,6 @@ def _run_sweep(kind: str, sweep: cfg.SweepConfig, units_per_frame: int,
 # What the port does not run yet, and the ROADMAP.md item that ports it.
 NOT_PORTED = {
     "tx=random": "Queue 1 item 7 (models/encoder.py)",
-    "profile": "Queue 1 item 6 (bench and tracing)",
     "msg_dtype": "Queue 1 item 4 (bfloat16 message storage)",
     "nb tx=random": "Queue 1 items 7 and 11 (NBEncoder)",
 }
@@ -526,15 +571,18 @@ def run_binary_sweep(sim: cfg.BinarySimConfig,
                      device: str | torch.device = "cuda",
                      out_dir: str | None = None,
                      checkpoint: str | None = None,
-                     quiet: bool = False) -> SweepResult:
+                     quiet: bool = False,
+                     profile_dir: str | None = None) -> SweepResult:
     """Binary QC-LDPC FER sweep on ``device``, one SNR point at a time (batch
     or stream engine, flooding or layered min-sum or bp, all-zero
-    codeword)."""
+    codeword).  ``profile_dir``: a torch.profiler trace of batch 1 of each
+    point, ``profile_dir/binary_snr<snr>/trace.json`` (batch engine only)."""
     device = resolve_device(device)
     code = QCBinaryCode.from_registry(sim.code)
+    profile = _profiler(profile_dir, sim.engine, device)
     if sim.channel == "reference":
         return _run_binary_sweep_ref(code, sim, device, out_dir, checkpoint,
-                                     quiet)
+                                     quiet, profile)
     if sim.channel not in ("device", "jax"):
         raise ValueError(f"unknown channel {sim.channel!r} "
                          "(expected 'device' or 'reference')")
@@ -559,11 +607,11 @@ def run_binary_sweep(sim: cfg.BinarySimConfig,
     key_salt = _config_key(sim, {"kind": "binary", "B": B,
                                  "backend": f"torch-{device.type}"})
     return _run_sweep("binary", sweep, msg_cols * code.Z, code.k, B, step,
-                      out_dir, checkpoint, key_salt, quiet)
+                      out_dir, checkpoint, key_salt, quiet, profile=profile)
 
 
 def _run_binary_sweep_ref(code, sim: cfg.BinarySimConfig, device, out_dir,
-                          checkpoint, quiet) -> SweepResult:
+                          checkpoint, quiet, profile=None) -> SweepResult:
     """Binary sweep with the reference's exact deterministic channel (seeds
     reset to (173,173,173) at every SNR point).  Batch size must match the
     reference's Num_Frames_OneTime for sequence-identical batches."""
@@ -594,7 +642,8 @@ def _run_binary_sweep_ref(code, sim: cfg.BinarySimConfig, device, out_dir,
     # pipeline=False: this mode exists to reproduce the reference run
     # bit-exactly, including its up-to-date-stats stop rule
     return _run_sweep("binary", sweep, msg_cols * code.Z, code.k, B, step,
-                      out_dir, checkpoint, key_salt, quiet, pipeline=False)
+                      out_dir, checkpoint, key_salt, quiet, pipeline=False,
+                      profile=profile)
 
 
 def _binary_sigmas(code: QCBinaryCode, sweep: cfg.SweepConfig) -> np.ndarray:
@@ -1041,11 +1090,15 @@ def make_nb_step(code: NBCode, sim: cfg.NBSimConfig, device: torch.device):
 
 def run_nb_sweep(sim: cfg.NBSimConfig, device: str | torch.device = "cuda",
                  out_dir: str | None = None, checkpoint: str | None = None,
-                 quiet: bool = False) -> SweepResult:
+                 quiet: bool = False,
+                 profile_dir: str | None = None) -> SweepResult:
     """GF(q) LDPC FER sweep on ``device``, one SNR point at a time (batch or
-    stream engine, any method of nb_decode.METHODS)."""
+    stream engine, any method of nb_decode.METHODS).  ``profile_dir``: a
+    torch.profiler trace of batch 1 of each point,
+    ``profile_dir/nb_snr<snr>/trace.json`` (batch engine only)."""
     device = resolve_device(device)
     code = NBCode.from_registry(sim.code)
+    profile = _profiler(profile_dir, sim.engine, device)
     if sim.engine == "stream":
         return _run_nb_stream(code, sim, device, out_dir, checkpoint, quiet)
     fn, B = make_nb_step(code, sim, device)
@@ -1071,7 +1124,8 @@ def run_nb_sweep(sim: cfg.NBSimConfig, device: str | torch.device = "cuda",
     key_salt = _config_key(sim, {"kind": "nb", "B": B,
                                  "backend": f"torch-{device.type}"})
     return _run_sweep("nb", sweep, code.n_sym, code.k_sym * code.q_bit, B,
-                      step, out_dir, checkpoint, key_salt, quiet)
+                      step, out_dir, checkpoint, key_salt, quiet,
+                      profile=profile)
 
 
 def _nb_sigmas(code: NBCode, sim: cfg.NBSimConfig) -> np.ndarray:

@@ -86,7 +86,8 @@ def test_build_targets_sm90a_without_fast_math():
     assert "-shared" in _build.link_command([], _build.BUILD_DIR / "x.so")
     assert [p.name for p in _build.sources()] == [
         "minsum_flooding.cu", "minsum_layered.cu", "minsum_stream.cu",
-        "nbms.cu", "qspa.cu", "qspa_qc.cu", "qspa_stream.cu"]
+        "nbms.cu", "probe_bitops.cu", "probe_mosaic.cu", "probe_oprate.cu",
+        "qspa.cu", "qspa_qc.cu", "qspa_stream.cu"]
     assert _build.lib_path().parent.parent == _build.BUILD_DIR
     assert len(_build.source_hash()) == 16
 

@@ -175,7 +175,12 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "cuda_ldpc_torch.ops.minsum_stream",
             "cuda_ldpc_torch.ops.qspa_stream",
             "cuda_ldpc_torch.ops.cuda_minsum_stream",
-            "cuda_ldpc_torch.ops.cuda_qspa_stream"} <= set(mods)
+            "cuda_ldpc_torch.ops.cuda_qspa_stream",
+            "cuda_ldpc_torch.bench", "cuda_ldpc_torch.tools",
+            "cuda_ldpc_torch.tools.profile_phases",
+            "cuda_ldpc_torch.tools.probe_bitops",
+            "cuda_ldpc_torch.tools.probe_mosaic",
+            "cuda_ldpc_torch.tools.probe_oprate"} <= set(mods)
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "cuda_ldpc_torch"])

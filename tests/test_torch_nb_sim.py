@@ -167,14 +167,17 @@ def test_nb_stream_max_domain_refused_on_a_card():
 @pytest.mark.parametrize("argv,item", [
     (["--method", "qspa", "--tx", "random"], "NBEncoder"),
     (["--method", "qspa", "--packed", "--tx", "random"], "NBEncoder"),
-    (["--method", "qspa", "--profile", "trace"], "item 6"),
+    (["--method", "qspa", "--engine", "stream", "--profile", "trace"],
+     "batch engine"),
 ])
 def test_cli_nb_refuses_unported_options(argv, item, capsys):
+    """Options not ported yet name their ROADMAP.md item; --profile, which
+    traces a batch of the batch engine, is refused with --engine stream."""
     with pytest.raises(SystemExit) as exc:
         cli.main(["nb", "--device", "cpu", *argv])
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and item in err
+    assert item in err and ("ROADMAP.md" in err or "--profile" in argv)
 
 
 @pytest.mark.parametrize("argv", [

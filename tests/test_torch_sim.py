@@ -220,13 +220,16 @@ def test_clopper_pearson_matches_jax(errors, frames):
     ["--schedule", "layered", "--engine", "stream", "--msg-dtype",
      "bfloat16"], ["--packed", "--profile", "trace"],
     ["--engine", "stream", "--tx", "random"], ["--tx", "random"],
-    ["--profile", "trace"],
+    ["--msg-dtype", "bfloat16"],
 ])
 def test_cli_rejects_unported_options(argv, capsys):
+    """Options not ported yet name their ROADMAP.md item; --profile, which
+    traces a batch of the batch engine, is refused with --packed."""
     with pytest.raises(SystemExit) as exc:
         cli.main(["binary", "--device", "cpu", *argv])
     assert exc.value.code != 0
-    assert "ROADMAP.md" in capsys.readouterr().err
+    want = "batch engine" if "--profile" in argv else "ROADMAP.md"
+    assert want in capsys.readouterr().err
 
 
 def _run(args, tmp_path):
