@@ -499,8 +499,11 @@ def probes(card: str, lib_path) -> dict:
     two small K) against its plain version on the card, exactly (dot3 and
     trans within their tolerance); the SASS check that no K11 chain was
     folded; the probes' own entry points with their launch counts at 0
-    before them (K11's runs its rate table); and each probe's time against
-    its plain version and its bound for the kernels line."""
+    before them (K11's holds its full grid of tile copies against the plain
+    chain, then runs its rate table); and each probe's time against its
+    plain version and its bound for the kernels line, the timed function's
+    output held against the plain one's (K11: every class at
+    K11_LINE_STEPS steps)."""
     import torch
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -566,6 +569,8 @@ def probes(card: str, lib_path) -> dict:
         for row in rows:
             if "ops_per_s_per_sm" in row:
                 _emit("oprate", card=card, **row)
+            elif row.get("copies", 1) > 1:       # K11's full grid, held
+                _emit("probe_parity", kernel=key, **row)
 
     # time, plain time and bound of one call of each function (K11: every
     # class, n_par 1, K11_LINE_STEPS steps) for the kernels line
@@ -607,10 +612,19 @@ def probes(card: str, lib_path) -> dict:
                 total["plain_ms"] += pms
                 total["t_bytes"] += nbytes / HBM_BYTES_PER_S
                 total["t_ops"] += ops / FP32_OPS_PER_S
+                got, want = kernel(), plain()
+                bad = (probe_mosaic.mismatch(fn, got, want)
+                       if key == "probe_mosaic" else
+                       int((got.view(torch.int32)
+                            != want.view(torch.int32)).sum()))
                 _emit("probe_timing", kernel=key, fn=fn, card=card, ms=ms,
                       plain_ms=pms, library_ms=lms,
                       bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                         ops / FP32_OPS_PER_S))
+                                         ops / FP32_OPS_PER_S),
+                      mismatches=bad)
+                if bad:
+                    raise AssertionError(f"{key} {fn} (timed call): {bad} "
+                                         "lanes != plain")
             by = "bytes" if total["t_bytes"] > total["t_ops"] else "operations"
             out[key]["timing"] = (
                 {"kernel": total["ms"], "plain": total["plain_ms"]},

@@ -193,10 +193,11 @@ def main(argv=None) -> int:
         batch_per_device=args.batch, add_noise=not args.no_noise,
         tx=args.tx, channel=args.channel, engine=args.engine,
         stream_steps=args.stream_steps)
-    _check_profile(ap, args)
     try:
         simmod.check_ported(simcfg)
-    except NotImplementedError as e:
+        simmod.check_profile(args.profile,
+                             "packed" if args.packed else args.engine)
+    except (NotImplementedError, ValueError) as e:
         ap.error(str(e))
     run = {(False, "batch"): simmod.run_binary_sweep,
            (False, "stream"): simmod.run_binary_sweep,
@@ -205,20 +206,8 @@ def main(argv=None) -> int:
     run[args.packed, args.engine](simcfg, device=args.device,
                                   out_dir=args.out_dir,
                                   checkpoint=args.checkpoint, quiet=args.quiet,
-                                  **_profile_kw(args))
+                                  profile_dir=args.profile)
     return 0
-
-
-def _check_profile(ap, args):
-    """--profile traces a batch of the batch engine: refused with --packed
-    or --engine stream (the JAX CLI ignores it there)."""
-    if args.profile is not None and (args.packed or args.engine != "batch"):
-        ap.error("--profile traces one batch of the batch engine a point; "
-                 "--packed and --engine stream run no such batch")
-
-
-def _profile_kw(args) -> dict:
-    return {} if args.profile is None else {"profile_dir": args.profile}
 
 
 def _main_nb(ap, args, simmod) -> int:
@@ -230,10 +219,11 @@ def _main_nb(ap, args, simmod) -> int:
         sweep=_sweep_from(args, cfg.NBSimConfig().sweep),
         n_qam=args.n_qam, batch_per_device=args.batch, tx=args.tx,
         engine=args.engine, stream_steps=args.stream_steps)
-    _check_profile(ap, args)
     try:
         simmod.check_nb_ported(simcfg)
-    except NotImplementedError as e:
+        simmod.check_profile(args.profile,
+                             "packed" if args.packed else args.engine)
+    except (NotImplementedError, ValueError) as e:
         ap.error(str(e))
     run = {(False, "batch"): simmod.run_nb_sweep,
            (False, "stream"): simmod.run_nb_sweep,
@@ -242,7 +232,7 @@ def _main_nb(ap, args, simmod) -> int:
     run[args.packed, args.engine](simcfg, device=args.device,
                                   out_dir=args.out_dir,
                                   checkpoint=args.checkpoint, quiet=args.quiet,
-                                  **_profile_kw(args))
+                                  profile_dir=args.profile)
     return 0
 
 

@@ -38,8 +38,9 @@
 // The SASS check (probe_oprate.sass_unfolded) counts each class's
 // instruction in the unrolled loop.
 //
-// Bound: operations.  Per lane and step the ops of the class (FUNCTION_OPS
-// in probe_oprate.py) over the card's fp32 rate.  A tile's 640-thread
+// Bound: operations.  Per lane and step the ops the class needs
+// (FUNCTION_OPS in probe_oprate.py) over the card's fp32 rate; roll does
+// no arithmetic, so its bound is the tile's bytes.  A tile's 640-thread
 // blocks already keep each SM's schedulers busy, so the measured time of a
 // step grows with the instructions a step: the probe reads issue rates,
 // per SM from the tile and per card from a full grid.

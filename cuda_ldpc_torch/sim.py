@@ -343,14 +343,21 @@ def _profiled(root: str, device: torch.device, label: str):
     prof.export_chrome_trace(os.path.join(root, label, "trace.json"))
 
 
-def _profiler(profile_dir: str | None, engine: str, device: torch.device):
-    """The sweep loop's ``profile`` for ``--profile DIR``: None without a
-    directory; refused for the stream engine, whose calls are no batch."""
-    if profile_dir is None:
-        return None
-    if engine != "batch":
+def check_profile(profile_dir: str | None, engine: str):
+    """``--profile DIR`` traces one batch of the batch engine a point:
+    refused (ValueError) for the packed and stream engines, which run no
+    such batch."""
+    if profile_dir is not None and engine != "batch":
         raise ValueError("--profile traces one batch of the batch engine a "
                          f"point; the {engine} engine has none")
+
+
+def _profiler(profile_dir: str | None, engine: str, device: torch.device):
+    """The sweep loop's ``profile`` for ``--profile DIR``: None without a
+    directory (``check_profile`` refuses the other engines)."""
+    check_profile(profile_dir, engine)
+    if profile_dir is None:
+        return None
     return functools.partial(_profiled, profile_dir, device)
 
 
@@ -700,8 +707,10 @@ def run_binary_sweep_packed(sim: cfg.BinarySimConfig,
                             device: str | torch.device = "cuda",
                             out_dir: str | None = None,
                             checkpoint: str | None = None,
-                            quiet: bool = False) -> SweepResult:
+                            quiet: bool = False,
+                            profile_dir: str | None = None) -> SweepResult:
     """All SNR points of a binary sweep at once, in packed batches."""
+    check_profile(profile_dir, "packed")
     device = resolve_device(device)
     code = QCBinaryCode.from_registry(sim.code)
     sweep = sim.sweep
@@ -912,9 +921,11 @@ def run_binary_stream_packed(sim: cfg.BinarySimConfig,
                              device: str | torch.device = "cuda",
                              out_dir: str | None = None,
                              checkpoint: str | None = None,
-                             quiet: bool = False) -> SweepResult:
+                             quiet: bool = False,
+                             profile_dir: str | None = None) -> SweepResult:
     """All SNR points of a binary sweep at once on one continuous-batching
     slot pool."""
+    check_profile(profile_dir, "packed")
     device = resolve_device(device)
     code = QCBinaryCode.from_registry(sim.code)
     sweep = sim.sweep
@@ -1180,8 +1191,10 @@ def run_nb_sweep_packed(sim: cfg.NBSimConfig,
                         device: str | torch.device = "cuda",
                         out_dir: str | None = None,
                         checkpoint: str | None = None,
-                        quiet: bool = False) -> SweepResult:
+                        quiet: bool = False,
+                        profile_dir: str | None = None) -> SweepResult:
     """All SNR points of a GF(q) sweep at once, in packed batches."""
+    check_profile(profile_dir, "packed")
     device = resolve_device(device)
     code = NBCode.from_registry(sim.code)
     points = sim.sweep.snr_points()
@@ -1253,9 +1266,11 @@ def run_nb_stream_packed(sim: cfg.NBSimConfig,
                          device: str | torch.device = "cuda",
                          out_dir: str | None = None,
                          checkpoint: str | None = None,
-                         quiet: bool = False) -> SweepResult:
+                         quiet: bool = False,
+                         profile_dir: str | None = None) -> SweepResult:
     """All SNR points of a GF(q) sweep at once on one continuous-batching
     slot pool."""
+    check_profile(profile_dir, "packed")
     device = resolve_device(device)
     code = NBCode.from_registry(sim.code)
     points = sim.sweep.snr_points()

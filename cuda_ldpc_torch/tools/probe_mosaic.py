@@ -140,11 +140,11 @@ def compute(fn: str, x: torch.Tensor,
 
 
 def mismatch(fn: str, got: torch.Tensor, want: torch.Tensor) -> int:
-    """Lanes where ``got`` is not ``want``: bit for bit, or beyond the
-    function's relative tolerance."""
+    """Lanes where ``got`` is not ``want``: bit for bit, or not within the
+    function's relative tolerance (a NaN is never within it)."""
     if fn in TOLERANCE:
         tol = TOLERANCE[fn] * want.abs()
-        return int(((got - want).abs() > tol).sum())
+        return int((~((got - want).abs() <= tol)).sum())
     return int((got.view(torch.int32) != want.view(torch.int32)).sum())
 
 

@@ -17,12 +17,13 @@ and 250,000 (CUDA events after a warm-up), for n_par 1 and 4:
   card in one wave (as many whole copies as fit at once);
 * and, for minsum_mix, the card's nanoseconds per edge-lane.
 
-Rates count ``_ops_per_step`` operations a step, the TPU tool's own count,
-so that the two tables read alike; ``FUNCTION_OPS`` counts every
-elementwise operation of a step, for the bound.  ``run`` first holds every
-chain against its plain PyTorch version at two small K, bit for bit, and
-raises on a mismatch (the TPU probe printed FAIL and went on).  Prints one
-JSON line a chain check and one a rate.
+Rates count ``_ops_per_step`` operations a step, the TPU tool's own
+count, so that the two tables read alike; ``FUNCTION_OPS`` counts the
+operations a step needs, for the bound.  ``run`` first holds every chain
+against its plain PyTorch version at two small K, bit for bit (on a card
+also every copy of the full grid), and raises on a mismatch (the TPU
+probe printed FAIL and went on).  Prints one JSON line a chain check and
+one a rate.
 
 ``chain`` is the wrapper: a CPU tensor goes to the plain version, a CUDA
 tensor to the kernel, or the call raises.
@@ -57,11 +58,15 @@ CHECK_KS = (1, 37)              # the chain lengths of the parity check
 SHIFT = 17
 UNROLL = 8                      # csrc/probe_oprate.cu's step loop
 
-# Every elementwise operation of one step of each class: adds, subtracts,
-# multiplies, minima, compares, selects and bitwise operations count one,
-# bitcasts nothing; a roll moves each lane once.
+# The operations one step of each class needs, for the bound, counted as
+# chip_smoke.nbms_bound_ms counts K8's: each add, subtract, multiply,
+# minimum, compare, select or bitwise operation on a value is one, a
+# bitcast nothing, and a roll nothing, since it moves lanes and does no
+# arithmetic (a chain of rolls is one roll, bounded by the tile's bytes).
+# minsum_mix: subtract, two masks, min(mag, x) once, compare, select, add,
+# sign xor; the TPU builder computes the minimum twice.
 FUNCTION_OPS = {"add": 1, "min": 3, "cmp_sel": 4, "sel": 4, "bitand": 2,
-                "bitxor": 1, "roll": 1, "minsum_mix": 10}
+                "bitxor": 1, "roll": 0, "minsum_mix": 8}
 # The SASS instructions that carry each class's step (the SASS check): a
 # step issues one of them per lane and chain unless the compiler folded it.
 SASS_OPS = {"add": ("FADD",), "min": ("FMNMX",), "cmp_sel": ("FSETP",),
@@ -221,25 +226,37 @@ def measure(name: str, n_par: int, device: str | torch.device = "cuda",
 
 def check(device: str | torch.device = "cuda") -> list[dict]:
     """Every chain (each class, n_par 1 and 4, K in CHECK_KS) against its
-    plain version on the same device, bit for bit; raises AssertionError
-    on a mismatch."""
+    plain version on the same device, bit for bit; on a card also every
+    copy of the grid that ``measure`` launches for the card rate, at the
+    last of CHECK_KS.  Raises AssertionError on a mismatch."""
     device = resolve_device(device)
     x = torch.from_numpy(tile()).to(device)
     rows = []
     for name in OPS:
         for n_par in N_PARS:
             for K in CHECK_KS:
-                got, want = chain(name, x, n_par, K), plain_chain(name, x,
-                                                                  n_par, K)
-                bad = int((_bits(got) != _bits(want)).sum())
-                rows.append({"probe": "oprate", "op": name, "par": n_par,
-                             "K": K, "device": str(device),
-                             "mismatches": bad})
-                if bad:
-                    raise AssertionError(f"probe_oprate {name} n_par {n_par} "
-                                         f"K {K}: {bad} lanes differ from "
-                                         f"the plain version")
+                want = plain_chain(name, x, n_par, K)
+                rows.append(held(name, n_par, K, 1, chain(name, x, n_par, K),
+                                 want))
+            if device.type == "cuda":
+                copies = card_copies(name, n_par, device)
+                rows.append(held(name, n_par, K, copies,
+                                 _launch(name, x, n_par, K, copies), want))
     return rows
+
+
+def held(name: str, n_par: int, K: int, copies: int, got: torch.Tensor,
+         want: torch.Tensor) -> dict:
+    """The check row of a kernel output ``got`` (one tile, or ``copies``
+    of it) against the plain chain ``want``, bit for bit; raises
+    AssertionError on a mismatch."""
+    bad = int((_bits(got) != _bits(want)).sum())
+    if bad:
+        raise AssertionError(f"probe_oprate {name} n_par {n_par} K {K} "
+                             f"copies {copies}: {bad} lanes differ from the "
+                             f"plain version")
+    return {"probe": "oprate", "op": name, "par": n_par, "K": K,
+            "copies": copies, "device": str(got.device), "mismatches": bad}
 
 
 def sass_counts(cuobjdump: str, library: str) -> dict[tuple[str, int], dict]:

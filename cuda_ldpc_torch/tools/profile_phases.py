@@ -14,6 +14,11 @@ measures:
   iterations: the fixed cost less one check-node phase, since the last
   iteration of a flooding decode skips its check-node phase (so the
   intercept may be negative);
+* on a card, the bytes K1 moves an iteration, counted from the code's
+  shapes with each array read or written once a launch (vn reads chan and
+  R and writes T; cn reads T and R and writes R: 12 B Z (L + E) bytes),
+  and their share of the card's 3.35 TB/s at the measured time an
+  iteration;
 * the price per iteration of check 'zero' and of 'syndrome', from 12
   iterations against 12 with 'none';
 * the plain path's VN and CN phases at B=256 (``minsum._vn_update``
@@ -42,6 +47,7 @@ from cuda_ldpc_torch.utils.device import card_info, resolve_device
 from cuda_ldpc_torch.utils.timing import profiler_activities, time_ms
 
 PLAIN_BATCH = 256
+HBM_BYTES_PER_S = 3.35e12       # the H100 SXM's published HBM3 rate
 
 
 def trace(fn, device: torch.device, path: str) -> str:
@@ -88,6 +94,11 @@ def measure(code_name: str = "J15_L30_Z1280", batch: int = 4096,
     row["decode_2_iters_ms"], row["decode_12_iters_ms"] = t2, t12
     row["decode_per_iter_ms"] = per_iter
     row["decode_intercept_ms"] = t2 - 2 * per_iter
+    if device.type == "cuda":
+        nbytes = 12 * batch * code.Z * (code.L + code.num_edges)
+        row["k1_bytes_per_iter"] = nbytes
+        row["k1_bandwidth_share"] = (nbytes / (per_iter * 1e-3)
+                                     / HBM_BYTES_PER_S)
     for check in ("zero", "syndrome"):
         tc = time_ms(decode(12, check), device, reps)
         row[f"check_{check}_per_iter_ms"] = (tc - t12) / 12

@@ -132,3 +132,17 @@ def test_profile_is_refused_off_the_batch_engine():
     conf = cfg.BinarySimConfig(code="J4_L24_Z96", engine="stream")
     with pytest.raises(ValueError, match="batch engine"):
         sim.run_binary_sweep(conf, device="cpu", profile_dir="x", quiet=True)
+
+
+@pytest.mark.parametrize("run,conf", [
+    (sim.run_binary_sweep_packed, cfg.BinarySimConfig(code="J4_L24_Z96")),
+    (sim.run_binary_stream_packed, cfg.BinarySimConfig(code="J4_L24_Z96",
+                                                       engine="stream")),
+    (sim.run_nb_sweep_packed, cfg.NBSimConfig()),
+    (sim.run_nb_stream_packed, cfg.NBSimConfig(engine="stream")),
+])
+def test_packed_runners_refuse_profile(run, conf, tmp_path):
+    """The packed runners refuse a trace before they build anything."""
+    with pytest.raises(ValueError, match="the packed engine has none"):
+        run(conf, device="cpu", profile_dir=str(tmp_path), quiet=True)
+    assert not os.listdir(tmp_path)

@@ -76,6 +76,30 @@ def test_what_the_wrappers_refuse():
         probe_oprate.measure("add", 1, "cpu")
 
 
+@pytest.mark.parametrize("fn", sorted(probe_mosaic.TOLERANCE))
+def test_mosaic_mismatch_counts_a_nan(fn):
+    """A NaN is outside any tolerance: a kernel that writes one fails."""
+    x = torch.from_numpy(probe_mosaic.tile())
+    e = probe_mosaic.extra_input(fn)
+    want = probe_mosaic.plain(fn, x, None if e is None else torch.from_numpy(e))
+    got = want.clone()
+    assert probe_mosaic.mismatch(fn, got, want) == 0
+    got.view(-1)[[0, 5]] = torch.tensor([float("nan"), float("inf")])
+    assert probe_mosaic.mismatch(fn, got, want) == 2
+
+
+def test_oprate_held_compares_every_copy():
+    """``held`` holds each copy of a grid against the plain chain."""
+    x = torch.from_numpy(probe_oprate.tile())
+    want = probe_oprate.plain_chain("minsum_mix", x, 1, 3)
+    got = want.expand(3, *want.shape).clone()
+    row = probe_oprate.held("minsum_mix", 1, 3, 3, got, want)
+    assert (row["copies"], row["mismatches"]) == (3, 0)
+    got[2, 7, 100] = -got[2, 7, 100]
+    with pytest.raises(AssertionError, match="copies 3: 1 lanes differ"):
+        probe_oprate.held("minsum_mix", 1, 3, 3, got, want)
+
+
 @pytest.mark.parametrize("shift,n", [(1, 256), (3, 256), (37, 128), (17, 1280)])
 def test_roll_is_jnp_roll(shift, n):
     """jnp.roll's direction, which every probe's roll (and the kernels'
@@ -123,8 +147,10 @@ def test_probes_match_plain_on_card(cuda):
         rows = mod.run(cuda)
         assert all(r["mismatches"] == 0 for r in rows)
         assert mod.LAUNCHES[key] - before == len(rows)
-    rows = probe_oprate.check(cuda)
-    assert len(rows) == len(probe_oprate.OPS) * 2 * len(probe_oprate.CHECK_KS)
+    rows = probe_oprate.check(cuda)       # and one full grid a chain kernel
+    assert len(rows) == len(probe_oprate.OPS) * 2 * (
+        len(probe_oprate.CHECK_KS) + 1)
+    assert sum(r["copies"] > 1 for r in rows) == len(probe_oprate.OPS) * 2
 
 
 @pytest.mark.cuda
