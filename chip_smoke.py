@@ -53,8 +53,11 @@ The stream steps K4 (binary) and K7 (GF(q)) join each phase:
   parity      K4 against its plain version over a call sequence (k = 1,
               refill, k = 16, refill, drain k = max_iters + 1) on
               J4_L24_Z96, PON_LDPC and J15_L30_Z1280 at B=4096, both
-              schedules, both rules, checks zero and syndrome, and a ragged
-              batch of 37: every output and state tensor exactly equal.  K7
+              schedules, both rules, checks zero and syndrome (alpha 0.8
+              with beta 0.1 on syndrome, and on zero for min-sum too), and
+              a ragged batch of 37: every output and state tensor exactly
+              equal; K4's min-sum (the slot's state on chip) also against
+              the global-memory design on the same sequences.  K7
               the same on BDS.576.288.GF.64 at B=4096 and the other three
               adjacency codes, flooding and layered: t, done, okf exactly,
               hard on slots whose check passed; the rest counted
@@ -69,9 +72,12 @@ The stream steps K4 (binary) and K7 (GF(q)) join each phase:
               batch anchors), `nb --packed` and `nb --packed --engine
               stream`; a binary stream sweep killed and resumed, whose rows
               equal the uninterrupted run's; a pair K7 does not run refused
-  timing      K4, J15_L30_Z1280, B=4096, one call of 10 passes where no
-              slot converges (flooding and layered min-sum, flooding bp),
-              and K7, BDS, B=4096, 10 passes at 0 dB from fresh slots, each
+  timing      K4, J15_L30_Z1280 and PON_LDPC, B=4096, one call of 10
+              passes where no slot converges: flooding and layered min-sum
+              with the state on chip, the global-memory design and the
+              plain version in turns (J15_L30_Z1280 flooding also on a
+              cluster of 4 with chan on chip), flooding bp with its plain
+              version; K7, BDS, B=4096, 10 passes at 0 dB from fresh slots,
               with its plain version in turns; the refill of one call; the
               stream sweeps' throughput beside the batch sweeps'
 The max-domain decoder K8 (EMS Nm=2/Nc=2, TMM, layered TMM) joins each
@@ -329,10 +335,11 @@ def nbms_bound_ms(N: int, M: int, E: int, q: int, batch: int, iters,
                                        else "operations")
 
 
-def time_turns(launch, reps: dict) -> dict:
-    """Milliseconds per batch of ``launch(which, i)`` for which in
-    'plain' and 'kernel', in turns plain, kernel, kernel, plain: host clock,
-    one batch in flight, device synchronised."""
+def time_turns(launch, reps: dict,
+               order=("plain", "kernel", "kernel", "plain")) -> dict:
+    """Milliseconds per batch of ``launch(which, i)`` for each ``which`` of
+    ``reps``, in the turns of ``order`` (by default plain, kernel, kernel,
+    plain): host clock, one batch in flight, device synchronised."""
     import torch
 
     def time_one(which: str) -> float:
@@ -353,8 +360,8 @@ def time_turns(launch, reps: dict) -> dict:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / reps[which]
 
-    runs = {"kernel": [], "plain": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
+    runs = {which: [] for which in reps}
+    for which in order:
         runs[which].append(time_one(which))
     return runs
 
@@ -885,23 +892,38 @@ def main() -> int:
         return [chan, msgs, t * (~fin).int(), torch.zeros_like(done),
                 torch.zeros_like(okf)]
 
+    def same_bits(x, y):
+        """Elementwise: equal, float32 compared bit for bit (-0.0 != 0.0)."""
+        if x.dtype == torch.float32:
+            return x.view(torch.int32) == y.view(torch.int32)
+        return x == y
+
     def stream_parity(key, kernel_step, plain_step, chans, msg_shape,
-                      max_iters, label):
+                      max_iters, label, other_step=None):
+        """The kernel against the plain step over the call sequence, every
+        tensor bit for bit; with ``other_step`` (another design of the
+        kernel), also the kernel against it, counted under "other_*"."""
         B = chans[0].shape[0]
         z = torch.zeros(B, dtype=torch.int32, device=dev)
         start = [chans[0], torch.zeros((B,) + msg_shape, device=dev), z, z, z]
         ks = [x.clone() for x in start]
         ps = [x.clone() for x in start]
+        os_ = [x.clone() for x in start]
         calls = [(1, chans[1]), (16, chans[2]), (max_iters + 1, None)]
         names = ("chan", "msgs", "hard", "t", "done", "okf")
         total, err, per_call = {}, 0.0, []
         for k, new in calls:
             a = kernel_step(*ks, k=k)
             b = plain_step(*ps, k=k)
+            o = other_step(*os_, k=k) if other_step else None
             torch.cuda.synchronize()
             okv = b[5].bool()
-            counts = {n: int((x != y).sum()) for n, x, y in zip(names, a, b)}
+            counts = {n: int((~same_bits(x, y)).sum())
+                      for n, x, y in zip(names, a, b)}
             counts["hard_in_ok_slots"] = int((a[2] != b[2])[okv].sum())
+            if o is not None:
+                counts.update({f"other_{n}": int((~same_bits(x, y)).sum())
+                               for n, x, y in zip(names, a, o)})
             err = max(err, *(float((x.double() - y.double()).abs().max())
                              for x, y in zip(a, b) if x.numel()))
             per_call.append({"k": k, "finished": int(b[4].sum()),
@@ -912,6 +934,10 @@ def main() -> int:
             ps = [x for i, x in enumerate(b) if i != 2]
             if new is not None:
                 ks, ps = refill(ks, new), refill(ps, new)
+            if o is not None:
+                os_ = [x for i, x in enumerate(o) if i != 2]
+                if new is not None:
+                    os_ = refill(os_, new)
         max_err[key] = max(max_err[key], err)
         mismatches[key] += sum(total.values()) - total["hard_in_ok_slots"]
         _emit("parity", kernel=key, case=label, batch=B, calls=per_call,
@@ -925,30 +951,42 @@ def main() -> int:
         ("PON_LDPC", "esn0", 2.45, 4096, 50),
         ("J15_L30_Z1280", "esn0", -1.5, 4096, 50),
     ]
+    # (check, alpha, beta) of each sequence: zero with the main path's
+    # alpha (0.8 for layered min-sum), then syndrome and, for min-sum, zero
+    # with alpha 0.8 and beta 0.1 (outputs of 0.0 and -0.0)
+    k4_params = {"minsum": [("zero", None, 0.0), ("syndrome", 0.8, 0.1),
+                            ("zero", 0.8, 0.1)],
+                 "bp": [("zero", 1.0, 0.0), ("syndrome", 0.8, 0.1)]}
     for i, (name, st, snr, B, max_iters) in enumerate(k4_cases):
         code = code_of(name)
         for layered in (False, True):
             for rule in ("minsum", "bp"):
                 chans = [chan_for(code, st, snr, B, seed=500 + 7 * i + j,
                                   rule=rule) for j in range(3)]
-                for check in ("zero", "syndrome"):
+                for check, alpha, beta in k4_params[rule]:
+                    if alpha is None:
+                        alpha = 0.8 if layered else 1.0
                     kw = dict(code=code, max_iters=max_iters, check=check,
-                              rule=rule, layered=layered,
-                              alpha=0.8 if layered and rule == "minsum"
-                              else 1.0)
+                              rule=rule, layered=layered, alpha=alpha,
+                              beta=beta)
                     label = (f"{name} {st} {snr} "
                              f"{'layered' if layered else 'flooding'} {rule} "
-                             f"{check}")
+                             f"{check} alpha {alpha} beta {beta}")
+                    other = (functools.partial(
+                        cuda_minsum_stream.global_stream_step, **kw)
+                        if rule == "minsum" else None)
                     total = stream_parity(
                         "minsum_stream",
                         functools.partial(cuda_minsum_stream.stream_step,
                                           **kw),
                         functools.partial(minsum_stream.stream_step, **kw),
-                        chans, (code.num_edges, code.Z), max_iters, label)
-                    # exact, as K1-K3: every output and state tensor
+                        chans, (code.num_edges, code.Z), max_iters, label,
+                        other_step=other)
+                    # exact, as K1-K3: every output and state tensor, and
+                    # min-sum's on-chip state bit for bit the global design's
                     if any(total.values()):
-                        raise AssertionError(f"K4 != plain on {label}: "
-                                             f"{total}")
+                        raise AssertionError(f"K4 != plain or the global "
+                                             f"design on {label}: {total}")
                 del chans
         torch.cuda.empty_cache()
 
@@ -1421,27 +1459,47 @@ def main() -> int:
         del chans, res
         torch.cuda.empty_cache()
 
-    # K4: J15_L30_Z1280, B=4096, one call of 10 passes at Es/N0 -3 dB, where
-    # no slot converges (max_iters out of reach), so every call does the
-    # work of K1/K2's 10 fixed iterations
-    code = codes["J15_L30_Z1280"]
+    # K4: B=4096, one call of 10 passes where no slot converges (max_iters
+    # out of reach; J15_L30_Z1280 at Es/N0 -3 dB, PON_LDPC at 0 dB), so
+    # every call does the work of K1/K2's 10 fixed iterations.  Min-sum with
+    # the state on chip ("kernel"), the global-memory design ("global") and
+    # the plain version in turns, and J15_L30_Z1280 flooding on a cluster of
+    # 4 that holds chan too ("cluster4")
     B, k = 4096, 10
     zeros = lambda: torch.zeros(B, dtype=torch.int32, device=dev)  # noqa: E731
-    for key, rule, layered in (("minsum_stream", "minsum", False),
-                               ("minsum_stream layered", "minsum", True),
-                               ("bp_stream", "bp", False)):
-        chan0 = chan_for(code, "esn0", -3.0, B, seed=27, rule=rule)
-        states = {w: [chan0.clone(), torch.zeros((B, code.num_edges, code.Z),
-                                                 device=dev),
-                      zeros(), zeros(), zeros()] for w in ("kernel", "plain")}
+    for key, name, snr, rule, layered in (
+            ("minsum_stream", "J15_L30_Z1280", -3.0, "minsum", False),
+            ("minsum_stream layered", "J15_L30_Z1280", -3.0, "minsum", True),
+            ("bp_stream", "J15_L30_Z1280", -3.0, "bp", False),
+            ("minsum_stream pon", "PON_LDPC", 0.0, "minsum", False),
+            ("minsum_stream pon layered", "PON_LDPC", 0.0, "minsum", True)):
+        code = code_of(name)
+        chan0 = chan_for(code, "esn0", snr, B, seed=27, rule=rule)
         steps = {"kernel": cuda_minsum_stream.stream_step,
                  "plain": minsum_stream.stream_step}
+        plans = {}
+        if rule == "minsum":
+            steps["global"] = cuda_minsum_stream.global_stream_step
+            plans["kernel"] = cuda_minsum_stream.onchip_plan(code, layered)
+            if name == "J15_L30_Z1280" and not layered:
+                steps["cluster4"] = functools.partial(
+                    cuda_minsum_stream.onchip_step,
+                    plan=cuda_minsum_stream.onchip_plan(code, False,
+                                                        cluster=4))
+                plans["cluster4"] = steps["cluster4"].keywords["plan"]
+        states = {w: [chan0.clone(), torch.zeros((B, code.num_edges, code.Z),
+                                                 device=dev),
+                      zeros(), zeros(), zeros()] for w in steps}
 
         def launch(which, i):
+            kw = {} if which == "cluster4" else dict(rule=rule)
             return steps[which](*states[which], code, k, 10**6, check="zero",
-                                rule=rule, layered=layered)
+                                layered=layered, **kw)
 
-        runs = time_turns(launch, {"kernel": 20, "plain": 3})
+        reps = {w: 20 for w in steps}
+        reps["plain"] = 3
+        order = ("plain", *[w for w in steps if w != "plain"])
+        runs = time_turns(launch, reps, order=order + order[::-1])
         ms = {w: statistics.median(v) for w, v in runs.items()}
         t0_, d0 = states["kernel"][2].clone(), states["kernel"][3].clone()
         launch("kernel", 0)
@@ -1454,11 +1512,15 @@ def main() -> int:
         _emit("timing", kernel=key, code=code.name, batch=B, passes=k,
               card=card, ms_per_call=runs, slot_passes=passes,
               slot_updates=updates,
+              plans={w: {"cluster": p.cluster, "keep_chan": p.keep_chan,
+                         "smem_bytes": p.smem_bytes}
+                     for w, p in plans.items()},
               info_mbps_per_10_passes={w: B * code.k / (v / 1e3) / 1e6
                                        for w, v in ms.items()},
               bound_ms=bound, bound_by=bound_by)
         del states, chan0
         torch.cuda.empty_cache()
+    code = code_of("J15_L30_Z1280")
 
     # the refill between two K4 calls: a fresh channel for all B slots and
     # the select into the finished ones

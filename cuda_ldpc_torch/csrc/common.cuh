@@ -115,25 +115,22 @@ __device__ __forceinline__ float phi_of_message(float q) {
 // The check node of block row (edges row_edge[k0..k1)) at row lane r of one
 // frame: tb is the frame's T [L, Z], rb its R [E, Z].
 //
-// Pass 1 reads every v2c message q = T - R of the row.  Min-sum keeps a
-// two-min with a strict `<` (the first minimum wins) and the sign bits from
-// `q < 0`; bp sums phi(clip|q|) in row-edge order.  Pass 2 writes each
-// edge's new message: min2 on the first-minimum edge and min1 elsewhere, or
-// phi(max(sum - phi_e, kBpLo)); then beta, then alpha, then the sign.  bp
-// recomputes q and phi_e from T and R, which no other thread touches at
-// these addresses before this write, so it needs no per-edge array.
-// kLayered also updates the total as T + (R_new - R_old).
+// Pass 1 reads every v2c message q = T - R of the row and keeps a two-min
+// with a strict `<` (the first minimum wins) and the sign bits from
+// `q < 0`.  Pass 2 writes each edge's new message: min2 on the
+// first-minimum edge and min1 elsewhere; then beta, then alpha, then the
+// sign.  kLayered also updates the total as T + (R_new - R_old).
 //
 // Within one block row each block column appears at most once and
 // z = (r + s) % Z is a bijection, so every (l, z) of T and (e, z) of R that
 // this call touches is touched by no other lane of the row: no atomics.
-template <int kRule, bool kLayered>
-__device__ __forceinline__ void check_node(
+template <bool kLayered>
+__device__ __forceinline__ void check_node_minsum(
     float* tb, float* rb, const int* __restrict__ edge_l,
     const int* __restrict__ edge_s, const int* __restrict__ row_edge, int k0,
     int k1, int r, int Z,
     float alpha, int use_alpha, float beta, int use_beta) {
-  float m1 = 0.f, m2 = FLT_MAX, phsum = 0.f;
+  float m1 = 0.f, m2 = FLT_MAX;
   int am = 0;
   uint64_t signs = 0;
   for (int k = k0; k < k1; ++k) {
@@ -142,19 +139,15 @@ __device__ __forceinline__ void check_node(
     if (z >= Z) z -= Z;
     const float q = __fsub_rn(tb[edge_l[e] * Z + z], rb[(int64_t)e * Z + z]);
     if (q < 0.f) signs |= 1ull << i;
-    if (kRule == kRuleBP) {
-      phsum = __fadd_rn(phsum, phi_of_message(q));
-    } else {
-      const float mag = fabsf(q);
-      if (i == 0) {
-        m1 = mag;
-      } else if (mag < m1) {
-        m2 = m1;
-        m1 = mag;
-        am = i;
-      } else if (mag < m2) {
-        m2 = mag;
-      }
+    const float mag = fabsf(q);
+    if (i == 0) {
+      m1 = mag;
+    } else if (mag < m1) {
+      m2 = m1;
+      m1 = mag;
+      am = i;
+    } else if (mag < m2) {
+      m2 = mag;
     }
   }
   const int parity = __popcll(signs) & 1;
@@ -164,17 +157,10 @@ __device__ __forceinline__ void check_node(
     if (z >= Z) z -= Z;
     float* rp = rb + (int64_t)e * Z + z;
     float* tp = tb + edge_l[e] * Z + z;
-    float out, t_old = 0.f, r_old = 0.f;
-    if (kRule == kRuleBP || kLayered) {
+    float out = i == am ? m2 : m1, t_old = 0.f, r_old = 0.f;
+    if (kLayered) {
       t_old = *tp;
       r_old = *rp;
-    }
-    if (kRule == kRuleBP) {
-      const float q = __fsub_rn(t_old, r_old);
-      const float rest = __fsub_rn(phsum, phi_of_message(q));
-      out = phi(fmaxf(rest, kBpLo));
-    } else {
-      out = i == am ? m2 : m1;
     }
     if (use_beta) {
       out = __fsub_rn(out, beta);
@@ -185,6 +171,91 @@ __device__ __forceinline__ void check_node(
     if (kLayered) *tp = __fadd_rn(t_old, __fsub_rn(out, r_old));
     *rp = out;
   }
+}
+
+// The row degrees a bp check node keeps in registers: kDeg is a
+// compile-time bound, picked per code by the host (bp_degree_bucket).
+constexpr int kBpDegSmall = 8;     // J15_L30_Z1280 (7-8), the 4-8 edge rows
+constexpr int kBpDegMid = 32;      // PON_LDPC (22-23), J10_L60_Z160 (23-24)
+static_assert(kMaxRowDegree == 64, "the largest bucket is kMaxRowDegree");
+
+static inline int bp_degree_bucket(int max_dc) {
+  return max_dc <= kBpDegSmall ? kBpDegSmall
+         : max_dc <= kBpDegMid ? kBpDegMid : kMaxRowDegree;
+}
+
+// The same check node with the exact sum-product rule, for rows of at most
+// kDeg edges.  Pass 1 reads each q = T - R once, keeps phi_e = phi(clip|q|)
+// per edge in registers (the loops are unrolled over kDeg, so the arrays
+// are registers) and sums phi in row-edge order; layered also keeps T_old
+// and R_old.  Pass 2 reads no T or R (only the small edge tables, to form
+// the addresses it writes) and evaluates phi once per edge, for the output
+// phi(max(sum - phi_e, kBpLo)); then beta, then alpha, then the sign.
+// phi_e is one float, added to the sum and subtracted from it, so keeping
+// it changes no bit of the result.
+template <bool kLayered, int kDeg>
+__device__ __forceinline__ void check_node_bp(
+    float* tb, float* rb, const int* __restrict__ edge_l,
+    const int* __restrict__ edge_s, const int* __restrict__ row_edge, int k0,
+    int k1, int r, int Z,
+    float alpha, int use_alpha, float beta, int use_beta) {
+  constexpr int kKeep = kLayered ? kDeg : 1;
+  float ph[kDeg], t_old[kKeep], r_old[kKeep];
+  float phsum = 0.f;
+  uint64_t signs = 0;
+  const int dc = k1 - k0;
+#pragma unroll
+  for (int i = 0; i < kDeg; ++i) {
+    if (i < dc) {
+      const int e = row_edge[k0 + i];
+      int z = r + edge_s[e];
+      if (z >= Z) z -= Z;
+      const float t = tb[edge_l[e] * Z + z], rr = rb[(int64_t)e * Z + z];
+      const float q = __fsub_rn(t, rr);
+      if (q < 0.f) signs |= 1ull << i;
+      ph[i] = phi_of_message(q);
+      phsum = __fadd_rn(phsum, ph[i]);
+      if (kLayered) {
+        t_old[i % kKeep] = t;
+        r_old[i % kKeep] = rr;
+      }
+    }
+  }
+  const int parity = __popcll(signs) & 1;
+#pragma unroll
+  for (int i = 0; i < kDeg; ++i) {
+    if (i < dc) {
+      const int e = row_edge[k0 + i];
+      int z = r + edge_s[e];
+      if (z >= Z) z -= Z;
+      float out = phi(fmaxf(__fsub_rn(phsum, ph[i]), kBpLo));
+      if (use_beta) {
+        out = __fsub_rn(out, beta);
+        if (out < 0.f) out = 0.f;
+      }
+      if (use_alpha) out = __fmul_rn(out, alpha);
+      if (parity ^ (int)((signs >> i) & 1)) out = -out;
+      if (kLayered)
+        tb[edge_l[e] * Z + z] = __fadd_rn(t_old[i % kKeep],
+                                          __fsub_rn(out, r_old[i % kKeep]));
+      rb[(int64_t)e * Z + z] = out;
+    }
+  }
+}
+
+// The check node with `kRule`; kDeg bounds the row degree for bp only.
+template <int kRule, bool kLayered, int kDeg>
+__device__ __forceinline__ void check_node(
+    float* tb, float* rb, const int* __restrict__ edge_l,
+    const int* __restrict__ edge_s, const int* __restrict__ row_edge, int k0,
+    int k1, int r, int Z,
+    float alpha, int use_alpha, float beta, int use_beta) {
+  if constexpr (kRule == kRuleBP)
+    check_node_bp<kLayered, kDeg>(tb, rb, edge_l, edge_s, row_edge, k0, k1,
+                                  r, Z, alpha, use_alpha, beta, use_beta);
+  else
+    check_node_minsum<kLayered>(tb, rb, edge_l, edge_s, row_edge, k0, k1, r,
+                                Z, alpha, use_alpha, beta, use_beta);
 }
 
 }  // namespace ldpc

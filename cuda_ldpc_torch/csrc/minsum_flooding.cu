@@ -42,10 +42,10 @@
 // in device memory and L2, read twice (vn, cn) and written once (cn) per
 // iteration.  A later change stores each check node's (min1, min2, argmin,
 // sign bits) instead of every edge message, which cuts those bytes by about
-// the row degree.  bp adds three logf and three tanhf per edge (phi_e twice,
-// since pass 2 recomputes it instead of keeping a per-edge array, and the
-// output's phi); they are issued from the same threads, so bp leans towards
-// the operations bound.
+// the row degree.  bp adds two logf and two tanhf per edge: phi_e, kept in
+// registers from pass 1 to pass 2 (common.cuh's check_node_bp, unrolled over
+// the code's degree bucket), and the output's phi.  Pass 2 reads no T or R,
+// so a bp CN launch moves the same bytes as a min-sum one.
 
 #include "common.cuh"
 
@@ -76,8 +76,9 @@ static __global__ void vn_kernel(const float* __restrict__ chan,
 }
 
 // One block per (frame, block row), threads over the row lanes r.  T is only
-// read here: check_node writes it only when layered.
-template <int kRule>
+// read here: check_node writes it only when layered.  kDeg bounds the row
+// degree of bp (common.cuh's bucket); min-sum ignores it.
+template <int kRule, int kDeg>
 static __global__ void cn_kernel(const float* __restrict__ T,
                                  float* __restrict__ R,
                                  const int* __restrict__ edge_l,
@@ -95,9 +96,9 @@ static __global__ void cn_kernel(const float* __restrict__ T,
     float* tb = const_cast<float*>(T + b * L * Z);
     float* rb = R + b * E * Z;
     for (int r = threadIdx.x; r < Z; r += blockDim.x)
-      check_node<kRule, false>(tb, rb, edge_l, edge_s, row_edge, row_ptr[j],
-                               row_ptr[j + 1], r, Z, alpha, use_alpha, beta,
-                               use_beta);
+      check_node<kRule, false, kDeg>(tb, rb, edge_l, edge_s, row_edge,
+                                     row_ptr[j], row_ptr[j + 1], r, Z, alpha,
+                                     use_alpha, beta, use_beta);
   }
 }
 
@@ -110,10 +111,10 @@ const char* ldpc_error_string(int err) {
 }
 
 // Decodes `num_iters` >= 1 flooding iterations of the batch `chan` with
-// `rule` (0 min-sum, 1 bp) on `stream` of CUDA device `device`.  T, R, hard,
-// ok and ctl (3 ints) are the caller's buffers; ctl ends holding the
-// iteration count in ctl[0].  Returns 0 or the first CUDA error met while
-// enqueueing.
+// `rule` (0 min-sum, 1 bp; `max_dc` is the code's largest row degree) on
+// `stream` of CUDA device `device`.  T, R, hard, ok and ctl (3 ints) are
+// the caller's buffers; ctl ends holding the iteration count in ctl[0].
+// Returns 0 or the first CUDA error met while enqueueing.
 int ldpc_minsum_flooding(const float* chan, float* T, float* R,
                          signed char* hard, unsigned char* ok, int* ctl,
                          const int* edge_l, const int* edge_s,
@@ -121,7 +122,8 @@ int ldpc_minsum_flooding(const float* chan, float* T, float* R,
                          const int* col_ptr, const int* col_edge, int B, int L,
                          int J, int E, int Z, int num_iters, float alpha,
                          int use_alpha, float beta, int use_beta, int check,
-                         int early_stop, int rule, int device, void* stream) {
+                         int early_stop, int rule, int max_dc, int device,
+                         void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if ((err = cudaSetDevice(device))) return err;
@@ -151,7 +153,13 @@ int ldpc_minsum_flooding(const float* chan, float* T, float* R,
                                                Z);
     finish_kernel<<<1, 1, 0, st>>>(ctl, stop_when_ok);
     if (it + 1 < num_iters) {
-      auto cn = rule == kRuleBP ? cn_kernel<kRuleBP> : cn_kernel<kRuleMinsum>;
+      auto cn = cn_kernel<kRuleMinsum, 0>;
+      if (rule == kRuleBP) {
+        const int deg = bp_degree_bucket(max_dc);
+        cn = deg == kBpDegSmall ? cn_kernel<kRuleBP, kBpDegSmall>
+             : deg == kBpDegMid ? cn_kernel<kRuleBP, kBpDegMid>
+                                : cn_kernel<kRuleBP, kMaxRowDegree>;
+      }
       cn<<<cn_grid, threads, 0, st>>>(T, R, edge_l, edge_s, row_ptr, row_edge,
                                       ctl, B, L, J, E, Z, alpha, use_alpha,
                                       beta, use_beta);

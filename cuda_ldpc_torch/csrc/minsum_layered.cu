@@ -30,13 +30,15 @@
 // VN pass is needed, since the totals are kept up to date.  T of one frame
 // (153.6 KB on J15_L30_Z1280) would fit shared memory; it stays in device
 // memory and L1/L2 here, and holding it on chip is a later change.  bp adds
-// three logf and three tanhf per edge, as in the flooding kernel.
+// two logf and two tanhf per edge and keeps phi_e, T_old and R_old in
+// registers between its two passes, as in the flooding kernel; its time is
+// held by each row's round trips to device memory more than by phi.
 
 #include "common.cuh"
 
 using namespace ldpc;
 
-template <int kRule>
+template <int kRule, int kDeg>
 static __global__ void layered_kernel(float* T, float* R,
                                       const int* __restrict__ edge_l,
                                       const int* __restrict__ edge_s,
@@ -53,9 +55,9 @@ static __global__ void layered_kernel(float* T, float* R,
     float* rb = R + b * E * Z;
     for (int j = 0; j < J; ++j) {
       for (int r = threadIdx.x; r < Z; r += blockDim.x)
-        check_node<kRule, true>(tb, rb, edge_l, edge_s, row_edge, row_ptr[j],
-                                row_ptr[j + 1], r, Z, alpha, use_alpha, beta,
-                                use_beta);
+        check_node<kRule, true, kDeg>(tb, rb, edge_l, edge_s, row_edge,
+                                      row_ptr[j], row_ptr[j + 1], r, Z,
+                                      alpha, use_alpha, beta, use_beta);
       __syncthreads();  // the next block row reads these totals
     }
   }
@@ -64,17 +66,18 @@ static __global__ void layered_kernel(float* T, float* R,
 extern "C" {
 
 // Decodes `num_iters` >= 1 layered iterations of the batch `chan` with
-// `rule` (0 min-sum, 1 bp) on `stream` of CUDA device `device`.  T, R, hard,
-// ok and ctl (3 ints) are the caller's buffers; ctl ends holding the
-// iteration count in ctl[0].  Returns 0 or the first CUDA error met while
-// enqueueing.
+// `rule` (0 min-sum, 1 bp; `max_dc` is the code's largest row degree) on
+// `stream` of CUDA device `device`.  T, R, hard, ok and ctl (3 ints) are
+// the caller's buffers; ctl ends holding the iteration count in ctl[0].
+// Returns 0 or the first CUDA error met while enqueueing.
 int ldpc_minsum_layered(const float* chan, float* T, float* R,
                         signed char* hard, unsigned char* ok, int* ctl,
                         const int* edge_l, const int* edge_s,
                         const int* row_ptr, const int* row_edge, int B, int L,
                         int J, int E, int Z, int num_iters, float alpha,
                         int use_alpha, float beta, int use_beta, int check,
-                        int early_stop, int rule, int device, void* stream) {
+                        int early_stop, int rule, int max_dc, int device,
+                        void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if ((err = cudaSetDevice(device))) return err;
@@ -93,8 +96,13 @@ int ldpc_minsum_layered(const float* chan, float* T, float* R,
   const int threads = Z >= 256 ? 256 : ((Z + 31) / 32) * 32;
   const int grid = (int)min64(B, (int64_t)sms * 16);
   const int stop_when_ok = early_stop && check != kCheckNone;
-  auto layered =
-      rule == kRuleBP ? layered_kernel<kRuleBP> : layered_kernel<kRuleMinsum>;
+  auto layered = layered_kernel<kRuleMinsum, 0>;
+  if (rule == kRuleBP) {
+    const int deg = bp_degree_bucket(max_dc);
+    layered = deg == kBpDegSmall ? layered_kernel<kRuleBP, kBpDegSmall>
+              : deg == kBpDegMid ? layered_kernel<kRuleBP, kBpDegMid>
+                                 : layered_kernel<kRuleBP, kMaxRowDegree>;
+  }
 
   for (int it = 0; it < num_iters; ++it) {
     layered<<<grid, threads, 0, st>>>(T, R, edge_l, edge_s, row_ptr, row_edge,

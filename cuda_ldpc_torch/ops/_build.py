@@ -105,19 +105,28 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         [p] * 12                  # chan T R hard ok ctl + 6 edge tables
         + [i] * 6                 # B L J E Z num_iters
         + [f, i, f, i]            # alpha use_alpha beta use_beta
-        + [i, i, i, i, p])        # check early_stop rule device stream
+        + [i, i, i, i, i, p])     # check early_stop rule max_dc device stream
     lib.ldpc_minsum_flooding.restype = i
     lib.ldpc_minsum_layered.argtypes = (
         [p] * 10                  # chan T R hard ok ctl + 4 edge tables
         + [i] * 6                 # B L J E Z num_iters
         + [f, i, f, i]            # alpha use_alpha beta use_beta
-        + [i, i, i, i, p])        # check early_stop rule device stream
+        + [i, i, i, i, i, p])     # check early_stop rule max_dc device stream
     lib.ldpc_minsum_layered.restype = i
-    lib.ldpc_minsum_stream.argtypes = (
+    lib.ldpc_minsum_stream_global.argtypes = (
         [p] * 13                  # chan T R hard t done okf + 6 edge tables
         + [i] * 7                 # B L J E Z k max_iters
         + [f, i, f, i]            # alpha use_alpha beta use_beta
-        + [i, i, i, i, p])        # check rule layered device stream
+        + [i, i, i, i, i, p])     # check rule layered max_dc device stream
+    lib.ldpc_minsum_stream_global.restype = i
+    lib.ldpc_minsum_stream.argtypes = (
+        [p] * 15                  # chan R hard t done okf + 6 edge tables +
+                                  # edge_row edge_pos plan
+        + [i] * 7                 # B L J E Z k max_iters
+        + [f, i, f, i]            # alpha use_alpha beta use_beta
+        + [i] * 7                 # check layered cluster smem_bytes wide
+                                  # threads device
+        + [p])                    # stream
     lib.ldpc_minsum_stream.restype = i
     lib.ldpc_qspa_stream.argtypes = (
         [p] * 13                  # chan C hard t done okf + 5 edge tables +

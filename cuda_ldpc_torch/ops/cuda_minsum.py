@@ -7,7 +7,9 @@ They replace the TPU kernels ``pallas_minsum._kernel`` (flooding) and
 ``rule='bp'`` (``_cn_phase(rule='bp')``).  The kernels are bound by
 global-memory bytes for min-sum: the c2v messages R [B, E, Z] do not fit in
 shared memory (589 KB per frame on J15_L30_Z1280), so each iteration moves
-them through device memory.  bp adds logf/tanhf per edge.
+them through device memory.  bp adds logf/tanhf per edge, with phi of each
+message kept in registers between the check node's two passes (the row
+degree's bucket is passed to the kernel).
 
 Semantics are ops/minsum.decode_flooding's and decode_layered's, bit for bit
 for min-sum, including their batch-global early stop: ``hard`` and ``ok``
@@ -112,9 +114,10 @@ def _decode(schedule: str, chan: torch.Tensor, code: QCBinaryCode,
             torch.zeros(B, dtype=torch.bool, device=dev),
             torch.tensor(iters, dtype=torch.int32, device=dev))
     lib = _build.load()
-    if int(code.row_weights.max()) > lib.ldpc_max_row_degree():
-        raise ValueError(f"{code.name}: row degree {code.row_weights.max()} "
-                         f"exceeds the kernel's {lib.ldpc_max_row_degree()}")
+    max_dc = int(code.row_weights.max())
+    if max_dc > lib.ldpc_max_row_degree():
+        raise ValueError(f"{code.name}: row degree {max_dc} exceeds the "
+                         f"kernel's {lib.ldpc_max_row_degree()}")
     E = code.num_edges
     tab = _cached_tables(code, dev)
     T = torch.empty_like(chan)
@@ -132,7 +135,7 @@ def _decode(schedule: str, chan: torch.Tensor, code: QCBinaryCode,
         *(_ptr(t) for t in tables), B, L, code.J, E, Z, int(num_iters),
         float(alpha), int(alpha != 1.0), float(beta), int(beta != 0.0),
         _CHECK_CODES[check], int(bool(early_stop)), _RULE_CODES[rule],
-        dev.index, ctypes.c_void_p(stream))
+        max_dc, dev.index, ctypes.c_void_p(stream))
     name = f"{rule}_{schedule}"
     if err:
         raise RuntimeError(f"{name} launch failed: "

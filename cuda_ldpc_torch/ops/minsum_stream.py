@@ -24,9 +24,18 @@ entry; the engines never call it so).
 This is the reference that ops/cuda_minsum_stream.py's kernel equals bit
 for bit on the card (for bp: the same operations), and it is held against
 the JAX kernel in interpret mode on the CPU.
+
+``compress_messages`` and ``expand_messages`` are the plain form of the
+representation the min-sum kernel keeps on chip between its entry and its
+exit: a min-sum check node's outputs take two magnitudes, v1 on every edge
+but the first minimum and v2 on that edge, and a sign each, so (v1, v2,
+the first-minimum index, the outputs' sign bits) is the row's R bit for bit,
+-0.0 included.  Nothing on the card's path calls them.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -91,3 +100,63 @@ def stream_step(chan: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
     done.copy_(fin_all)
     okf.copy_(ok_flag)
     return chan, R, hard.to(torch.int8), t, done, okf
+
+
+class CompressedMessages(NamedTuple):
+    """A min-sum R [B, E, Z] per check node (block row j, row lane r):
+    edge i of the row carries ``v2`` if i == ``am`` else ``v1`` (both
+    non-negative), negated where bit i of ``signs`` is set."""
+    v1: torch.Tensor      # [B, J, Z] float32
+    v2: torch.Tensor      # [B, J, Z] float32
+    am: torch.Tensor      # [B, J, Z] int64, the first-minimum edge's index
+    signs: torch.Tensor   # [B, J, Z] int64, the outputs' sign bits
+
+
+def _row_messages(code: QCBinaryCode, R: torch.Tensor, j: int):
+    """Row j's messages, row-aligned: [B, dc, Z], element (i, r) the
+    message of edge row_edges[j][i] at z = (r + s) % Z."""
+    return torch.stack([torch.roll(R[:, e], -int(code.edges[e, 2]), dims=-1)
+                        for e in code.row_edges[j]], dim=1)
+
+
+def compress_messages(R: torch.Tensor,
+                      code: QCBinaryCode) -> CompressedMessages:
+    """R [B, E, Z] float32 as written by the min-sum check node (or zeros)
+    -> its compressed form.  The first-minimum edge is the one whose
+    magnitude differs from the others'; where all agree, index 0."""
+    v1s, v2s, ams, sgs = [], [], [], []
+    for j in range(code.J):
+        Rr = _row_messages(code, R, j)
+        dc = Rr.shape[1]
+        bits = (Rr.view(torch.int32) < 0).to(torch.int64)
+        sgs.append((bits << torch.arange(dc, device=R.device)[:, None])
+                   .sum(dim=1))
+        mag = Rr.abs()
+        mag0 = mag[:, 0]
+        odd = mag[:, 1:] != mag0[:, None]                 # [B, dc-1, Z]
+        first = odd.to(torch.int32).argmax(dim=1) + 1     # first that differs
+        any_odd = odd.any(dim=1)
+        mag_first = mag.gather(1, first[:, None].to(torch.int64))[:, 0]
+        # edge 0 is the odd one when edges 1 and 2 agree against it
+        zero_odd = (any_odd & (first == 1) & (mag[:, 2] == mag[:, 1])
+                    if dc >= 3 else torch.zeros_like(any_odd))
+        am = torch.where(any_odd & ~zero_odd, first, 0).to(torch.int64)
+        v1s.append(torch.where(zero_odd, mag[:, 1], mag0))
+        v2s.append(torch.where(any_odd & ~zero_odd, mag_first, mag0))
+        ams.append(am)
+    return CompressedMessages(*(torch.stack(x, dim=1)
+                                for x in (v1s, v2s, ams, sgs)))
+
+
+def expand_messages(c: CompressedMessages, code: QCBinaryCode) -> torch.Tensor:
+    """The compressed form -> R [B, E, Z] float32."""
+    B, _, Z = c.v1.shape
+    R = torch.empty((B, code.num_edges, Z), dtype=torch.float32,
+                    device=c.v1.device)
+    for j in range(code.J):
+        for i, e in enumerate(code.row_edges[j]):
+            mag = torch.where(c.am[:, j] == i, c.v2[:, j], c.v1[:, j])
+            neg = ((c.signs[:, j] >> i) & 1).bool()
+            R[:, e] = torch.roll(torch.where(neg, -mag, mag),
+                                 int(code.edges[e, 2]), dims=-1)
+    return R

@@ -23,8 +23,14 @@ TINY = QCBinaryCode(name="tiny", base=np.array([[0, 1, 2, -1],
                                                 [3, -1, 0, 1]]), Z=4)
 
 
+# rows of 40 edges: the bp check node's largest degree bucket (33-64)
+DEG40 = QCBinaryCode(name="deg40", base=np.arange(80).reshape(2, 40) % 16,
+                     Z=16)
+
+
 def _code(name):
-    return TINY if name == "tiny" else QCBinaryCode.from_registry(name)
+    return {"tiny": TINY, "deg40": DEG40}.get(name) or \
+        QCBinaryCode.from_registry(name)
 
 
 def _chan(code, sigma, batch, seed, device="cpu"):
@@ -192,6 +198,12 @@ RULE_CASES = [
     ("flooding", "bp", "PON_LDPC", 0.72, 16, 20, "syndrome", False, 0.8, 0.1),
     ("layered", "bp", "J4_L24_Z96", 0.60, 64, 20, "syndrome", True, 1.0, 0.0),
     ("layered", "bp", "J15_L30_Z1280", 0.75, 16, 20, "zero", True, 1.0, 0.0),
+    # the bp check node's degree buckets: 8 (J15), 32 (PON, 22-23), 64
+    ("flooding", "bp", "J15_L30_Z1280", 0.75, 16, 20, "syndrome", False, 0.8,
+     0.1),
+    ("layered", "bp", "PON_LDPC", 0.72, 16, 20, "zero", True, 0.8, 0.1),
+    ("flooding", "bp", "deg40", 0.45, 32, 10, "syndrome", False, 1.0, 0.0),
+    ("layered", "bp", "deg40", 0.45, 32, 10, "none", True, 0.8, 0.1),
 ]
 
 

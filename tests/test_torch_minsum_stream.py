@@ -197,3 +197,75 @@ def test_two_calls_equal_one_call(codes, schedule, sigma):
         assert torch.equal(one[i], out[i])
     assert torch.equal(one[2][alive], out[2][alive])
     assert alive.any() and one[4].any()
+
+
+# ------------------------------------------- the kernel's compressed state
+
+def _int_view(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _refilled(state, fresh):
+    """The kernel engine's refill: fresh channel values and reset counts
+    for the finished slots."""
+    chan, R, t, done, okf = state
+    fin = done.bool()
+    return [torch.where(fin[:, None, None], fresh, chan), R,
+            t * (~fin).int(), torch.zeros_like(done), torch.zeros_like(okf)]
+
+
+@pytest.mark.parametrize("alpha,beta", [(1.0, 0.0), (0.8, 0.1)])
+@pytest.mark.parametrize("layered", [False, True])
+@pytest.mark.parametrize("name,B,sigma", [("J4_L24_Z96", 16, 0.8),
+                                          ("PON_LDPC", 4, 0.75)])
+def test_compressed_messages_round_trip_bitwise(name, B, sigma, layered,
+                                                alpha, beta):
+    """R from the plain step over a call sequence (k = 1, refill, k = 3)
+    compresses and expands to itself bit for bit, -0.0 included; so does
+    the fresh all-zero R."""
+    code = QCBinaryCode.from_registry(name)
+    rng = np.random.default_rng(B)
+    chans = [torch.from_numpy(_chan(code, B, sigma, seed=s, rule="minsum"))
+             for s in rng.integers(1 << 30, size=2)]
+    z = torch.zeros(B, dtype=torch.int32)
+    state = [chans[0], torch.zeros(B, code.num_edges, code.Z), z, z.clone(),
+             z.clone()]
+    seen = []
+    for k, fresh in ((None, None), (1, chans[1]), (3, None)):
+        if k is not None:
+            out = minsum_stream.stream_step(*state, code, k, 30, alpha=alpha,
+                                            beta=beta, check="syndrome",
+                                            layered=layered)
+            state = [x for i, x in enumerate(out) if i != 2]
+            if fresh is not None:
+                state = _refilled(state, fresh)
+        R = state[1]
+        c = minsum_stream.compress_messages(R, code)
+        assert torch.equal(_int_view(minsum_stream.expand_messages(c, code)),
+                           _int_view(R))
+        assert (c.v1 >= 0).all() and (c.v2 >= 0).all()
+        seen.append(R)
+    R = seen[-1]
+    assert (R != 0).any()
+    if beta:                           # zero outputs with a sign
+        assert (_int_view(R) == np.int32(-2**31)).any()
+
+
+def test_compressed_messages_take_tied_minima():
+    """A row whose two smallest |q| tie sends one magnitude on every edge;
+    the compression takes index 0 there, and the round trip is exact."""
+    code = QCBinaryCode.from_registry("J4_L24_Z96")
+    B = 3
+    chan = torch.ones(B, code.L, code.Z)
+    chan[1] = -0.5                   # every |q| ties: all outputs agree
+    chan[2, :, ::2] = 0.25           # two values a row: the minima tie
+    z = torch.zeros(B, dtype=torch.int32)
+    out = minsum_stream.stream_step(
+        chan, torch.zeros(B, code.num_edges, code.Z), z, z.clone(),
+        z.clone(), code, 2, 30, check="none")
+    R = out[1]
+    c = minsum_stream.compress_messages(R, code)
+    assert torch.equal(_int_view(minsum_stream.expand_messages(c, code)),
+                       _int_view(R))
+    tied = c.v1 == c.v2
+    assert tied.any() and (c.am[tied] == 0).all()
