@@ -8,10 +8,13 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
   2. build    builds every kernel in cuda_ldpc_torch/csrc/ with nvcc, one
               compiler per source, all at once
   3. parity   each kernel vs its plain PyTorch version on the same CUDA
-              tensors.  Flooding and layered min-sum (K1, K2): J4_L24_Z96,
-              J15_L30_Z1280 and PON_LDPC, checks zero / syndrome / none,
-              early stop on and off, alpha 0.8 with beta 0.1, 0 iterations,
-              a ragged batch of 11, and the main path's B=4096.  The bp rule
+              tensors.  Flooding and layered min-sum (K1, K2, each frame's
+              state on chip), also against their global-memory design:
+              J4_L24_Z96 at B=4096, 37 and 11, J15_L30_Z1280 and PON_LDPC
+              at B=4096, checks zero / syndrome / none, early stop on and
+              off, alpha 0.8 with beta 0.1, 0 iterations, and a crafted
+              batch whose frames pass and then fail, so that the on-chip
+              stop protocol's lockstep steps run.  The bp rule
               in both schedules (K3) on true LLRs: J4_L24_Z96, J15_L30_Z1280
               and PON_LDPC at the main path's B=4096, and smaller batches.
               hard, ok and iters exactly equal; every mismatch is counted
@@ -44,8 +47,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               ROADMAP item
   5. timing   J15_L30_Z1280, B=4096, 10 fixed iterations, one batch in
               flight: each binary kernel and its plain PyTorch version in
-              turns (plain, kernel, kernel, plain), then one kernel call
-              under torch.profiler for its device time per CUDA kernel; the
+              turns (plain, kernel, kernel, plain; min-sum with its global-
+              memory design too), then one kernel call under torch.profiler
+              for its device time per CUDA kernel; K1 and K2 min-sum on
+              PON_LDPC in turns; the
               same for K5 on BDS.576.288.GF.64 at B=4096 and K6 on
               Tanner_74_9_Z128_GF16 at B=256, at most 10 passes, early stop
               off, at an Eb/N0 where most frames run every pass
@@ -414,8 +419,13 @@ def measuring_path(card: str, wrappers) -> None:
     engines (binary J15_L30_Z1280 at two points, nb BDS qspa and ems at
     one), whose traces must hold K1's, K5's and K8's device events by name
     and whose rows must equal an untraced run's, --packed --profile
-    refused, and profile_phases."""
+    refused, and profile_phases.  Each traced sweep runs as `python -m
+    cuda_ldpc_torch ... --profile DIR` in a process of its own: a process
+    that has run many kernels between a few earlier traces (as this one
+    has) records no kernels in its later traces, a fresh one records them
+    all; the untraced sweep it is compared with runs here, counted."""
     import statistics
+    import subprocess
 
     from cuda_ldpc_torch import bench, cli
     from cuda_ldpc_torch.tools import profile_phases
@@ -453,7 +463,7 @@ def measuring_path(card: str, wrappers) -> None:
     frames = ["--batch", "4096", "--least-error-frames", "0",
               "--least-test-frames", "8192", "--max-frames", "8192"]
     sweeps = [
-        ("binary", "minsum_flooding", "cn_kernel",
+        ("binary", "minsum_flooding", "onchip_batch_kernel",
          ["binary", "--code", "J15_L30_Z1280", "--snr=-1.6:0.2:-1.4",
           "--snr-type", "esn0", "--max-iters", "10"]),
         ("nb qspa", "qspa_flooding", "qspa_kernel",
@@ -466,11 +476,16 @@ def measuring_path(card: str, wrappers) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         for i, (label, kernel, name, argv) in enumerate(sweeps):
             tdir = os.path.join(tmp, f"trace{i}")
-            traced, counts = counted(kernel, lambda: _sweep(
-                cli, os.path.join(tmp, f"traced{i}"),
-                argv + frames + ["--profile", tdir]))
-            plain = _sweep(cli, os.path.join(tmp, f"untraced{i}"),
-                           argv + frames)
+            out = os.path.join(tmp, f"traced{i}")
+            subprocess.run(
+                [sys.executable, "-m", "cuda_ldpc_torch", argv[0], "--device",
+                 "cuda", "--out-dir", out, "--display-step", str(10**12),
+                 "--quiet", *argv[1:], *frames, "--profile", tdir],
+                check=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+            with open(os.path.join(out, "results.jsonl")) as f:
+                traced = [json.loads(line) for line in f]
+            plain, counts = counted(kernel, lambda: _sweep(
+                cli, os.path.join(tmp, f"untraced{i}"), argv + frames))
             same = ([{k: r[k] for k in keep} for r in traced]
                     == [{k: r[k] for k in keep} for r in plain])
             for r in traced:
@@ -660,7 +675,7 @@ def main() -> int:
                                      cuda_minsum_stream, cuda_nbms, cuda_qspa,
                                      cuda_qspa_qc, cuda_qspa_stream, demod,
                                      minsum, minsum_stream, nb_decode,
-                                     qspa_stream)
+                                     onchip, qspa_stream)
     from cuda_ldpc_torch.utils.constellations import constellation
     from cuda_ldpc_torch.utils.device import card_info
     from cuda_ldpc_torch.utils.stats import rates_compatible
@@ -700,19 +715,42 @@ def main() -> int:
         # bp needs true LLRs, as the sweep's step gives it
         return chan.mul_(2.0 / (sigma * sigma)) if rule == "bp" else chan
 
+    def passes_then_fails(batch):
+        """Two J4_L24_Z96 frames, tiled to the batch, whose batch needs the
+        on-chip stop protocol's lockstep steps (tests/test_torch_cuda_minsum
+        .passes_then_fails): a crafted frame that passes the zero check
+        early and fails from iteration 3 on, and a noisy one that first
+        passes at 7 (layered: 3)."""
+        code = code_of("J4_L24_Z96")
+        rng = np.random.default_rng(2)
+        m = code.L - code.J
+        a = np.empty((1, code.L, code.Z), np.float32)
+        a[0, :m] = 2.0 * (0.5 + 0.5 * rng.random((m, code.Z)))
+        a[0, m:] = -1.0
+        noisy = 1.0 + 0.5 * np.random.default_rng(5).standard_normal(
+            (16, code.L, code.Z))
+        two = torch.from_numpy(np.concatenate([a, noisy[:1].astype(
+            np.float32)]))
+        return two.repeat((batch + 1) // 2, 1, 1)[:batch].contiguous().to(dev)
+
     minsum_cases = [
         # code, snr type, snr, batch, iters, check, early stop, alpha, beta
         ("J4_L24_Z96", "ebn0", 3.6, 4096, 50, "zero", True, 1.0, 0.0),
+        ("J4_L24_Z96", "ebn0", 3.6, 4096, 50, "syndrome", True, 0.8, 0.1),
+        ("J4_L24_Z96", "ebn0", 3.0, 4096, 20, "none", True, 1.0, 0.0),
+        ("J4_L24_Z96", "ebn0", 3.6, 37, 50, "syndrome", True, 0.8, 0.1),
+        ("J4_L24_Z96", "ebn0", 3.3, 37, 20, "zero", False, 1.0, 0.0),
         ("J4_L24_Z96", "ebn0", 3.6, 11, 50, "syndrome", True, 0.8, 0.1),
-        ("J4_L24_Z96", "ebn0", 3.0, 256, 20, "none", True, 1.0, 0.0),
-        ("J4_L24_Z96", "ebn0", 3.6, 256, 20, "zero", False, 1.0, 0.0),
         ("J4_L24_Z96", "ebn0", 3.6, 64, 0, "zero", True, 1.0, 0.0),
+        ("J4_L24_Z96", "crafted", None, 4096, 20, "zero", True, 1.0, 0.0),
         ("J15_L30_Z1280", "esn0", -1.5, 4096, 50, "zero", True, 1.0, 0.0),
-        ("J15_L30_Z1280", "esn0", -1.3, 256, 50, "syndrome", True, 1.0, 0.0),
-        ("J15_L30_Z1280", "esn0", -1.5, 256, 10, "none", False, 0.8, 0.1),
+        ("J15_L30_Z1280", "esn0", -1.3, 4096, 50, "syndrome", True, 0.8,
+         0.1),
+        ("J15_L30_Z1280", "esn0", -1.5, 4096, 10, "none", False, 0.8, 0.1),
         ("PON_LDPC", "esn0", 2.45, 4096, 50, "zero", True, 1.0, 0.0),
-        ("PON_LDPC", "esn0", 2.6, 512, 50, "syndrome", True, 1.0, 0.0),
-        ("PON_LDPC", "esn0", 2.45, 512, 10, "zero", False, 0.8, 0.1),
+        ("PON_LDPC", "esn0", 2.6, 4096, 50, "syndrome", True, 0.8, 0.1),
+        ("PON_LDPC", "esn0", 2.45, 4096, 10, "zero", False, 0.8, 0.1),
+        ("PON_LDPC", "esn0", 2.45, 4096, 20, "none", True, 1.0, 0.0),
     ]
     bp_cases = [
         ("J4_L24_Z96", "ebn0", 3.6, 4096, 50, "zero", True, 1.0, 0.0),
@@ -732,32 +770,44 @@ def main() -> int:
     for i, (schedule, rule, name, st, snr, B, iters, check, early, alpha,
             beta) in enumerate(cases):
         code = code_of(name)
-        chan = chan_for(code, st, snr, B, seed=100 + i, rule=rule)
+        chan = (passes_then_fails(B) if st == "crafted" else
+                chan_for(code, st, snr, B, seed=100 + i, rule=rule))
         kw = dict(alpha=alpha, beta=beta, check=check, early_stop=early,
                   rule=rule)
         a = getattr(cuda_minsum, f"decode_{schedule}")(chan, code, iters, **kw)
         b = getattr(minsum, f"decode_{schedule}")(chan, code, iters, **kw)
+        # min-sum: the on-chip design against the global-memory one too
+        g = (getattr(cuda_minsum, f"decode_{schedule}_global")(
+            chan, code, iters, alpha=alpha, beta=beta, check=check,
+            early_stop=early) if rule == "minsum" else None)
         torch.cuda.synchronize()
         hard_diff = a.hard != b.hard
         counts = {"hard": int(hard_diff.sum()),
                   "hard_in_ok_frames": int(hard_diff[b.ok].sum()),
                   "ok": int((a.ok != b.ok).sum()),
                   "iters": abs(int(a.iters) - int(b.iters))}
+        if g is not None:
+            counts.update({"global_hard": int((a.hard != g.hard).sum()),
+                           "global_ok": int((a.ok != g.ok).sum()),
+                           "global_iters": abs(int(a.iters) - int(g.iters))})
         # the largest |kernel - plain| over hard, ok and iters
         err = max(int(hard_diff.any()), int(counts["ok"] > 0),
                   counts["iters"])
         key = f"{rule}_{schedule}"
         max_err[key] = max(max_err[key], float(err))
-        mismatches[key] += counts["hard"] + counts["ok"]
+        mismatches[key] += (counts["hard"] + counts["ok"]
+                            + counts.get("global_hard", 0)
+                            + counts.get("global_ok", 0))
         _emit("parity", kernel=key, code=name, snr=f"{st} {snr}", batch=B,
               iters=iters, check=check, early_stop=early, alpha=alpha,
               beta=beta, kernel_iters=int(a.iters), plain_iters=int(b.iters),
               frames_ok=int(a.ok.sum()), mismatches=counts, max_abs_err=err)
         # exact for both rules: the kernel's logf/tanhf and torch.log /
         # torch.tanh on the card agree to the last bit
-        if counts["hard"] or counts["ok"] or counts["iters"]:
-            raise AssertionError(f"kernel != plain on case {i}: {cases[i]}")
-        del a, b, chan, hard_diff
+        if any(v for k, v in counts.items() if k != "hard_in_ok_frames"):
+            raise AssertionError(f"kernel != plain or the global design on "
+                                 f"case {i}: {cases[i]}: {counts}")
+        del a, b, g, chan, hard_diff
     torch.cuda.empty_cache()
 
     # GF(q): K5 and K6 against the plain nb_decode on the same CUDA tensors
@@ -1379,35 +1429,53 @@ def main() -> int:
             for label, got, batch_rows in engine_rows])
 
     # ---- 5. timing: 10 fixed iterations, one batch in flight
-    code = codes["J15_L30_Z1280"]
-    B, iters, reps = 4096, 10, {"kernel": 20, "plain": 5}
+    B, iters = 4096, 10
     timing = {}
-    for name, _, _ in BINARY:
+    # the binary kernels on J15_L30_Z1280, then K1 and K2 min-sum on
+    # PON_LDPC; min-sum ("kernel", each frame's state on chip) also against
+    # its global-memory design ("global"), in turns
+    for name, code_name, plain_reps in (
+            [(n, "J15_L30_Z1280", 5) for n, _, _ in BINARY]
+            + [(f"minsum_{s}", "PON_LDPC", 2)
+               for s in ("flooding", "layered")]):
+        code = code_of(code_name)
         rule, schedule = name.split("_")
         chans = [chan_for(code, "esn0", -1.5, B, seed=7 + i, rule=rule)
                  for i in range(2)]
         decoders = {"kernel": getattr(cuda_minsum, f"decode_{schedule}"),
                     "plain": getattr(minsum, f"decode_{schedule}")}
+        reps = {"kernel": 20, "plain": plain_reps}
+        order = ("plain", "kernel", "kernel", "plain")
+        if rule == "minsum":
+            decoders["global"] = getattr(cuda_minsum,
+                                         f"decode_{schedule}_global")
+            reps["global"] = 20
+            order = ("plain", "kernel", "global", "global", "kernel", "plain")
 
         def launch(which, i):
+            kw = {} if which == "global" else dict(rule=rule)
             return decoders[which](chans[i % 2], code, iters, check="zero",
-                                   early_stop=False, rule=rule)
+                                   early_stop=False, **kw)
 
-        runs = time_turns(launch, reps)
+        runs = time_turns(launch, reps, order=order)
         ms = {k: statistics.median(v) for k, v in runs.items()}
         bound, bound_by = bound_ms(code, B, iters, schedule, rule, "zero")
-        timing[name] = (ms, bound, bound_by)
-        _emit("timing", kernel=name, code=code.name, batch=B, iters=iters,
+        label = name if code_name == "J15_L30_Z1280" else f"{name} pon"
+        if label == name:
+            timing[name] = (ms, bound, bound_by)
+        _emit("timing", kernel=label, code=code.name, batch=B, iters=iters,
               card=card, ms_per_batch=runs,
               info_mbps={k: B * code.k / (v / 1e3) / 1e6
                          for k, v in ms.items()},
               bound_ms=bound, bound_by=bound_by)
-        # where the kernel's time goes: device time per CUDA kernel of one
-        # decode call, from torch.profiler
-        device_ms = profile_ms(lambda: launch("kernel", 0))
-        _emit("profile", kernel=name, code=code.name, batch=B, iters=iters,
-              card=card, device_ms_total=sum(v[0] for v in device_ms.values()),
-              device_ms_launches=device_ms)
+        if label == name:
+            # where the kernel's time goes: device time per CUDA kernel of
+            # one decode call, from torch.profiler
+            device_ms = profile_ms(lambda: launch("kernel", 0))
+            _emit("profile", kernel=name, code=code.name, batch=B,
+                  iters=iters, card=card,
+                  device_ms_total=sum(v[0] for v in device_ms.values()),
+                  device_ms_launches=device_ms)
         del chans
         torch.cuda.empty_cache()
 
@@ -1480,12 +1548,11 @@ def main() -> int:
         plans = {}
         if rule == "minsum":
             steps["global"] = cuda_minsum_stream.global_stream_step
-            plans["kernel"] = cuda_minsum_stream.onchip_plan(code, layered)
+            plans["kernel"] = onchip.onchip_plan(code, layered)
             if name == "J15_L30_Z1280" and not layered:
                 steps["cluster4"] = functools.partial(
                     cuda_minsum_stream.onchip_step,
-                    plan=cuda_minsum_stream.onchip_plan(code, False,
-                                                        cluster=4))
+                    plan=onchip.onchip_plan(code, False, cluster=4))
                 plans["cluster4"] = steps["cluster4"].keywords["plan"]
         states = {w: [chan0.clone(), torch.zeros((B, code.num_edges, code.Z),
                                                  device=dev),

@@ -11,12 +11,35 @@
 // operations, with logf/tanhf where the plain version calls torch.log and
 // torch.tanh.
 //
-// Layout (the plain version's contract): chan, T [B, L, Z] f32, R [B, E, Z]
+// Early stop is batch-global, like ops/minsum.decode_flooding: hard and ok
+// come from the iteration at which the whole batch stops, iters is the
+// batch's count.  (The TPU kernel stops per 8-frame tile and reports the
+// maximum over tiles.)
+//
+// Min-sum (`ldpc_minsum_flooding`): each frame's state stays on chip for all
+// its iterations (onchip.cuh's `onchip_batch_kernel`, shared with K2 and
+// built from K4's phases): T [L, Z] and R compressed per check node (v1,
+// v2, first-minimum index, sign bits; 12 bytes a check node against 4 a
+// message) in shared memory, on a cluster of two blocks for J15_L30_Z1280
+// (ops/onchip.onchip_plan), with chan in shared memory where it fits.  R
+// starts at zero, so a frame's entry reads only chan and there is no
+// R [B, E, Z] at all; its exit writes hard.  The batch-wide early stop is
+// kept exact by onchip.cuh's protocol: each frame runs to its own stop and
+// saves its compressed state (12 B a check node, [B, J, Z]), then the
+// frames behind are resumed to the batch's maximum, then, if a frame fails
+// there, the batch goes on one iteration a launch.  Bound: the function's
+// bytes are chan in and hard out; what holds the kernel is each message's
+// instructions in the VN and CN phases and, on a cluster, its barriers (as
+// K4), plus chan's read each VN where it stays in device memory (J15: 153.6
+// KB a frame an iteration).
+//
+// bp, and min-sum in the earlier global-memory design
+// (`ldpc_minsum_flooding_global`, kept only as the yardstick the on-chip
+// design is held and timed against): chan, T [B, L, Z] f32, R [B, E, Z]
 // f32, hard [B, L, Z] int8, ok [B] uint8.  Threads run over z, which is
 // contiguous, so a circulant shift is the index (r + s) % Z and costs
 // nothing: the TPU's 128-lane padding and two-roll rotation are not needed.
 // Offsets are 64-bit (B * E * Z passes 2^31 at B = 16384 on J15_L30_Z1280).
-//
 // Per iteration, four launches on the caller's stream:
 //   vn      T = chan + R[e0] + R[e1] + ...   (col_edges order, one add at a time)
 //   check   per-frame ok from T (zero: message columns only; syndrome: XOR
@@ -31,23 +54,14 @@
 // After the stop flag is raised every later launch returns at once, so the
 // host never waits on the device between iterations.  The grids are capped
 // and walk their rows in grid-stride loops, so such an empty launch costs a
-// few microseconds however large the batch.
-//
-// Early stop is batch-global, like ops/minsum.decode_flooding: hard and ok
-// come from the last VN phase, iters is the batch's count.  (The TPU kernel
-// stops per 8-frame tile and reports the maximum over tiles.)
-//
-// Bound: global-memory bytes for min-sum.  R is 589 KB per frame on
-// J15_L30_Z1280 -- more than a block's 227 KB of shared memory -- so it lives
-// in device memory and L2, read twice (vn, cn) and written once (cn) per
-// iteration.  A later change stores each check node's (min1, min2, argmin,
-// sign bits) instead of every edge message, which cuts those bytes by about
-// the row degree.  bp adds two logf and two tanhf per edge: phi_e, kept in
-// registers from pass 1 to pass 2 (common.cuh's check_node_bp, unrolled over
-// the code's degree bucket), and the output's phi.  Pass 2 reads no T or R,
-// so a bp CN launch moves the same bytes as a min-sum one.
+// few microseconds however large the batch.  R (589 KB a J15_L30_Z1280
+// frame) lives in device memory and L2, read twice (vn, cn) and written
+// once (cn) an iteration.  bp adds two logf and two tanhf per edge: phi_e,
+// kept in registers from pass 1 to pass 2 (common.cuh's check_node_bp,
+// unrolled over the code's degree bucket), and the output's phi.  Pass 2
+// reads no T or R, so a bp CN launch moves the same bytes as a min-sum one.
 
-#include "common.cuh"
+#include "onchip.cuh"
 
 using namespace ldpc;
 
@@ -111,19 +125,17 @@ const char* ldpc_error_string(int err) {
 }
 
 // Decodes `num_iters` >= 1 flooding iterations of the batch `chan` with
-// `rule` (0 min-sum, 1 bp; `max_dc` is the code's largest row degree) on
-// `stream` of CUDA device `device`.  T, R, hard, ok and ctl (3 ints) are
-// the caller's buffers; ctl ends holding the iteration count in ctl[0].
-// Returns 0 or the first CUDA error met while enqueueing.
-int ldpc_minsum_flooding(const float* chan, float* T, float* R,
-                         signed char* hard, unsigned char* ok, int* ctl,
-                         const int* edge_l, const int* edge_s,
-                         const int* row_ptr, const int* row_edge,
-                         const int* col_ptr, const int* col_edge, int B, int L,
-                         int J, int E, int Z, int num_iters, float alpha,
-                         int use_alpha, float beta, int use_beta, int check,
-                         int early_stop, int rule, int max_dc, int device,
-                         void* stream) {
+// `rule` (0 min-sum, 1 bp; `max_dc` is the code's largest row degree) in the
+// global-memory design on `stream` of CUDA device `device`.  T, R, hard, ok
+// and ctl (3 ints) are the caller's buffers; ctl ends holding the iteration
+// count in ctl[0].  Returns 0 or the first CUDA error met while enqueueing.
+int ldpc_minsum_flooding_global(
+    const float* chan, float* T, float* R, signed char* hard,
+    unsigned char* ok, int* ctl, const int* edge_l, const int* edge_s,
+    const int* row_ptr, const int* row_edge, const int* col_ptr,
+    const int* col_edge, int B, int L, int J, int E, int Z, int num_iters,
+    float alpha, int use_alpha, float beta, int use_beta, int check,
+    int early_stop, int rule, int max_dc, int device, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if ((err = cudaSetDevice(device))) return err;
@@ -170,6 +182,24 @@ int ldpc_minsum_flooding(const float* chan, float* T, float* R,
   const int hard_grid = (int)min64((n + 255) / 256, (int64_t)sms * 32);
   hard_kernel<<<hard_grid, 256, 0, st>>>(T, hard, n);
   return cudaGetLastError();
+}
+
+// Decodes the batch `chan` with flooding min-sum, each frame's state on
+// chip: onchip.cuh's `onchip_batch` (arguments there).
+int ldpc_minsum_flooding(
+    const float* chan, float* tsave, signed char* hard, unsigned char* ok,
+    int* kb, float* sv, void* sm, int* ctl, const int* edge_l,
+    const int* edge_s, const int* row_ptr, const int* row_edge,
+    const int* col_ptr, const int* col_edge, const int* edge_row,
+    const int* edge_pos, const int* plan, int B, int L, int J, int E, int Z,
+    int num_iters, float alpha, int use_alpha, float beta, int use_beta,
+    int check, int early_stop, int cluster, int smem_bytes, int wide,
+    int threads, int device, void* stream) {
+  return onchip_batch<false>(
+      chan, tsave, hard, ok, kb, sv, sm, ctl, edge_l, edge_s, row_ptr,
+      row_edge, col_ptr, col_edge, edge_row, edge_pos, plan, B, L, J, E, Z,
+      num_iters, alpha, use_alpha, beta, use_beta, check, early_stop, cluster,
+      smem_bytes, wide, threads, device, stream);
 }
 
 }  // extern "C"

@@ -101,18 +101,28 @@ def build() -> pathlib.Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ldpc_minsum_flooding.argtypes = (
+    lib.ldpc_minsum_flooding_global.argtypes = (
         [p] * 12                  # chan T R hard ok ctl + 6 edge tables
         + [i] * 6                 # B L J E Z num_iters
         + [f, i, f, i]            # alpha use_alpha beta use_beta
         + [i, i, i, i, i, p])     # check early_stop rule max_dc device stream
-    lib.ldpc_minsum_flooding.restype = i
-    lib.ldpc_minsum_layered.argtypes = (
+    lib.ldpc_minsum_flooding_global.restype = i
+    lib.ldpc_minsum_layered_global.argtypes = (
         [p] * 10                  # chan T R hard ok ctl + 4 edge tables
         + [i] * 6                 # B L J E Z num_iters
         + [f, i, f, i]            # alpha use_alpha beta use_beta
         + [i, i, i, i, i, p])     # check early_stop rule max_dc device stream
-    lib.ldpc_minsum_layered.restype = i
+    lib.ldpc_minsum_layered_global.restype = i
+    for batch in (lib.ldpc_minsum_flooding, lib.ldpc_minsum_layered):
+        batch.argtypes = (
+            [p] * 17              # chan tsave hard ok kb sv sm ctl + 6 edge
+                                  # tables + edge_row edge_pos plan
+            + [i] * 6             # B L J E Z num_iters
+            + [f, i, f, i]        # alpha use_alpha beta use_beta
+            + [i] * 7             # check early_stop cluster smem_bytes wide
+                                  # threads device
+            + [p])                # stream
+        batch.restype = i
     lib.ldpc_minsum_stream_global.argtypes = (
         [p] * 13                  # chan T R hard t done okf + 6 edge tables
         + [i] * 7                 # B L J E Z k max_iters

@@ -3,8 +3,9 @@
     python -m cuda_ldpc_torch.tools.stream_phases [--batch 4096] [--passes 10]
 
 It builds, into the git-ignored build directory, a copy of the kernels whose
-on-chip min-sum stream kernel (csrc/minsum_stream.cu, ``onchip_kernel``)
-reads clock64() at its phase boundaries: thread 0 of every block adds the
+on-chip min-sum stream kernel (csrc/minsum_stream.cu, ``onchip_kernel``,
+which places the barriers between csrc/onchip.cuh's phases) reads clock64()
+at its phase boundaries: thread 0 of every block adds the
 cycles since its previous boundary to a device counter per phase (entry,
 VN, check, CN, a layered row, exit, and the barrier after each).  One call
 of ``passes`` passes, B = ``batch``, at an SNR where no slot converges, on
@@ -46,7 +47,7 @@ _COUNTERS = (
 # (anchor in csrc/minsum_stream.cu, text, True: before its last occurrence,
 # False: after it)
 _PATCHES = [
-    ("// A barrier over the cluster", _COUNTERS, True),
+    ("// kLocal: a cluster of one block", _COUNTERS, True),
     ("    int t = t_io[b], done = done_io[b], okf = okf_io[b];\n",
      "    unsigned long long _last = clock64();\n", False),
     ("    sync_all<kLocal>(cluster);\n\n    // the zero check",
@@ -173,7 +174,8 @@ def measure(batch: int = 4096, passes: int = 10):
     import torch
 
     from cuda_ldpc_torch.models.qc_binary import QCBinaryCode
-    from cuda_ldpc_torch.ops import _build, channel, cuda_minsum_stream
+    from cuda_ldpc_torch.ops import (_build, channel, cuda_minsum_stream,
+                                     onchip)
     from cuda_ldpc_torch.utils.timing import time_ms
 
     dev = torch.device("cuda", 0)
@@ -199,7 +201,7 @@ def measure(batch: int = 4096, passes: int = 10):
                 cuda_minsum_stream.onchip_step(*state, code, passes, 10**6,
                                                check="zero", layered=layered)
 
-            plan = cuda_minsum_stream.onchip_plan(code, layered)
+            plan = onchip.onchip_plan(code, layered)
             ms = {}
             try:
                 for which, use in (("plain", plain_lib), ("counted", lib)):

@@ -146,3 +146,9 @@ def test_packed_runners_refuse_profile(run, conf, tmp_path):
     with pytest.raises(ValueError, match="the packed engine has none"):
         run(conf, device="cpu", profile_dir=str(tmp_path), quiet=True)
     assert not os.listdir(tmp_path)
+
+
+def test_profile_phases_protocol_needs_a_card():
+    """--protocol times the kernels' launches: refused on the CPU."""
+    with pytest.raises(ValueError, match="needs a card"):
+        profile_phases.main(["--protocol", "--device", "cpu"])

@@ -1,8 +1,10 @@
 """The CUDA decoders (cuda_ldpc_torch.ops.cuda_minsum: flooding K1, layered
 K2, each with the min-sum rule or the bp rule K3) against their plain
-PyTorch versions.  Tolerance: none — both do the same fp32 adds, compares
-and multiplies in the same order, and for bp the kernel's logf/tanhf agree
-with torch.log/torch.tanh on the card to the last bit, so hard, ok and iters
+PyTorch versions, and min-sum's on-chip design against the global-memory
+one it replaced (``decode_flooding_global`` / ``decode_layered_global``).
+Tolerance: none — both do the same fp32 adds, compares and multiplies in
+the same order, and for bp the kernel's logf/tanhf agree with
+torch.log/torch.tanh on the card to the last bit, so hard, ok and iters
 must be exactly equal.
 
 The kernel cases need a card and skip without one.  The file imports only
@@ -228,3 +230,82 @@ def test_layered_and_bp_kernels_match_plain_on_card(
     torch.cuda.synchronize()
     _assert_same(a, b)
     assert cuda_minsum.LAUNCHES[key] == before + (iters > 0)
+
+
+def passes_then_fails() -> np.ndarray:
+    """Two J4_L24_Z96 frames whose batch needs the on-chip stop protocol's
+    lockstep steps (csrc/onchip.cuh).  The first is crafted: its message
+    columns positive, so that the zero check passes early, its parity
+    columns negative, so that the check nodes pull message bits negative
+    later.  It passes the zero check at iterations 1 and 2 (flooding; at 2
+    and 4 layered) and fails from 3 on.  The second, a noisy frame (sigma
+    0.5), first passes at 7 (layered: 3), where the first fails."""
+    code = _code("J4_L24_Z96")
+    rng = np.random.default_rng(2)
+    m = code.L - code.J
+    a = np.empty((1, code.L, code.Z), np.float32)
+    a[0, :m] = 2.0 * (0.5 + 0.5 * rng.random((m, code.Z)))
+    a[0, m:] = -1.0
+    noisy = 1.0 + 0.5 * np.random.default_rng(5).standard_normal(
+        (16, code.L, code.Z))
+    return np.concatenate([a, noisy[:1].astype(np.float32)])
+
+
+# schedule, code, sigma, batch, iters, check, early stop, alpha, beta; a
+# sigma of None is passes_then_fails() tiled to the batch
+ONCHIP_CASES = [
+    ("flooding", "J4_L24_Z96", 0.52, 37, 30, "zero", True, 1.0, 0.0),
+    ("layered", "J4_L24_Z96", 0.52, 37, 30, "syndrome", True, 0.8, 0.1),
+    ("flooding", "J4_L24_Z96", 0.53, 4096, 30, "syndrome", True, 0.8, 0.1),
+    ("layered", "J4_L24_Z96", 0.53, 4096, 30, "zero", True, 1.0, 0.0),
+    ("flooding", "J4_L24_Z96", 0.55, 4096, 12, "none", True, 1.0, 0.0),
+    ("layered", "J4_L24_Z96", 0.55, 4096, 12, "zero", False, 0.8, 0.1),
+    ("flooding", "J4_L24_Z96", None, 4096, 20, "zero", True, 1.0, 0.0),
+    ("layered", "J4_L24_Z96", None, 37, 20, "zero", True, 1.0, 0.0),
+    ("flooding", "PON_LDPC", 0.72, 4096, 30, "syndrome", True, 1.0, 0.0),
+    ("layered", "PON_LDPC", 0.72, 4096, 30, "zero", True, 0.8, 0.1),
+    ("flooding", "J15_L30_Z1280", 0.78, 4096, 10, "zero", True, 1.0, 0.0),
+    ("layered", "J15_L30_Z1280", 0.78, 4096, 10, "syndrome", False, 0.8,
+     0.1),
+    ("flooding", "deg40", 0.45, 37, 10, "syndrome", True, 1.0, 0.0),
+    ("layered", "deg40", 0.45, 37, 10, "zero", True, 0.8, 0.1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "schedule,name,sigma,batch,iters,check,early,alpha,beta", ONCHIP_CASES,
+    ids=[f"{c[0]}-{c[1]}-{c[5]}-early{int(c[6])}-a{c[7]}b{c[8]}-s{c[2]}"
+         f"-B{c[3]}" for c in ONCHIP_CASES])
+def test_onchip_minsum_matches_plain_and_global_on_card(
+        cuda, schedule, name, sigma, batch, iters, check, early, alpha,
+        beta):
+    code = _code(name)
+    if sigma is None:
+        two = torch.from_numpy(passes_then_fails())
+        chan = two.repeat((batch + 1) // 2, 1, 1)[:batch].contiguous()
+        chan = chan.to(cuda)
+    else:
+        chan = _chan(code, sigma, batch, seed=batch + iters, device=cuda)
+    key = f"minsum_{schedule}"
+    before = cuda_minsum.LAUNCHES[key]
+    kw = dict(alpha=alpha, beta=beta, check=check, early_stop=early)
+    a = getattr(cuda_minsum, f"decode_{schedule}")(chan, code, iters, **kw)
+    g = getattr(cuda_minsum, f"decode_{schedule}_global")(chan, code, iters,
+                                                          **kw)
+    b = getattr(minsum, f"decode_{schedule}")(chan, code, iters, **kw)
+    torch.cuda.synchronize()
+    _assert_same(a, b)
+    _assert_same(a, g)
+    assert cuda_minsum.LAUNCHES[key] == before + 1     # the global uncounted
+
+
+@pytest.mark.cuda
+def test_onchip_minsum_refuses_a_code_no_plan_holds(cuda):
+    rng = np.random.default_rng(0)
+    base = np.where(rng.random((40, 80)) < 0.1,
+                    rng.integers(0, 4096, (40, 80)), -1)
+    big = QCBinaryCode(name="big", base=base, Z=4096)
+    chan = torch.zeros((1, big.L, big.Z), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_minsum.decode_flooding(chan, big, 2)

@@ -10,8 +10,9 @@ on the card (as for K1-K3), so every output and every state tensor must be
 exactly equal.  K4's min-sum keeps each slot's state on chip in a
 compressed form that is R bit for bit, so it must also equal the
 global-memory design (``global_stream_step``) exactly, and take a state the
-plain version built on the CPU.  ``onchip_plan`` (where the state lives:
-the cluster size and the shared-memory layout) is checked on the CPU.  K7
+plain version built on the CPU.  ``onchip.onchip_plan`` (where the state
+lives: the cluster size and the shared-memory layout, shared with the batch
+kernels K1 and K2) is checked on the CPU.  K7
 follows the plain version's order of the softmax, the transforms and the
 products (as K5 does), so t, done, okf, hard, C and the layered totals
 must be exactly equal too.
@@ -28,7 +29,7 @@ import torch
 from cuda_ldpc_torch import NBCode, QCBinaryCode
 from cuda_ldpc_torch.ops import (channel, cuda_minsum_stream,
                                  cuda_qspa_stream, demod, minsum_stream,
-                                 qspa_stream)
+                                 onchip, qspa_stream)
 from cuda_ldpc_torch.utils.constellations import constellation
 
 
@@ -143,7 +144,7 @@ def test_bad_state_is_refused():
 def _plan_tables(plan, code):
     """The plan's table split into its arrays (csrc/minsum_stream.cu)."""
     L, J = code.L, code.J
-    m = cuda_minsum_stream.MAX_CLUSTER + 1
+    m = onchip.MAX_CLUSTER + 1
     tab, cs = plan.table, plan.cluster
     out = dict(col_start=tab[:cs + 1], row_start=tab[m:m + cs + 1])
     i = 2 * m
@@ -167,11 +168,11 @@ def test_onchip_plan_picks_the_smallest_cluster(name, layered, cluster,
     from each other; the cluster is the smallest that holds T and the
     compressed state."""
     code = QCBinaryCode.from_registry(name)
-    plan = cuda_minsum_stream.onchip_plan(code, layered)
+    plan = onchip.onchip_plan(code, layered)
     assert (plan.cluster, plan.keep_chan, plan.wide) == (cluster, keep_chan,
                                                          False)
     assert plan.smem_bytes == max(plan.block_bytes) <= \
-        cuda_minsum_stream.SMEM_PER_BLOCK
+        onchip.SMEM_PER_BLOCK
     L, J, Z, E, cs = code.L, code.J, code.Z, code.num_edges, plan.cluster
     t = _plan_tables(plan, code)
     assert t["col_start"][-1] == L and t["row_start"][-1] == J
@@ -183,7 +184,7 @@ def test_onchip_plan_picks_the_smallest_cluster(name, layered, cluster,
     assert sorted(t["col_order"]) == list(range(L))
     assert sorted(t["row_order"]) == list(range(J))
     header = 32 + 16 * E + 4 * (4 * L + 3 * J + 2)
-    assert cuda_minsum_stream.header_bytes(code) >= header
+    assert onchip.header_bytes(code) >= header
     spans = {c: [] for c in range(cs)}
     for l in range(L):
         spans[t["col_rank"][l]].append((t["col_off"][l], 4 * Z))
@@ -199,7 +200,7 @@ def test_onchip_plan_picks_the_smallest_cluster(name, layered, cluster,
         assert sp[-1][0] + sp[-1][1] <= plan.block_bytes[c]
     if cluster > 1:
         with pytest.raises(ValueError):
-            cuda_minsum_stream.onchip_plan(code, layered, cluster=1)
+            onchip.onchip_plan(code, layered, cluster=1)
 
 
 def test_onchip_plan_keeps_few_edges_across_the_cluster():
@@ -207,12 +208,12 @@ def test_onchip_plan_keeps_few_edges_across_the_cluster():
     115 edges across the blocks; the planner's ownership at most 45, with
     the columns and rows as evenly shared."""
     code = QCBinaryCode.from_registry("J15_L30_Z1280")
-    t = _plan_tables(cuda_minsum_stream.onchip_plan(code, False), code)
+    t = _plan_tables(onchip.onchip_plan(code, False), code)
     H = code.base >= 0
-    contiguous = cuda_minsum_stream._cross_edges(
+    contiguous = onchip._cross_edges(
         H, np.arange(code.L) * 2 // code.L, np.arange(code.J) * 2 // code.J)
     assert contiguous == 59
-    assert cuda_minsum_stream._cross_edges(H, t["col_rank"],
+    assert onchip._cross_edges(H, t["col_rank"],
                                            t["row_rank"]) <= 45
     assert sorted(np.bincount(t["col_rank"])) == [14, 16]
     assert sorted(np.bincount(t["row_rank"])) == [7, 8]
@@ -220,9 +221,9 @@ def test_onchip_plan_keeps_few_edges_across_the_cluster():
 
 def test_onchip_plan_keeps_chan_in_a_cluster_of_4():
     code = QCBinaryCode.from_registry("J15_L30_Z1280")
-    plan = cuda_minsum_stream.onchip_plan(code, False, cluster=4)
+    plan = onchip.onchip_plan(code, False, cluster=4)
     assert plan.cluster == 4 and plan.keep_chan
-    assert plan.smem_bytes <= cuda_minsum_stream.SMEM_PER_BLOCK
+    assert plan.smem_bytes <= onchip.SMEM_PER_BLOCK
 
 
 def test_onchip_plan_refuses_what_no_cluster_holds():
@@ -231,17 +232,17 @@ def test_onchip_plan_refuses_what_no_cluster_holds():
                     rng.integers(0, 4096, (40, 80)), -1)
     big = QCBinaryCode(name="big", base=base, Z=4096)   # 1.3 + 2.0 MB
     with pytest.raises(ValueError, match="shared memory"):
-        cuda_minsum_stream.onchip_plan(big, False)
+        onchip.onchip_plan(big, False)
     dense = QCBinaryCode(name="dense", base=np.zeros((2, 60), np.int64), Z=8)
     with pytest.raises(ValueError, match="row degree 60"):
-        cuda_minsum_stream.onchip_plan(dense, True)
+        onchip.onchip_plan(dense, True)
     wide = QCBinaryCode(name="wide", base=np.zeros((2, 30), np.int64), Z=8)
-    assert cuda_minsum_stream.onchip_plan(wide, True).wide
+    assert onchip.onchip_plan(wide, True).wide
 
 
 def test_edge_positions_follow_the_rows():
     code = QCBinaryCode.from_registry("PON_LDPC")
-    row, pos = cuda_minsum_stream.edge_positions(code)
+    row, pos = onchip.edge_positions(code)
     for j, edges in enumerate(code.row_edges):
         assert (row[edges] == j).all()
         assert (pos[edges] == np.arange(len(edges))).all()
@@ -324,7 +325,7 @@ def test_k4_onchip_equals_plain_and_the_global_design(
     start = _state(chans[0], (code.num_edges, code.Z))
     plans = [None]
     if code.name == "J15_L30_Z1280" and not layered:
-        plans.append(cuda_minsum_stream.onchip_plan(code, False, cluster=4))
+        plans.append(onchip.onchip_plan(code, False, cluster=4))
     for plan in plans:
         def kernel(*s, k):
             return cuda_minsum_stream.onchip_step(*s, k=k, plan=plan, **kw)
