@@ -24,10 +24,13 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               iterations and 64-QAM, and on LDPC_N576_K288_GF64_d1_exp,
               LDPC_N96_K48_GF256_d1_exp and LDPC_N576_K480_GF256_exp (BPSK
               and 256-QAM); K6 on Tanner_74_9_Z128_GF16 at B=256 in its
-              waterfall (Eb/N0 3.3 dB) and above it (4.3 dB), and a ragged
-              batch.  ok and iters exactly equal,
+              waterfall (Eb/N0 3.3 dB, early stop on and off) and above it
+              (4.3 dB), a ragged batch, and on synthetic fully QC codes
+              over GF(4), GF(16) and GF(32).  ok and iters exactly equal,
               hard exactly equal on frames whose check passed, every other
-              difference counted
+              difference counted; K6 (the staged kernel) also against its
+              global-memory design: hard, ok and iters identical on every
+              frame
   4. main     the main path through the CLI, each sweep with every launch
               count set to 0 just before it and read just after: J15_L30_Z1280
               at B=4096, maxIT 50, around the waterfall, flooding and layered
@@ -53,7 +56,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               PON_LDPC in turns; the
               same for K5 on BDS.576.288.GF.64 at B=4096 and K6 on
               Tanner_74_9_Z128_GF16 at B=256, at most 10 passes, early stop
-              off, at an Eb/N0 where most frames run every pass
+              off, at an Eb/N0 where most frames run every pass (K6: the
+              staged kernel, its global-memory design and the plain
+              version in turns)
 The stream steps K4 (binary) and K7 (GF(q)) join each phase:
   parity      K4 against its plain version over a call sequence (k = 1,
               refill, k = 16, refill, drain k = max_iters + 1) on
@@ -117,7 +122,8 @@ with every launch count at 0 before it and read after it:
               that no K11 chain was folded; the probes' entry points (K11:
               its rate table, per SM and per card); each probe's time, plain
               time and bound (dot3 beside torch.matmul without TF32, roll2
-              beside torch.roll)
+              beside torch.roll: 11 turns each, the medians, and each
+              one's device time a call from a fresh process)
 The last lines are the card line, the kernels' JSON and
 {"ok": true, "device": {...}}.
 """
@@ -192,6 +198,35 @@ def _sweep(cli, out_dir: str, argv: list[str]) -> list[dict]:
         raise RuntimeError(f"cli exited {rc}")
     with open(os.path.join(out_dir, "results.jsonl")) as f:
         return [json.loads(line) for line in f]
+
+
+def synthetic_qc_code(q: int, NB: int = 6, MB: int = 2, Z: int = 128,
+                      seed: int = 0):
+    """A random fully quasi-cyclic GF(q) code (the layout of
+    tests/test_pallas_qspa_qc.py's synthetic code): every block row meets
+    every block column in one full circulant of a random shift, with a
+    random nonzero coefficient per check row."""
+    import numpy as np
+
+    from cuda_ldpc_torch import NBCode
+    from cuda_ldpc_torch.utils.io import NBCodeFile
+    rng = np.random.default_rng(seed)
+    N, M = NB * Z, MB * Z
+    cn_links = np.zeros((M, NB), np.int64)
+    cn_gf = np.zeros((M, NB), np.int64)
+    vn_links = np.zeros((N, MB), np.int64)
+    vn_gf = np.zeros((N, MB), np.int64)
+    for r in range(MB):
+        for c in range(NB):
+            s = int(rng.integers(0, Z))
+            h = rng.integers(1, q, size=Z)
+            for z in range(Z):
+                v = c * Z + (z + s) % Z
+                cn_links[r * Z + z, c], cn_gf[r * Z + z, c] = v, h[z]
+                vn_links[v, r], vn_gf[v, r] = r * Z + z, h[z]
+    return NBCode.from_file(NBCodeFile(
+        N, M, q, MB, NB, np.full(N, MB), np.full(M, NB), vn_links, vn_gf,
+        cn_links, cn_gf), name=f"synthetic_gf{q}")
 
 
 def bound_ms(code, batch: int, iters: int, schedule: str, rule: str,
@@ -621,15 +656,33 @@ def probes(card: str, lib_path) -> dict:
              probe_oprate.FUNCTION_OPS[op] * K11_LINE_STEPS * x11.numel())
             for op in probe_oprate.OPS],
     }
+    slower_probes = []
     allow_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         for key, items in fns.items():
             total = {"ms": 0.0, "plain_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0}
             for fn, kernel, plain, library, nbytes, ops in items:
-                ms = time_ms(kernel, dev, 20)
+                extra_fields = {}
+                if fn == "roll2":
+                    # the one function a single PyTorch call computes at the
+                    # same order of time: 11 turns each, alternating, each
+                    # time_ms of 20 calls, the medians; the device time of a
+                    # call from a fresh process (see roll2_device_times)
+                    turns = {"kernel": [], "library": []}
+                    for t in range(11):
+                        for which in (("kernel", "library") if t % 2 == 0
+                                      else ("library", "kernel")):
+                            turns[which].append(time_ms(
+                                kernel if which == "kernel" else library,
+                                dev, 20))
+                    ms = statistics.median(turns["kernel"])
+                    lms = statistics.median(turns["library"])
+                    extra_fields = {"turns": turns, **roll2_device_times()}
+                else:
+                    ms = time_ms(kernel, dev, 20)
+                    lms = time_ms(library, dev, 20) if library else None
                 pms = time_ms(plain, dev, 3 if key == "probe_oprate" else 20)
-                lms = time_ms(library, dev, 20) if library else None
                 total["ms"] += ms
                 total["plain_ms"] += pms
                 total["t_bytes"] += nbytes / HBM_BYTES_PER_S
@@ -643,7 +696,9 @@ def probes(card: str, lib_path) -> dict:
                       plain_ms=pms, library_ms=lms,
                       bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S,
                                          ops / FP32_OPS_PER_S),
-                      mismatches=bad)
+                      mismatches=bad, **extra_fields)
+                if fn == "roll2" and ms > lms:
+                    slower_probes.append((fn, ms, lms))
                 if bad:
                     raise AssertionError(f"{key} {fn} (timed call): {bad} "
                                          "lanes != plain")
@@ -653,11 +708,34 @@ def probes(card: str, lib_path) -> dict:
                 1e3 * max(total["t_bytes"], total["t_ops"]), by)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    if slower_probes:
+        _emit("probe_slower_than_library", card=card, fn_ms_library_ms=
+              slower_probes)
     _emit("probe_bound", card=card, note=(
         "K11's bound is over the whole card's fp32 rate; its tile is 8 "
         f"blocks, on 8 of the card's "
         f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs"))
     return out
+
+
+def roll2_device_times() -> dict:
+    """K10's roll2 and torch.roll's device time a call (torch.profiler,
+    over 20 calls) and time_ms a call, from `python -m
+    cuda_ldpc_torch.tools.probe_mosaic --timing` in a fresh process: a
+    long process's later traces may hold no kernel events (PERF.md
+    section 7)."""
+    import subprocess
+    out = subprocess.run([sys.executable, "-m",
+                          "cuda_ldpc_torch.tools.probe_mosaic", "--timing"],
+                         check=True, capture_output=True, text=True,
+                         timeout=300)
+    row = json.loads(out.stdout.strip().splitlines()[-1])
+    if row["mismatches"]:
+        raise AssertionError(f"roll2 != torch.roll: {row}")
+    return {"device_ms": row["device_ms"],
+            "library_device_ms": row["library_device_ms"],
+            "fresh_process_ms": row["ms"],
+            "fresh_process_library_ms": row["library_ms"]}
 
 
 def main() -> int:
@@ -814,7 +892,11 @@ def main() -> int:
     nb_codes = {}
 
     def nb_code(name):
-        return nb_codes.setdefault(name, NBCode.from_registry(name))
+        if name not in nb_codes:
+            nb_codes[name] = (synthetic_qc_code(int(name[len("synthetic_gf"):]))
+                              if name.startswith("synthetic_gf")
+                              else NBCode.from_registry(name))
+        return nb_codes[name]
 
     def nb_chan(code, ebn0, batch, seed, n_qam=2):
         """Symbol LLRs of the all-zero codeword, BPSK or QAM + AWGN, as the
@@ -852,8 +934,12 @@ def main() -> int:
     ]
     k6_cases = [
         ("Tanner_74_9_Z128_GF16", 3.3, 2, 256, 20, True),
+        ("Tanner_74_9_Z128_GF16", 3.3, 2, 256, 20, False),
         ("Tanner_74_9_Z128_GF16", 4.3, 2, 256, 20, True),
         ("Tanner_74_9_Z128_GF16", 3.4, 2, 11, 20, False),
+        ("synthetic_gf4", 2.5, 2, 37, 12, True),
+        ("synthetic_gf16", 2.5, 2, 37, 12, True),
+        ("synthetic_gf32", 3.0, 2, 37, 12, True),
     ]
     nb_cases = ([(f"qspa_{s}", *c) for s in ("flooding", "layered")
                  for c in k5_cases]
@@ -865,27 +951,41 @@ def main() -> int:
         kernel, plain = nb_pairs[key]
         a = kernel(L, code, iters, early_stop=early)
         b = plain(L, code, iters, early_stop=early)
+        # K6: the staged kernel against the global design too, every output
+        # of every frame
+        g = (getattr(cuda_qspa_qc, f"decode_{key[len('qspa_qc_'):]}_global")(
+            L, code, iters, early_stop=early) if key.startswith("qspa_qc")
+            else None)
         torch.cuda.synchronize()
         hard_diff = a.hard != b.hard
         counts = {"hard": int(hard_diff.sum()),
                   "hard_in_ok_frames": int(hard_diff[b.ok].sum()),
                   "ok": int((a.ok != b.ok).sum()),
                   "iters": int((a.iters != b.iters).sum())}
+        if g is not None:
+            counts.update({"global_hard": int((a.hard != g.hard).sum()),
+                           "global_ok": int((a.ok != g.ok).sum()),
+                           "global_iters": int((a.iters != g.iters).sum())})
         # the largest |kernel - plain| over hard symbols, ok and iters
         err = max([int((a.hard - b.hard).abs().max()) if B else 0,
                    counts["ok"] > 0,
                    int((a.iters - b.iters).abs().max()) if B else 0])
         max_err[key] = max(max_err[key], float(err))
-        mismatches[key] += counts["hard"] + counts["ok"] + counts["iters"]
+        mismatches[key] += (counts["hard"] + counts["ok"] + counts["iters"]
+                            + counts.get("global_hard", 0)
+                            + counts.get("global_ok", 0)
+                            + counts.get("global_iters", 0))
         _emit("parity", kernel=key, code=name, ebn0=ebn0, n_qam=n_qam,
               batch=B, iters=iters, early_stop=early,
               frames_ok=int(b.ok.sum()),
               avg_iters=float(b.iters.float().mean()) if B else 0.0,
               mismatches=counts, max_abs_err=err)
-        if counts["ok"] or counts["iters"] or counts["hard_in_ok_frames"]:
-            raise AssertionError(f"kernel != plain on GF(q) case {i}: "
-                                 f"{nb_cases[i]}")
-        del a, b, L, hard_diff
+        if (counts["ok"] or counts["iters"] or counts["hard_in_ok_frames"]
+                or any(v for k, v in counts.items()
+                       if k.startswith("global"))):
+            raise AssertionError(f"kernel != plain or the global design on "
+                                 f"GF(q) case {i}: {nb_cases[i]}: {counts}")
+        del a, b, g, L, hard_diff
     torch.cuda.empty_cache()
 
     # K8 against the plain nb_decode: every output exactly equal
@@ -1492,12 +1592,20 @@ def main() -> int:
         code = nb_code(code_name)
         chans = [nb_chan(code, ebn0, B, seed=17 + i) for i in range(2)]
         decoders = dict(zip(("kernel", "plain"), nb_pairs[name]))
+        reps = {"kernel": 20, "plain": plain_reps}
+        order = ("plain", "kernel", "kernel", "plain")
+        if name.startswith("qspa_qc"):
+            # K6: the staged kernel against the global design, in turns
+            decoders["global"] = getattr(
+                cuda_qspa_qc, f"decode_{name[len('qspa_qc_'):]}_global")
+            reps["global"] = 20
+            order = ("plain", "kernel", "global", "global", "kernel", "plain")
 
         def launch(which, i):
             return decoders[which](chans[i % 2], code, iters,
                                    early_stop=False)
 
-        runs = time_turns(launch, {"kernel": 20, "plain": plain_reps})
+        runs = time_turns(launch, reps, order=order)
         ms = {k: statistics.median(v) for k, v in runs.items()}
         res = launch("kernel", 0)
         E = int(code.cn_weight.sum())

@@ -20,12 +20,17 @@
 //   8 rowstack        out[i] = x[0] + (+-1) x[i mod h], minus on odd i
 //
 // A block per t, a thread per lane z, the block's [Q, Z] slice in shared
-// memory (the roll crosses warps).  Maxima, selects, negations and the
-// products by +-1 are exact; dot3's sum and trans's expf/logf are the only
-// places where another order or another math library could differ.
+// memory.  roll2 has a kernel of its own (`roll_kernel`, for Z a multiple
+// of 4): a thread per four consecutive outputs of a row, four loads and one
+// 16-byte store, no shared memory and no barrier.  Maxima, selects,
+// negations and the products by +-1 are exact; dot3's sum and trans's
+// expf/logf are the only places where another order or another math library
+// could differ.
 //
 // Bound: bytes (the tile in and out once: 32 KB for [16, 2, 128]); at this
-// size the launch itself is the time.
+// size the launch itself is the time, and the host's part of a call (the
+// wrapper's checks, the ctypes call, the launch) is most of it: the entry
+// point makes the device current only when it is not.
 
 #include <cuda_runtime.h>
 
@@ -110,9 +115,51 @@ static __global__ void mosaic_kernel(const float* __restrict__ x,
   }
 }
 
+// out[row, z] = x[row, (z - shift) mod Z] on x [rows, Z], Z % 4 == 0: a
+// thread per four consecutive outputs.
+static __global__ void roll_kernel(const float* __restrict__ x,
+                                   float* __restrict__ out, int rows, int Z,
+                                   int shift) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int per_row = Z >> 2;
+  if (i >= rows * per_row) return;
+  const int row = i / per_row, z0 = (i - row * per_row) << 2;
+  const float* src = x + (int64_t)row * Z;
+  int s = (z0 - shift) % Z;
+  if (s < 0) s += Z;
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[k] = src[s];
+    if (++s == Z) s = 0;
+  }
+  reinterpret_cast<float4*>(out)[i] = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+constexpr int kRollShift = 37;
+constexpr int kRollThreads = 256;
+
 }  // namespace mosaic_probe
 
 extern "C" {
+
+// roll2 on x [rows, Z] (Z a multiple of 4, at most 1024) into out, on
+// `stream` of CUDA device `device`: the call path of the probe's wrapper
+// once it has checked a shape.  Returns 0 or the CUDA error met while
+// enqueueing.
+int ldpc_probe_mosaic_roll2(const float* x, float* out, int rows, int Z,
+                            int device, void* stream) {
+  using namespace mosaic_probe;
+  int cur = -1;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (!err && cur != device) err = cudaSetDevice(device);
+  if (err) return err;
+  if (rows < 1 || Z < 4 || Z > 1024 || Z % 4) return cudaErrorInvalidValue;
+  const int n = rows * Z / 4;
+  roll_kernel<<<(n + kRollThreads - 1) / kRollThreads, kRollThreads, 0,
+                (cudaStream_t)stream>>>(x, out, rows, Z, kRollShift);
+  return cudaGetLastError();
+}
 
 // Runs function `fn` (0-8, the order above) of the probe on x [Q, TB, Z]
 // into out, on `stream` of CUDA device `device`; `extra` is m [Q, Q] for
@@ -122,11 +169,15 @@ extern "C" {
 int ldpc_probe_mosaic(const float* x, const float* extra, float* out, int Q,
                       int TB, int Z, int fn, int device, void* stream) {
   using namespace mosaic_probe;
-  cudaError_t err;
-  if ((err = cudaSetDevice(device))) return err;
+  int cur = -1;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (!err && cur != device) err = cudaSetDevice(device);
+  if (err) return err;
   if (Q < 2 || Q % 2 || TB < 1 || Z < 1 || Z > 1024 || fn < 0 ||
       fn >= kFnCount || (fn == kReduce0 && (Q & (Q - 1))))
     return cudaErrorInvalidValue;
+  if (fn == kRoll2 && Z % 4 == 0)
+    return ldpc_probe_mosaic_roll2(x, out, Q * TB, Z, device, stream);
   const size_t smem = 2 * (size_t)Q * Z * sizeof(float);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
   mosaic_kernel<<<TB, Z, smem, (cudaStream_t)stream>>>(x, extra, out, Q, TB,

@@ -152,12 +152,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [i, p])                 # device stream
     lib.ldpc_qspa.restype = i
     lib.ldpc_qspa_qc.argtypes = (
+        [p] * 15                  # chan T C hard ok iters + 7 block tables +
+                                  # gf_log gf_exp
+        + [i] * 10                # B NB MB lz EB q max_dc num_iters layered
+                                  # device
+        + [p])                    # stream
+    lib.ldpc_qspa_qc.restype = i
+    lib.ldpc_qspa_qc_global.argtypes = (
         [p] * 14                  # chan T C hard ok iters + 6 block tables +
                                   # gf_log gf_exp
         + [i] * 10                # B NB MB Z EB q max_dc num_iters layered
                                   # device
         + [p])                    # stream
-    lib.ldpc_qspa_qc.restype = i
+    lib.ldpc_qspa_qc_global.restype = i
     lib.ldpc_nbms.argtypes = (
         [p] * 12                  # chan C hard ok iters + 5 edge tables +
                                   # gf_log gf_exp
@@ -174,6 +181,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [i] * 5                 # Q TB Z fn device
         + [p])                    # stream
     lib.ldpc_probe_mosaic.restype = i
+    lib.ldpc_probe_mosaic_roll2.argtypes = [p, p, i, i, i, p]  # x out rows
+    lib.ldpc_probe_mosaic_roll2.restype = i                   # Z device stream
     lib.ldpc_probe_oprate.argtypes = (
         [p] * 2                   # x out
         + [i] * 5                 # rows cols copies op n_par

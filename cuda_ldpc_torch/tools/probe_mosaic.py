@@ -1,7 +1,7 @@
 """The tile-operation probe (K10): counterpart of cuda_ldpc_tpu's
 tools/probe_mosaic.py.
 
-    python -m cuda_ldpc_torch.tools.probe_mosaic [--device cuda]
+    python -m cuda_ldpc_torch.tools.probe_mosaic [--device cuda] [--timing]
 
 The TPU probe asked which of the ops the QC GF(q) QSPA kernel was designed
 from Mosaic compiles: leading-axis slices and concatenation, a dim-0 iota,
@@ -16,13 +16,15 @@ order or math library moves the last bits).  ``run`` raises on the first
 mismatch (the TPU probe printed FAIL and went on).
 
 ``compute`` is the wrapper: a CPU tensor goes to the plain version, a CUDA
-tensor to the kernel, or the call raises.
+tensor to the kernel, or the call raises.  It checks a shape once: a later
+call of the same function and shapes on the same device checks dtype and
+contiguity and launches.  ``--timing`` (a card only) prints ``timing``'s
+line: roll2 against ``torch.roll``, host and device time a call.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import sys
 
@@ -94,11 +96,24 @@ def plain(fn: str, x: torch.Tensor,
     raise ValueError(f"unknown function {fn!r} (expected one of {FUNCTIONS})")
 
 
+# fn -> its launcher once a call's checks have passed (see _launcher)
+_FAST: dict[str, object] = {}
+
+# outputs allocated at once, as slices of one tensor, by a launcher: few
+# enough that every timed window of 20 calls pays its share of the refills
+OUT_SLAB = 16
+
+
 def compute(fn: str, x: torch.Tensor,
             extra: torch.Tensor | None = None) -> torch.Tensor:
     """Function ``fn`` on x [Q, TB, Z] f32 (Q even, a power of two for
     reduce0; Z <= 1024) with its ``extra`` input: the kernel on a CUDA
     tensor, the plain version on a CPU one."""
+    fast = _FAST.get(fn)
+    if fast is not None:
+        out = fast(x, extra)
+        if out is not None:
+            return out
     if fn not in FUNCTIONS:
         raise ValueError(f"unknown function {fn!r} (expected one of "
                          f"{FUNCTIONS})")
@@ -124,19 +139,72 @@ def compute(fn: str, x: torch.Tensor,
             or (fn == "reduce0" and q & (q - 1))):
         raise ValueError(f"the kernel does not take the shape "
                          f"{tuple(x.shape)} for {fn}")
-    out = torch.empty_like(x)
+    fast = _FAST[fn] = _launcher(fn, x, extra)
+    return fast(x, extra)
+
+
+def _launcher(fn: str, x: torch.Tensor, extra: torch.Tensor | None):
+    """``go(x, extra)`` for inputs whose shapes, dtype, contiguity and
+    device are those of ``x`` and ``extra``, checked once: one launch of
+    ``fn`` on the current stream of x's device, or None for other inputs
+    (``compute`` then checks them in full).  Its outputs are fresh,
+    contiguous and disjoint: slices of a tensor of OUT_SLAB of them,
+    allocated when the last one has been handed out (a Python-level
+    torch.empty_like a call costs about twice a slice's share)."""
     lib = _build.load()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.ldpc_probe_mosaic(
-        ctypes.c_void_p(x.data_ptr()),
-        ctypes.c_void_p(extra.data_ptr() if extra is not None else 0),
-        ctypes.c_void_p(out.data_ptr()), q, tb, z, FUNCTIONS.index(fn),
-        x.device.index, ctypes.c_void_p(stream))
-    if err:
-        raise RuntimeError("probe_mosaic launch failed: "
-                           + lib.ldpc_error_string(err).decode())
-    LAUNCHES["probe_mosaic"] += 1
-    return out
+    current_stream = torch._C._cuda_getCurrentRawStream
+    shape, device = x.shape, x.get_device()
+    q, tb, z = shape
+    extra_shape = None if extra is None else extra.shape
+    f32 = torch.float32
+    free: list = []
+
+    def refill():
+        free.extend(torch.empty((OUT_SLAB, q, tb, z),
+                                device=torch.device("cuda", device))
+                    .unbind(0))
+        return free.pop()
+
+    def failed(err):
+        return RuntimeError("probe_mosaic launch failed: "
+                            + lib.ldpc_error_string(err).decode())
+
+    if fn == "roll2" and z % 4 == 0:
+        roll2, rows = lib.ldpc_probe_mosaic_roll2, q * tb
+
+        def go(x, extra):
+            if not (extra is None and x.shape == shape
+                    and x.get_device() == device and x.dtype is f32
+                    and x.is_contiguous()):
+                return None
+            out = free.pop() if free else refill()
+            err = roll2(x.data_ptr(), out.data_ptr(), rows, z, device,
+                        current_stream(device))
+            if err:
+                raise failed(err)
+            LAUNCHES["probe_mosaic"] += 1
+            return out
+        return go
+
+    mosaic, index = lib.ldpc_probe_mosaic, FUNCTIONS.index(fn)
+
+    def go(x, extra):
+        if not (x.shape == shape and x.get_device() == device
+                and x.dtype is f32 and x.is_contiguous()
+                and (extra is None if extra_shape is None else (
+                    extra is not None and extra.shape == extra_shape
+                    and extra.get_device() == device
+                    and extra.dtype is f32 and extra.is_contiguous()))):
+            return None
+        out = free.pop() if free else refill()
+        err = mosaic(x.data_ptr(), None if extra is None else
+                     extra.data_ptr(), out.data_ptr(), q, tb, z, index,
+                     device, current_stream(device))
+        if err:
+            raise failed(err)
+        LAUNCHES["probe_mosaic"] += 1
+        return out
+    return go
 
 
 def mismatch(fn: str, got: torch.Tensor, want: torch.Tensor) -> int:
@@ -169,11 +237,58 @@ def run(device: str | torch.device = "cuda") -> list[dict]:
     return rows
 
 
+def timing(reps: int = 20) -> dict:
+    """roll2 on the probe's tile against ``torch.roll(x, 37, dims=2)``, the
+    PyTorch call that computes it, on CUDA device 0: each one's time a call
+    (``utils.timing.time_ms``: CUDA events around ``reps`` back-to-back
+    calls, so the host's part of a call counts), its device time a call
+    (torch.profiler: the CUDA kernels' time over ``reps`` calls), and the
+    lanes where the two outputs differ.  Run it in a fresh process: one that
+    has run many kernels between a few traces may record no kernel events
+    (PERF.md section 7)."""
+    from cuda_ldpc_torch.utils.timing import profiler_activities, time_ms
+    dev = torch.device("cuda", 0)
+    x = torch.from_numpy(tile()).to(dev)
+    calls = {"kernel": lambda: compute("roll2", x),
+             "library": lambda: torch.roll(x, 37, dims=2)}
+    out = {"fn": "roll2", "shape": list(x.shape), "reps": reps}
+    for call in calls.values():             # warm both call paths up
+        for _ in range(reps):
+            call()
+    torch.cuda.synchronize(dev)
+    for key, call in calls.items():
+        out["ms" if key == "kernel" else "library_ms"] = time_ms(call, dev,
+                                                                 reps)
+    for key, call in calls.items():
+        with torch.profiler.profile(
+                activities=profiler_activities(dev)) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize(dev)
+        device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.self_device_time_total > 0)
+        out["device_ms" if key == "kernel" else "library_device_ms"] = (
+            device_us / 1e3 / reps if device_us else None)
+    out["mismatches"] = mismatch("roll2", calls["kernel"](),
+                                 calls["library"]())
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="cuda_ldpc_torch.tools.probe_mosaic",
                                  description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--timing", action="store_true",
+                    help="roll2 against torch.roll on CUDA device 0")
     args = ap.parse_args(argv)
+    if args.timing:
+        if not torch.cuda.is_available():
+            print("probe_mosaic --timing: needs a CUDA device",
+                  file=sys.stderr)
+            return 1
+        from cuda_ldpc_torch.utils.device import card_info
+        print(json.dumps({"card": card_info(), **timing()}), flush=True)
+        return 0
     for row in run(args.device):
         print(json.dumps(row), flush=True)
     return 0

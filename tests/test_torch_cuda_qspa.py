@@ -1,5 +1,6 @@
 """The CUDA GF(q) FFT-QSPA decoders (cuda_ldpc_torch.ops.cuda_qspa, K5, and
-.cuda_qspa_qc, K6) against their plain PyTorch versions.  Tolerance: none —
+.cuda_qspa_qc, K6, whose staged kernel is also held to its global-memory
+design) against their plain PyTorch versions.  Tolerance: none —
 the kernels do the plain version's fp32 operations in its order (its
 docstring fixes them), and the card's expf/logf equal torch.exp/torch.log
 there, so hard, ok and iters must be exactly equal.
@@ -66,7 +67,16 @@ def test_shared_memory_plans():
     assert cuda_qspa.smem_bytes(plan) <= cuda_qspa.SMEM_LIMIT
     tanner = NBCode.from_registry("Tanner_74_9_Z128_GF16")
     assert not cuda_qspa.supports(tanner)          # q = 16: not K5's
-    assert cuda_qspa_qc.smem_bytes(16, 21) == 4 * (2 * 21 * 512 + 16 + 30)
+    # K6's staged kernel: two stages of [21, 256] f32 totals and messages,
+    # two of [21, 16] coefficient logs, 9,472 decisions as bytes, the int
+    # tables; its global-memory design: two [21, 512] f32 arrays, GF tables
+    plan = cuda_qspa_qc.make_plan(tanner)
+    assert cuda_qspa_qc.smem_bytes(plan) == (4 * 4 * 21 * 256 + 2 * 21 * 16
+                                             + 9472 + 4 * (16 + 30 + 10
+                                                           + 3 * 185 + 75))
+    assert 2 * (cuda_qspa_qc.smem_bytes(plan) + 1024) <= 228 * 1024
+    assert cuda_qspa_qc.global_smem_bytes(16, 21) == 4 * (2 * 21 * 512 + 16
+                                                          + 30)
 
 
 # --------------------------------------------------------------- card side
@@ -104,47 +114,69 @@ def test_k5_matches_plain_on_card(cuda, layered, name, ebn0, batch, iters,
     assert cuda_qspa.LAUNCHES[key] == before + (iters > 0)
 
 
+def _synthetic_qc(q):
+    """The fully QC layout of tests/test_pallas_qspa_qc.py, small: 6 x 2
+    circulants of Z = 128, random shifts and coefficients."""
+    from cuda_ldpc_torch.utils.io import NBCodeFile
+    rng = np.random.default_rng(0)
+    Z, NB, MB = 128, 6, 2
+    N, M = NB * Z, MB * Z
+    cn_links = np.zeros((M, NB), np.int64)
+    cn_gf = rng.integers(1, q, (M, NB))
+    vn_links = np.zeros((N, MB), np.int64)
+    vn_gf = np.zeros((N, MB), np.int64)
+    for r in range(MB):
+        for c in range(NB):
+            s = int(rng.integers(0, Z))
+            for z in range(Z):
+                v = c * Z + (z + s) % Z
+                cn_links[r * Z + z, c] = v
+                vn_links[v, r] = r * Z + z
+                vn_gf[v, r] = cn_gf[r * Z + z, c]
+    return NBCode.from_file(NBCodeFile(
+        N, M, q, MB, NB, np.full(N, MB), np.full(M, NB), vn_links, vn_gf,
+        cn_links, cn_gf), name=f"synthetic_gf{q}")
+
+
+K6_CASES = [
+    # code, Eb/N0, batch, early stop
+    ("synthetic_gf16", 2.5, 5, True),
+    ("synthetic_gf4", 2.5, 37, True),
+    ("synthetic_gf32", 3.0, 37, True),
+    ("Tanner_74_9_Z128_GF16", 4.3, 11, True),
+    ("Tanner_74_9_Z128_GF16", 3.3, 64, False),     # the waterfall
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layered", [False, True])
-@pytest.mark.parametrize("name,ebn0,batch", [("synthetic", 2.5, 5),
-                                             ("Tanner_74_9_Z128_GF16", 4.3,
-                                              11)])
-def test_k6_matches_plain_on_card(cuda, layered, name, ebn0, batch):
-    if name == "synthetic":
-        # the fully QC GF(16) layout of tests/test_pallas_qspa_qc.py, small
-        rng = np.random.default_rng(0)
-        from cuda_ldpc_torch.utils.io import NBCodeFile
-        Z, NB, MB, q = 128, 6, 2, 16
-        N, M = NB * Z, MB * Z
-        cn_links = np.zeros((M, NB), np.int64)
-        cn_gf = rng.integers(1, q, (M, NB))
-        vn_links = np.zeros((N, MB), np.int64)
-        vn_gf = np.zeros((N, MB), np.int64)
-        for r in range(MB):
-            for c in range(NB):
-                s = int(rng.integers(0, Z))
-                for z in range(Z):
-                    v = c * Z + (z + s) % Z
-                    cn_links[r * Z + z, c] = v
-                    vn_links[v, r] = r * Z + z
-                    vn_gf[v, r] = cn_gf[r * Z + z, c]
-        code = NBCode.from_file(NBCodeFile(
-            N, M, q, MB, NB, np.full(N, MB), np.full(M, NB), vn_links, vn_gf,
-            cn_links, cn_gf), name="synthetic")
-    else:
-        code = NBCode.from_registry(name)
+@pytest.mark.parametrize("name,ebn0,batch,early", K6_CASES,
+                         ids=[f"{c[0]}-{c[1]}dB-B{c[2]}" for c in K6_CASES])
+def test_k6_matches_plain_on_card(cuda, layered, name, ebn0, batch, early):
+    """The staged kernel against the plain version and against the global
+    design (the earlier kernel, the yardstick): every output of every
+    frame."""
+    code = (_synthetic_qc(int(name[len("synthetic_gf"):]))
+            if name.startswith("synthetic") else NBCode.from_registry(name))
     assert cuda_qspa_qc.supports(code)
     L = _llr(code, ebn0, batch, 7, cuda)
     key = "qspa_qc_layered" if layered else "qspa_qc_flooding"
-    before = cuda_qspa_qc.LAUNCHES[key]
+    before = dict(cuda_qspa_qc.LAUNCHES)
     kernel = (cuda_qspa_qc.decode_layered if layered
               else cuda_qspa_qc.decode_flooding)
+    yardstick = (cuda_qspa_qc.decode_layered_global if layered
+                 else cuda_qspa_qc.decode_flooding_global)
     plain = (nb_decode.decode_glayered_qspa if layered
              else nb_decode.decode_qspa)
-    a, b = kernel(L, code, 12), plain(L, code, 12)
+    a = kernel(L, code, 12, early_stop=early)
+    g = yardstick(L, code, 12, early_stop=early)
+    b = plain(L, code, 12, early_stop=early)
     torch.cuda.synchronize()
     _assert_same(a, b)
-    assert cuda_qspa_qc.LAUNCHES[key] == before + 1
+    _assert_same(a, g)
+    assert cuda_qspa_qc.LAUNCHES[key] == before[key] + 1
+    assert cuda_qspa_qc.LAUNCHES[key + "_global"] == (
+        before[key + "_global"] + 1)
 
 
 @pytest.mark.cuda
