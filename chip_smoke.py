@@ -68,9 +68,12 @@ The stream steps K4 (binary) and K7 (GF(q)) join each phase:
               a ragged batch of 37: every output and state tensor exactly
               equal; K4's min-sum (the slot's state on chip) also against
               the global-memory design on the same sequences.  K7
-              the same on BDS.576.288.GF.64 at B=4096 and the other three
-              adjacency codes, flooding and layered: t, done, okf exactly,
-              hard on slots whose check passed; the rest counted
+              the same on BDS.576.288.GF.64 at B=4096, a ragged 37 and
+              B=512 at Eb/N0 0, 2 and 4 dB, and the other three adjacency
+              codes, flooding and layered: t, done, okf exactly, hard on
+              slots whose check passed, the rest counted; and its row
+              groups against the serial design (one row at a time): every
+              state tensor bit for bit over the calls
   main        `binary --engine stream` on J15_L30_Z1280 (flooding min-sum,
               layered min-sum alpha 0.8, flooding bp), FER compatible with
               the batch sweeps at the same points; `binary --packed` on
@@ -88,14 +91,18 @@ The stream steps K4 (binary) and K7 (GF(q)) join each phase:
               plain version in turns (J15_L30_Z1280 flooding also on a
               cluster of 4 with chan on chip), flooding bp with its plain
               version; K7, BDS, B=4096, 10 passes at 0 dB from fresh slots,
-              with its plain version in turns; the refill of one call; the
+              flooding and layered, the row groups, the serial design and
+              the plain version in turns; the refill of one call; the
               stream sweeps' throughput beside the batch sweeps'
 The max-domain decoder K8 (EMS Nm=2/Nc=2, TMM, layered TMM) joins each
 phase:
-  parity      K8 against its plain version, each method on
-              BDS.576.288.GF.64 and LDPC_N576_K288_GF64_d1_exp: B=4096
-              where most frames converge and where few do, a ragged 37,
-              max_iters 0, 1 and 20; hard, ok and iters exactly equal
+  parity      K8 against its plain version and its row groups against
+              the serial design (one row at a time), each method on the
+              four adjacency codes: BDS.576.288.GF.64 at B=4096 where most
+              frames converge and where few do, a ragged 37, B=512 at Eb/N0
+              0, 2 and 4 dB (layered TMM there against the serial design
+              only: its plain version costs ~0.6 s a pass), max_iters 0, 1
+              and 20; hard, ok and iters exactly equal
   main        `nb` with no --method (ems) on BDS at Eb/N0 1 and 2 dB, then
               tmm and layered_tmm, FER compatible with VALIDATION.md:19,
               23, 24; `nb --packed` ems; `nb --engine stream --method ems`
@@ -104,12 +111,14 @@ phase:
               >=1000 frames) as one packed sweep with a frame cap, each
               point reported as stopped by the rule or by the cap
   timing      K8, BDS, B=4096, at most 10 passes at 0 dB from fresh frames,
-              each method against its plain version in turns
+              each method's row groups, serial design and plain version in
+              turns
 The measuring path and the probes K9-K11 (phase 6), each entry point run
 with every launch count at 0 before it and read after it:
   bench       `python -m cuda_ldpc_torch.bench`'s run three times (K1) and
               once with BENCH_KERNEL=torch, each line and the spread
-  profile     `binary --profile` on J15_L30_Z1280 (two points) and `nb
+  profile     `binary --profile` on J15_L30_Z1280 (two points) and on
+              J4_L24_Z96 (eleven points in one process), and `nb
               --profile` on BDS.576.288.GF.64, qspa and ems (one point
               each): each trace holds K1's, K5's or K8's device events by
               name, the device's busy share of each traced batch is
@@ -185,8 +194,14 @@ BINARY = KERNELS[:4]
 K11_LINE_STEPS = 1000
 
 
+_START = time.perf_counter()
+
+
 def _emit(phase: str, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line of a phase, with the seconds since the script began."""
+    print(json.dumps({"phase": phase,
+                      "seconds_in": round(time.perf_counter() - _START, 1),
+                      **kw}), flush=True)
 
 
 def _sweep(cli, out_dir: str, argv: list[str]) -> list[dict]:
@@ -451,10 +466,10 @@ def measuring_path(card: str, wrappers) -> None:
     """Phase 6: the port's measuring path through its entry points, each
     run with every launch count at 0 before it and read after it: the
     bench (three kernel lines and one plain), --profile on the batch
-    engines (binary J15_L30_Z1280 at two points, nb BDS qspa and ems at
-    one), whose traces must hold K1's, K5's and K8's device events by name
-    and whose rows must equal an untraced run's, --packed --profile
-    refused, and profile_phases.  Each traced sweep runs as `python -m
+    engines (binary J15_L30_Z1280 at two points and J4_L24_Z96 at eleven,
+    nb BDS qspa and ems at one), whose traces must hold K1's, K5's and K8's
+    device events by name, every point's, and whose rows must equal an
+    untraced run's, --packed --profile refused, and profile_phases.  Each traced sweep runs as `python -m
     cuda_ldpc_torch ... --profile DIR` in a process of its own: a process
     that has run many kernels between a few earlier traces (as this one
     has) records no kernels in its later traces, a fresh one records them
@@ -507,6 +522,10 @@ def measuring_path(card: str, wrappers) -> None:
         ("nb ems", "nbms_ems", "nbms_kernel",
          ["nb", "--code", "BDS.576.288.GF.64", "--method", "ems", "--snr",
           "1", "--max-iters", "20"]),
+        # eleven points in one process: every point's trace holds K1
+        ("binary J4 11 points", "minsum_flooding", "onchip_batch_kernel",
+         ["binary", "--code", "J4_L24_Z96", "--snr", "1:0.25:3.5",
+          "--snr-type", "ebn0", "--max-iters", "10"]),
     ]
     with tempfile.TemporaryDirectory() as tmp:
         for i, (label, kernel, name, argv) in enumerate(sweeps):
@@ -988,47 +1007,66 @@ def main() -> int:
         del a, b, g, L, hard_diff
     torch.cuda.empty_cache()
 
-    # K8 against the plain nb_decode: every output exactly equal
+    # K8 against the plain nb_decode, and its row groups against the serial
+    # design: every output exactly equal
     k8_pairs = {
         "nbms_ems": (cuda_nbms.decode_ems, nb_decode.decode_ems),
         "nbms_tmm": (cuda_nbms.decode_tmm, nb_decode.decode_tmm),
         "nbms_layered_tmm": (cuda_nbms.decode_layered_tmm,
                              nb_decode.decode_layered_tmm),
     }
+    k8_serial = {"nbms_ems": cuda_nbms.decode_ems_serial,
+                 "nbms_tmm": cuda_nbms.decode_tmm_serial,
+                 "nbms_layered_tmm": cuda_nbms.decode_layered_tmm_serial}
     k8_cases = [
-        # code, Eb/N0, batch, iterations
-        ("BDS.576.288.GF.64", 3.0, 4096, 20),       # most frames converge
-        ("BDS.576.288.GF.64", 0.5, 1024, 20),       # few do
-        ("BDS.576.288.GF.64", 1.0, 4096, 1),
-        ("BDS.576.288.GF.64", 2.0, 37, 20),
-        ("BDS.576.288.GF.64", 2.0, 64, 0),
-        ("LDPC_N576_K288_GF64_d1_exp", 3.0, 4096, 20),
-        ("LDPC_N576_K288_GF64_d1_exp", 1.0, 512, 20),
+        # code, Eb/N0, batch, iterations, and whether the plain layered TMM
+        # (about 0.6 s a pass whatever the batch) joins the case; the row
+        # groups meet the serial design on every case
+        ("BDS.576.288.GF.64", 3.0, 4096, 20, True),   # most frames converge
+        ("BDS.576.288.GF.64", 0.5, 1024, 20, True),   # few do
+        ("BDS.576.288.GF.64", 1.0, 4096, 1, True),
+        ("BDS.576.288.GF.64", 2.0, 37, 20, True),
+        ("BDS.576.288.GF.64", 2.0, 64, 0, True),
+        ("BDS.576.288.GF.64", 0.0, 512, 20, False),
+        ("BDS.576.288.GF.64", 2.0, 512, 20, False),
+        ("BDS.576.288.GF.64", 4.0, 512, 20, False),
+        ("LDPC_N576_K288_GF64_d1_exp", 3.0, 4096, 20, True),
+        ("LDPC_N576_K288_GF64_d1_exp", 1.0, 512, 20, True),
+        # GF(256): the plain TMM's search over q^2 candidates a row is slow
+        ("LDPC_N96_K48_GF256_d1_exp", 2.0, 64, 20, True),
+        ("LDPC_N576_K480_GF256_exp", 3.0, 16, 20, True),
     ]
     for key in k8_pairs:
-        for i, (name, ebn0, B, iters) in enumerate(k8_cases):
+        for i, (name, ebn0, B, iters, layered_plain) in enumerate(k8_cases):
             code = nb_code(name)
             L = nb_chan(code, ebn0, B, seed=800 + i)
             kernel, plain = k8_pairs[key]
             a = kernel(L, code, iters)
-            b = plain(L, code, iters)
+            s = k8_serial[key](L, code, iters)
+            b = (plain(L, code, iters)
+                 if layered_plain or key != "nbms_layered_tmm" else s)
             torch.cuda.synchronize()
             counts = {"hard": int((a.hard != b.hard).sum()),
                       "ok": int((a.ok != b.ok).sum()),
-                      "iters": int((a.iters != b.iters).sum())}
+                      "iters": int((a.iters != b.iters).sum()),
+                      "serial_hard": int((a.hard != s.hard).sum()),
+                      "serial_ok": int((a.ok != s.ok).sum()),
+                      "serial_iters": int((a.iters != s.iters).sum())}
             err = max([int((a.hard - b.hard).abs().max()) if B else 0,
                        counts["ok"] > 0,
                        int((a.iters - b.iters).abs().max()) if B else 0])
             max_err[key] = max(max_err[key], float(err))
             mismatches[key] += sum(counts.values())
             _emit("parity", kernel=key, code=name, ebn0=ebn0, batch=B,
-                  iters=iters, frames_ok=int(b.ok.sum()),
+                  iters=iters, groups=cuda_nbms.groups(
+                      cuda_nbms.make_plan(code), key[len("nbms_"):]),
+                  against_plain=b is not s, frames_ok=int(b.ok.sum()),
                   avg_iters=float(b.iters.float().mean()),
                   mismatches=counts, max_abs_err=err)
             if any(counts.values()):
-                raise AssertionError(f"K8 != plain on {key} {k8_cases[i]}: "
-                                     f"{counts}")
-            del a, b, L
+                raise AssertionError(f"K8 != plain or the serial design on "
+                                     f"{key} {k8_cases[i]}: {counts}")
+            del a, b, s, L
         torch.cuda.empty_cache()
 
     # K4 and K7 against their plain versions over the stream engines' call
@@ -1144,6 +1182,9 @@ def main() -> int:
         # code, Eb/N0, batch
         ("BDS.576.288.GF.64", 1.0, 4096),
         ("BDS.576.288.GF.64", 1.5, 37),
+        ("BDS.576.288.GF.64", 0.0, 512),
+        ("BDS.576.288.GF.64", 2.0, 512),
+        ("BDS.576.288.GF.64", 4.0, 512),
         ("LDPC_N576_K288_GF64_d1_exp", 2.0, 512),
         ("LDPC_N96_K48_GF256_d1_exp", 2.0, 1024),
         ("LDPC_N576_K480_GF256_exp", 3.0, 512),
@@ -1160,11 +1201,17 @@ def main() -> int:
                 "qspa_stream",
                 functools.partial(cuda_qspa_stream.stream_step, **kw),
                 functools.partial(qspa_stream.stream_step, **kw),
-                chans, (E, code.q), 20, label)
-            # as for K5: t, done and okf exactly, hard on passing slots
+                chans, (E, code.q), 20, label,
+                other_step=functools.partial(
+                    cuda_qspa_stream.stream_step_serial, **kw))
+            # as for K5: t, done and okf exactly, hard on passing slots; the
+            # row groups against the serial design: every tensor bit for bit
             if (total["t"] or total["done"] or total["okf"]
-                    or total["hard_in_ok_slots"]):
-                raise AssertionError(f"K7 != plain on {label}: {total}")
+                    or total["hard_in_ok_slots"]
+                    or any(v for k, v in total.items()
+                           if k.startswith("other_"))):
+                raise AssertionError(f"K7 != plain or the serial design on "
+                                     f"{label}: {total}")
         del chans
     torch.cuda.empty_cache()
 
@@ -1718,15 +1765,18 @@ def main() -> int:
 
     # K7: BDS.576.288.GF.64, B=4096, at most 10 passes from fresh slots at
     # 0 dB (max_iters 9: 10 decides and 9 updates for a slot that never
-    # passes, as K5's 10 iterations), each call resetting its state
+    # passes, as K5's 10 iterations), each call resetting its state; the
+    # row groups, the serial design and the plain version in turns
     code = nb_code("BDS.576.288.GF.64")
     E = int(code.cn_mask.sum())
     chan0 = nb_chan(code, 0.0, B, seed=37)
+    turns = ("plain", "serial", "kernel", "kernel", "serial", "plain")
     for layered in (False, True):
-        states = {w: [chan0.clone(), torch.zeros((B, E, code.q), device=dev),
-                      zeros(), zeros(), zeros()] for w in ("kernel", "plain")}
         steps = {"kernel": cuda_qspa_stream.stream_step,
+                 "serial": cuda_qspa_stream.stream_step_serial,
                  "plain": qspa_stream.stream_step}
+        states = {w: [chan0.clone(), torch.zeros((B, E, code.q), device=dev),
+                      zeros(), zeros(), zeros()] for w in steps}
 
         def launch(which, i):
             st = states[which]
@@ -1735,7 +1785,8 @@ def main() -> int:
                 x.zero_()
             return steps[which](*st, code, 10, 9, layered=layered)
 
-        runs = time_turns(launch, {"kernel": 20, "plain": 3})
+        runs = time_turns(launch, {"kernel": 20, "serial": 20, "plain": 3},
+                          order=turns)
         ms = {w: statistics.median(v) for w, v in runs.items()}
         launch("kernel", 0)
         st = states["kernel"]
@@ -1748,6 +1799,8 @@ def main() -> int:
         _emit("timing", kernel="qspa_stream" + (" layered" if layered
                                                  else ""),
               code=code.name, batch=B, ebn0=0.0, max_passes=10, card=card,
+              groups=cuda_qspa_stream.groups(cuda_qspa.make_plan(code),
+                                            layered),
               ms_per_call=runs, slot_passes=updates + finished,
               slot_updates=updates,
               info_mbps={w: B * code.k_sym * code.q_bit / (v / 1e3) / 1e6
@@ -1757,18 +1810,21 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # K8: BDS.576.288.GF.64, B=4096, at most 10 passes at 0 dB from fresh
-    # frames, each method against its plain version in turns
+    # frames, each method's row groups, serial design and plain version in
+    # turns
     code, B, iters = nb_code("BDS.576.288.GF.64"), 4096, 10
     chans = [nb_chan(code, 0.0, B, seed=47 + i) for i in range(2)]
     plan = cuda_nbms.make_plan(code)
     for key, (kernel, plain) in k8_pairs.items():
-        decoders = {"kernel": kernel, "plain": plain}
+        decoders = {"kernel": kernel, "serial": k8_serial[key],
+                    "plain": plain}
 
         def launch(which, i):
             return decoders[which](chans[i % 2], code, iters)
 
         runs = time_turns(launch, {
-            "plain": 1 if key == "nbms_layered_tmm" else 3, "kernel": 20})
+            "plain": 1 if key == "nbms_layered_tmm" else 3, "kernel": 20,
+            "serial": 20}, order=turns)
         ms = {k: statistics.median(v) for k, v in runs.items()}
         res = launch("kernel", 0)
         bound, bound_by = nbms_bound_ms(code.n_sym, code.m_sym, plan.E,
@@ -1777,7 +1833,8 @@ def main() -> int:
         timing[key] = (ms, bound, bound_by)
         _emit("timing", kernel=key, code=code.name, batch=B, ebn0=0.0,
               max_passes=iters, avg_iters=float(res.iters.float().mean()),
-              card=card, ms_per_batch=runs,
+              card=card, groups=cuda_nbms.groups(plan, key[len("nbms_"):]),
+              ms_per_batch=runs,
               info_mbps={k: B * code.k_sym * code.q_bit / (v / 1e3) / 1e6
                          for k, v in ms.items()},
               bound_ms=bound, bound_by=bound_by)

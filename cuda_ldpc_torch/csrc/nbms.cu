@@ -22,8 +22,9 @@
 // division through the log/antilog tables) or the value at y ^ s, exactly.
 // One block decodes one frame, all passes in one launch, and stops when its
 // frame passes (per-frame freezing costs nothing, and the outputs equal a
-// per-tile stop's).  The block has one warp per edge of a row, the rows run
-// in series, each in a few barrier-separated phases:
+// per-tile stop's).  The block holds `groups` row groups (qspa_common.cuh)
+// of one warp per edge of a row; each group runs a row at a time, in a few
+// phases separated by the group's own barrier, with its own scratch:
 //   EMS: each warp computes its edge's CN-domain message U, its first
 //   maximum c0, the delta profile W[y] = U[y ^ c0] - max and its best
 //   non-zero offset; then warp `dout` takes the best single deviation of
@@ -31,16 +32,33 @@
 //   the JAX package's max1/max2/argmax trick), the pairs of other edges at
 //   their best offsets, and writes c2v[k] = (D[h k ^ g0] - D[g0]) * f32(1/1.2).
 //   TMM: each warp computes its edge's first minimum, Zn = h * argmin and
-//   dU[eta] = U[eta ^ Zn] - min; the block takes min1/min2/column per eta,
+//   dU[eta] = U[eta ^ Zn] - min; the group takes min1/min2/column per eta,
 //   then the 2-deviation search (for each output eta a scan over j of
 //   max(min1[j], min1[eta ^ j]), strict < so the first j wins, split over
-//   the block's threads in ordered j ranges and merged in order); warp
-//   `dout` writes c2v[k] = 0.8 * Lc2p[h k ^ syn ^ Zn]; layered also writes
-//   the totals T + (fma(x, 0.8, v2c) - T), the plain version's order.
+//   the group's threads in ordered j ranges and merged in order, so the
+//   first j wins whatever the split); warp `dout` writes c2v[k] = 0.8 *
+//   Lc2p[h k ^ syn ^ Zn]; layered also writes the totals T + (fma(x, 0.8,
+//   v2c) - T), the plain version's order.
+// The rows of a pass come from the host's wave plan (ops/cuda_qspa
+// .row_waves): flooding (EMS, TMM) is one wave, every row at once over the
+// groups (group g takes rows g, g + G, ...), since no row writes what
+// another reads (EMS reads the totals, TMM accumulates them before the
+// rows); layered TMM runs its dependency levels, the rows of a level over
+// the groups and a block barrier between levels, so that every pair of rows
+// that share a VN keeps its serial order and the result is the serial
+// schedule's bit for bit.  The serial design (one group, a wave a row, the
+// block barrier) is the same kernel under the serial plan
+// (cuda_nbms.decode_*_serial), kept as the yardstick of the row groups.
+// Measured on BDS.576.288.GF.64 (NVIDIA H100, PERF.md): the row groups
+// take EMS from 8.1 to 6.1 ms, TMM only from 11.0 to 10.7 (its search
+// keeps the SM's issue slots busy, whatever the rows in flight), and ran
+// layered TMM slower, so the wrapper runs layered TMM on one group, in
+// level order.
 // The totals T [N, q] live in shared memory, the c2v messages C [E, q] in
 // the caller's device buffer [B, E, q]: with C beside T in shared memory a
-// BDS.576.288.GF.64 block takes 79 KB, which leaves room for 2 blocks an SM
-// instead of 7, and it ran 1.8-2x slower on the H100 (PERF.md).
+// BDS.576.288.GF.64 block took 79 KB in the serial design, which left room
+// for 2 blocks an SM instead of 7, and it ran 1.8-2x slower on the H100;
+// with 1, 2 or 4 row groups it ran slower too (PERF.md).
 //
 // Arithmetic: adds, subtracts and multiplies through the __f*_rn
 // intrinsics (nvcc cannot contract them), the one fused multiply-add as
@@ -52,7 +70,12 @@
 // q^2 ordered ones, so it does about twice the candidates the function
 // needs.  EMS needs a dozen operations per edge and symbol.  The bytes are
 // the channel and the decisions once per call; so operations bound it, and
-// in practice the barriers of the serial rows.
+// in practice the latency of each row's barriers and shuffle chains, which
+// the row groups overlap.
+//
+// Built with -DNB_ROWS_PHASES (cuda_ldpc_torch/tools/nb_rows_phases.py),
+// thread 0 of every block adds the clock64() cycles of each phase to
+// g_nbms_clk[method] when the block ends.
 
 #include "qspa_common.cuh"
 
@@ -66,27 +89,37 @@ constexpr float kTmmScale = 0.800000011920928955078125f;  // f32(0.8)
 
 enum Method { kEms = 0, kTmm = 1, kLayeredTmm = 2 };
 
-// Dynamic shared memory of one block: T [N, Q], the row scratch X and Y
-// [max_dc, Q] and A [max(max_dc, 7), Q], the per-edge scalars [3 * 32], the
+#ifdef NB_ROWS_PHASES
+__device__ unsigned long long g_nbms_clk[3][kRpCount];
+#endif
+
+// Floats of one row group's scratch: X and Y [max_dc, Q], A [max(max_dc,
+// 7), Q] and the per-edge scalars [3 * 32].
+__host__ __device__ inline int group_floats(int q, int max_dc) {
+  return (2 * max_dc + (max_dc > 7 ? max_dc : 7)) * q + 3 * 32;
+}
+
+// Dynamic shared memory of one block: T [N, Q], each group's scratch, the
 // GF tables and the decisions.
-size_t smem_bytes(int N, int q, int max_dc) {
-  const size_t aux = (size_t)(max_dc > 7 ? max_dc : 7) * q;
-  return sizeof(float) * ((size_t)N * q + 2 * (size_t)max_dc * q + aux +
-                          3 * 32) +
+size_t smem_bytes(int N, int q, int max_dc, int groups) {
+  return sizeof(float) * ((size_t)N * q +
+                          (size_t)groups * group_floats(q, max_dc)) +
          sizeof(int) * ((size_t)q + 2 * (q - 1) + N);
 }
 
-// One EMS check row (Nm = Nc = 2); warp w holds edge k0 + w.  Ends with a
-// barrier.
-template <int R>
-__device__ __forceinline__ void ems_row(const float* T, float* Cb, float* X,
+// One EMS check row (Nm = Nc = 2) on a row group; the group's warp w
+// holds edge k0 + w.  Ends with the group's barrier.
+template <int R, int kGroups>
+__device__ __forceinline__ void ems_row(const RowGroup<kGroups>& grp,
+                                        PhaseClock& pc,
+                                        const float* T, float* Cb, float* X,
                                         float* Y, float* Dm, int* ei,
                                         float* ef, const int* lg,
                                         const int* ex, int k0, int dc,
                                         const int* __restrict__ edge_vn,
                                         const int* __restrict__ edge_h) {
   constexpr int Q = 32 * R;
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w = grp.tid >> 5, lane = grp.tid & 31;
   const bool mine = w < dc;
   int h = 0;
   float* cp = Cb;
@@ -128,7 +161,9 @@ __device__ __forceinline__ void ems_row(const float* T, float* Cb, float* X,
       ef[w] = p1;
     }
   }
-  __syncthreads();
+  pc.stamp(kRpEdges);
+  grp.sync();
+  pc.stamp(kRpEdgesWait);
   if (mine) {
     // conf(q,1): the best single deviation of the other edges
     float D[R];
@@ -174,20 +209,24 @@ __device__ __forceinline__ void ems_row(const float* T, float* Cb, float* X,
       cp[k] = __fmul_rn(__fsub_rn(dw[idx], d0), kEmsScale);
     }
   }
-  __syncthreads();
+  pc.stamp(kRpOutput);
+  grp.sync();
+  pc.stamp(kRpRowWait);
 }
 
-// One TMM check row; warp w holds edge k0 + w.  Layered also writes the
-// row's totals.  Ends with a barrier.
-template <int R, bool kLayered>
-__device__ __forceinline__ void tmm_row(float* T, float* Cb, float* X,
+// One TMM check row on a row group; the group's warp w holds edge k0 + w.
+// Layered also writes the row's totals.  Ends with the group's barrier.
+template <int R, bool kLayered, int kGroups>
+__device__ __forceinline__ void tmm_row(const RowGroup<kGroups>& grp,
+                                        PhaseClock& pc,
+                                        float* T, float* Cb, float* X,
                                         float* Y, float* A, int* ei,
                                         const int* lg, const int* ex, int k0,
                                         int dc,
                                         const int* __restrict__ edge_vn,
                                         const int* __restrict__ edge_h) {
   constexpr int Q = 32 * R;
-  const int tid = threadIdx.x, nth = blockDim.x;
+  const int tid = grp.tid, nth = grp.nth;
   const int w = tid >> 5, lane = tid & 31;
   const bool mine = w < dc;
   int h = 0, vn = 0, zn = 0;
@@ -221,7 +260,9 @@ __device__ __forceinline__ void tmm_row(float* T, float* Cb, float* X,
     }
     if (lane == 0) ei[w] = zn;
   }
-  __syncthreads();
+  pc.stamp(kRpEdges);
+  grp.sync();
+  pc.stamp(kRpEdgesWait);
   // min1, min2 and the first column of min1, per eta, over the row's edges
   float* min1 = A;
   float* min2 = A + Q;
@@ -240,7 +281,9 @@ __device__ __forceinline__ void tmm_row(float* T, float* Cb, float* X,
     min2[eta] = m2;
     col[eta] = c;
   }
-  __syncthreads();
+  pc.stamp(kRpMins);
+  grp.sync();
+  pc.stamp(kRpRowWait);
   // 2-deviation search: S ordered j ranges per output eta, in X (the best
   // value) and Y (its two columns, packed); X and Y are free now
   int S = 1;
@@ -263,7 +306,9 @@ __device__ __forceinline__ void tmm_row(float* T, float* Cb, float* X,
     X[slot] = I2;
     packed[slot] = best;
   }
-  __syncthreads();
+  pc.stamp(kRpSearch);
+  grp.sync();
+  pc.stamp(kRpRowWait);
   float* Iv = A + 3 * Q;
   float* Ev = A + 4 * Q;
   int* p1 = reinterpret_cast<int*>(A + 5 * Q);
@@ -282,7 +327,9 @@ __device__ __forceinline__ void tmm_row(float* T, float* Cb, float* X,
     p1[i] = use2 ? (best & 0xffff) : col[i];
     p2[i] = use2 ? (best >> 16) : col[i];
   }
-  __syncthreads();
+  pc.stamp(kRpMerge);
+  grp.sync();
+  pc.stamp(kRpRowWait);
   if (mine) {
     int syn = 0;
     for (int d = 0; d < dc; ++d) syn ^= ei[d];
@@ -301,85 +348,131 @@ __device__ __forceinline__ void tmm_row(float* T, float* Cb, float* X,
       cp[k] = __fmul_rn(kTmmScale, x);
     }
   }
-  __syncthreads();
+  pc.stamp(kRpOutput);
+  grp.sync();
+  pc.stamp(kRpRowWait);
 }
 
-template <int R, int kMethod>
-__global__ void __launch_bounds__(1024) nbms_kernel(
+template <int R, int kMethod, int kGroups>
+__global__ void __launch_bounds__(kGroups == 1 ? 1024 : kGroupedThreads,
+                                  kGroups == 1 ? 1 : kGroupedBlocks)
+    nbms_kernel(
     const float* __restrict__ chan, float* __restrict__ C,
     int* __restrict__ hard, unsigned char* __restrict__ ok,
     int* __restrict__ iters, const int* __restrict__ row_ptr,
     const int* __restrict__ edge_vn, const int* __restrict__ edge_h,
     const int* __restrict__ col_ptr, const int* __restrict__ col_edge,
-    const int* __restrict__ gf_log, const int* __restrict__ gf_exp, int N,
-    int M, int E, int max_dc, int num_iters) {
+    const int* __restrict__ gf_log, const int* __restrict__ gf_exp,
+    const int* __restrict__ wave_ptr, const int* __restrict__ wave_row,
+    int nwaves, int groups, int N, int M, int E, int max_dc,
+    int num_iters) {
   constexpr int Q = 32 * R;
   extern __shared__ float smem[];
+  const RowGroup<kGroups> grp = row_group<kGroups>(groups);
+  const int gf = group_floats(Q, max_dc);
   float* T = smem;
-  float* X = T + N * Q;
+  float* X = T + N * Q + (grp.id ? grp.id - 1 : 0) * gf;
   float* Y = X + max_dc * Q;
   float* A = Y + max_dc * Q;
   float* ef = A + (max_dc > 7 ? max_dc : 7) * Q;
   int* ei = reinterpret_cast<int*>(ef + 32);
-  int* lg = ei + 64;
+  int* lg = reinterpret_cast<int*>(T + N * Q + groups * gf);
   int* ex = lg + Q;
   int* hs = ex + 2 * (Q - 1);
   const int tid = threadIdx.x, nth = blockDim.x;
   const int64_t b = blockIdx.x;
   const float* L = chan + b * N * Q;
   float* Cb = C + b * E * Q;
+  ROWS_PHASE_CLOCK(pc)
 
   load_gf_tables(lg, ex, gf_log, gf_exp, Q);
   for (int i = tid; i < E * Q; i += nth) Cb[i] = 0.f;
   if (kMethod != kEms)
     for (int i = tid; i < N * Q; i += nth) T[i] = L[i];
   __syncthreads();
+  pc.stamp(kRpSetup);
 
   for (int t = 0;; ++t) {
     if (kMethod == kEms) {
       frame_totals<Q>(T, L, Cb, col_ptr, col_edge, N);
       __syncthreads();
+      pc.stamp(kRpTotals);
     } else if (kMethod == kTmm) {  // the state accumulates the c2v sum
       frame_totals<Q>(T, T, Cb, col_ptr, col_edge, N);
       __syncthreads();
+      pc.stamp(kRpTotals);
     }
     const int bad = frame_decide_check<R, kMethod != kEms>(
         T, hs, lg, ex, row_ptr, edge_vn, edge_h, N, M);
+    pc.stamp(kRpDecide);
     if (!bad || t + 1 >= num_iters) {
       for (int n = tid; n < N; n += nth) hard[b * N + n] = hs[n];
       if (tid == 0) {
         ok[b] = bad ? 0 : 1;
         iters[b] = bad ? num_iters : t;
       }
+      pc.stamp(kRpExit);
+      ROWS_PHASE_FLUSH(pc, g_nbms_clk[kMethod])
       return;
     }
-    for (int m = 0; m < M; ++m) {
+    walk_waves(groups, wave_ptr, wave_row, nwaves, pc, [&](int m) {
       const int k0 = row_ptr[m], dc = row_ptr[m + 1] - k0;
       if (kMethod == kEms)
-        ems_row<R>(T, Cb, X, Y, A, ei, ef, lg, ex, k0, dc, edge_vn, edge_h);
+        ems_row<R, kGroups>(grp, pc, T, Cb, X, Y, A, ei, ef, lg, ex, k0, dc,
+                            edge_vn, edge_h);
       else
-        tmm_row<R, kMethod == kLayeredTmm>(T, Cb, X, Y, A, ei, lg, ex, k0,
-                                           dc, edge_vn, edge_h);
-    }
+        tmm_row<R, kMethod == kLayeredTmm, kGroups>(
+            grp, pc, T, Cb, X, Y, A, ei, lg, ex, k0, dc, edge_vn, edge_h);
+    });
   }
 }
 
-template <int R, int kMethod>
+// The kernel for R, the method and the number of groups: the serial
+// instantiation (no named barrier) for one group, else kMaxGroups'.
+template <int R>
+auto kernel_for(int method, int groups) {
+  const bool one = groups == 1;
+  return method == kEms
+             ? (one ? nbms_kernel<R, kEms, 1> : nbms_kernel<R, kEms, kMaxGroups>)
+         : method == kTmm
+             ? (one ? nbms_kernel<R, kTmm, 1> : nbms_kernel<R, kTmm, kMaxGroups>)
+             : (one ? nbms_kernel<R, kLayeredTmm, 1>
+                    : nbms_kernel<R, kLayeredTmm, kMaxGroups>);
+}
+
+template <int R>
 cudaError_t launch(const float* chan, float* C, int* hard, unsigned char* ok,
                    int* iters, const int* row_ptr, const int* edge_vn,
                    const int* edge_h, const int* col_ptr, const int* col_edge,
-                   const int* gf_log, const int* gf_exp, int B, int N, int M,
-                   int E, int max_dc, int num_iters, cudaStream_t st) {
-  auto kernel = nbms_kernel<R, kMethod>;
-  const size_t smem = smem_bytes(N, 32 * R, max_dc);
+                   const int* gf_log, const int* gf_exp, const int* wave_ptr,
+                   const int* wave_row, int nwaves, int groups, int B, int N,
+                   int M, int E, int max_dc, int num_iters, int method,
+                   cudaStream_t st) {
+  auto kernel = kernel_for<R>(method, groups);
+  const size_t smem = smem_bytes(N, 32 * R, max_dc, groups);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
-  kernel<<<B, 32 * max_dc, smem, st>>>(chan, C, hard, ok, iters, row_ptr,
-                                       edge_vn, edge_h, col_ptr, col_edge,
-                                       gf_log, gf_exp, N, M, E, max_dc,
-                                       num_iters);
+  kernel<<<B, 32 * max_dc * groups, smem, st>>>(
+      chan, C, hard, ok, iters, row_ptr, edge_vn, edge_h, col_ptr, col_edge,
+      gf_log, gf_exp, wave_ptr, wave_row, nwaves, groups, N, M, E, max_dc,
+      num_iters);
   return cudaGetLastError();
+}
+
+// Blocks an SM holds of the kernel for R, the method and the groups.
+template <int R>
+int blocks_per_sm(int method, int groups, int N, int max_dc) {
+  auto kernel = kernel_for<R>(method, groups);
+  const size_t smem = smem_bytes(N, 32 * R, max_dc, groups);
+  int blocks = 0;
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kernel, 32 * max_dc * groups, smem))
+    return -1;
+  return blocks;
 }
 
 }  // namespace
@@ -389,26 +482,31 @@ extern "C" {
 // Decodes the batch chan [B, N, q] (q in 32, 64, 128, 256; 2 <= max_dc <=
 // 32 edges per row) for at most `num_iters` >= 1 passes on `stream` of CUDA
 // device `device`, with `method` 0 = EMS (positive-domain LLRs), 1 = TMM,
-// 2 = layered TMM (min-domain LLRs).  C [B, E, q] is the caller's scratch;
-// hard [B, N], ok [B] and iters [B] the outputs.  The tables are those of
-// ldpc_qspa.  Returns 0 or the first CUDA error met while enqueueing.
+// 2 = layered TMM (min-domain LLRs), on `groups` row groups (1 to 7; one
+// group at most 1024 threads, more at most 512) walking the rows of the wave plan wave_ptr
+// [nwaves + 1], wave_row [M] (ops/cuda_qspa.row_waves).  C [B, E, q] is
+// the caller's scratch; hard [B, N], ok [B] and iters [B] the outputs.  The
+// tables are those of ldpc_qspa.  Returns 0 or the first CUDA error met
+// while enqueueing.
 int ldpc_nbms(const float* chan, float* C, int* hard, unsigned char* ok,
               int* iters, const int* row_ptr, const int* edge_vn,
               const int* edge_h, const int* col_ptr, const int* col_edge,
-              const int* gf_log, const int* gf_exp, int B, int N, int M,
-              int E, int q, int max_dc, int num_iters, int method,
+              const int* gf_log, const int* gf_exp, const int* wave_ptr,
+              const int* wave_row, int nwaves, int groups, int B, int N,
+              int M, int E, int q, int max_dc, int num_iters, int method,
               int device, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if ((err = cudaSetDevice(device))) return err;
-  if (max_dc < 2 || max_dc > 32 || method < 0 || method > 2)
+  if (max_dc < 2 || max_dc > 32 || method < 0 || method > 2 || groups < 1 ||
+      groups > kMaxGroups ||
+      32 * max_dc * groups > (groups == 1 ? 1024 : kGroupedThreads))
     return cudaErrorInvalidValue;
 #define NBMS_LAUNCH(R)                                                    \
-  return (method == kEms ? launch<R, kEms>                                \
-          : method == kTmm ? launch<R, kTmm>                              \
-                           : launch<R, kLayeredTmm>)(                     \
-      chan, C, hard, ok, iters, row_ptr, edge_vn, edge_h, col_ptr,        \
-      col_edge, gf_log, gf_exp, B, N, M, E, max_dc, num_iters, st)
+  return launch<R>(chan, C, hard, ok, iters, row_ptr, edge_vn, edge_h,    \
+                   col_ptr, col_edge, gf_log, gf_exp, wave_ptr, wave_row, \
+                   nwaves, groups, B, N, M, E, max_dc, num_iters, method, \
+                   st)
   switch (q) {
     case 32: NBMS_LAUNCH(1);
     case 64: NBMS_LAUNCH(2);
@@ -418,5 +516,34 @@ int ldpc_nbms(const float* chan, float* C, int* hard, unsigned char* ok,
   }
 #undef NBMS_LAUNCH
 }
+
+// Blocks of the kernel an SM of CUDA device `device` holds for q, the
+// method, the groups, N and max_dc (as ldpc_nbms takes them); -1 on a bad
+// argument or a CUDA error.
+int ldpc_nbms_blocks_per_sm(int q, int method, int groups, int N, int max_dc,
+                            int device) {
+  if (cudaSetDevice(device) || max_dc < 2 || max_dc > 32 || method < 0 ||
+      method > 2 || groups < 1 || groups > kMaxGroups ||
+      32 * max_dc * groups > (groups == 1 ? 1024 : kGroupedThreads))
+    return -1;
+  switch (q) {
+    case 32: return blocks_per_sm<1>(method, groups, N, max_dc);
+    case 64: return blocks_per_sm<2>(method, groups, N, max_dc);
+    case 128: return blocks_per_sm<4>(method, groups, N, max_dc);
+    case 256: return blocks_per_sm<8>(method, groups, N, max_dc);
+    default: return -1;
+  }
+}
+
+#ifdef NB_ROWS_PHASES
+// Copies the phase counters [3][kRpCount] (EMS, TMM, layered TMM) into out
+// and zeroes them.
+int ldpc_nbms_phase_clocks(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_nbms_clk, sizeof(g_nbms_clk));
+  if (err) return err;
+  unsigned long long zero[3][kRpCount] = {};
+  return cudaMemcpyToSymbol(g_nbms_clk, zero, sizeof(zero));
+}
+#endif
 
 }  // extern "C"

@@ -139,10 +139,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [p])                    # stream
     lib.ldpc_minsum_stream.restype = i
     lib.ldpc_qspa_stream.argtypes = (
-        [p] * 13                  # chan C hard t done okf + 5 edge tables +
-                                  # gf_log gf_exp
-        + [i] * 10                # B N M E q max_dc k max_iters layered
-                                  # device
+        [p] * 15                  # chan C hard t done okf + 5 edge tables +
+                                  # gf_log gf_exp + wave_ptr wave_row
+        + [i] * 12                # nwaves groups B N M E q max_dc k
+                                  # max_iters layered device
         + [p])                    # stream
     lib.ldpc_qspa_stream.restype = i
     lib.ldpc_qspa.argtypes = (
@@ -166,11 +166,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [p])                    # stream
     lib.ldpc_qspa_qc_global.restype = i
     lib.ldpc_nbms.argtypes = (
-        [p] * 12                  # chan C hard ok iters + 5 edge tables +
-                                  # gf_log gf_exp
-        + [i] * 8                 # B N M E q max_dc num_iters method
+        [p] * 14                  # chan C hard ok iters + 5 edge tables +
+                                  # gf_log gf_exp + wave_ptr wave_row
+        + [i] * 10                # nwaves groups B N M E q max_dc
+                                  # num_iters method
         + [i, p])                 # device stream
     lib.ldpc_nbms.restype = i
+    for occupancy in (lib.ldpc_nbms_blocks_per_sm,
+                      lib.ldpc_qspa_stream_blocks_per_sm):
+        occupancy.argtypes = [i] * 6  # q method|layered groups N max_dc
+        occupancy.restype = i         # device
     lib.ldpc_probe_bitops.argtypes = (
         [p] * 2                   # x out
         + [i] * 4                 # rows cols fn device

@@ -13,10 +13,17 @@ refused under ``auto`` on a card): EMS with another (Nm, Nc), full EMS,
 grouped-layered TMM, rows of unequal degree (the Tanner code, q = 16).
 
 One frame's totals [N, q] live in a block's shared memory, its c2v
-messages [E, q] in device memory (a scratch [B, E, q]).  With the messages
-in shared memory too (they fit on the GF(64) codes), BDS.576.288.GF.64 at
-B=4096 ran 1.8-2x slower on the H100: a 79 KB block leaves room for 2
-blocks an SM instead of 7 (PERF.md).
+messages [E, q] in device memory (a scratch [B, E, q]).  The block runs
+the check rows of a pass on ``groups(plan, method)`` row groups at once
+(csrc/qspa_common.cuh): flooding EMS and TMM every row of a pass at once,
+layered TMM by dependency level (``cuda_qspa.row_waves``), so the outputs
+are the serial schedule's bit for bit.  The serial design, one row at a
+time on one group, stays callable as ``decode_*_serial``: chip_smoke.py and
+the card tests hold the row groups to it and time them against it.  With
+the messages in shared memory too (they fit on the GF(64) codes),
+BDS.576.288.GF.64 at B=4096 ran 1.8-2x slower on the H100 in the serial
+design (a 79 KB block left room for 2 blocks an SM instead of 7), and
+slower at 1, 2 and 4 row groups too (PERF.md).
 
 Semantics are ops/nb_decode.decode's for 'ems' (nm = nc = 2), 'tmm' and
 'layered_tmm', bit for bit: every frame decides, checks and stops on its
@@ -42,21 +49,44 @@ from cuda_ldpc_torch.ops.cuda_qspa import (SMEM_LIMIT, Plan, check_input,
                                            empty_result, make_plan)
 from cuda_ldpc_torch.ops.nb_decode import NBDecodeResult
 
-# Calls that launched the kernel, by method; read and reset by
-# chip_smoke.py to show that the main path went through it.
-LAUNCHES = {"nbms_ems": 0, "nbms_tmm": 0, "nbms_layered_tmm": 0}
+# Calls that launched the kernel, by method (the serial design's under
+# nbms_serial_*); read and reset by chip_smoke.py to show that the main path
+# went through it.
+LAUNCHES = {"nbms_ems": 0, "nbms_tmm": 0, "nbms_layered_tmm": 0,
+            "nbms_serial_ems": 0, "nbms_serial_tmm": 0,
+            "nbms_serial_layered_tmm": 0}
 
 METHOD_IDS = {"ems": 0, "tmm": 1, "layered_tmm": 2}
 
 
-def smem_bytes(plan: Plan) -> int:
+def smem_bytes(plan: Plan, groups: int = 1) -> int:
     """The kernel's dynamic shared memory per block (csrc/nbms.cu
-    smem_bytes): T [N, q], two row scratches [max_dc, q] and one
-    [max(max_dc, 7), q], 96 per-edge scalars in f32; the GF tables and the
-    decisions in int32."""
+    smem_bytes): T [N, q] and, for each row group, two row scratches
+    [max_dc, q] and one [max(max_dc, 7), q] and 96 per-edge scalars, in
+    f32; the GF tables and the decisions in int32."""
     q, dc = plan.q, plan.max_dc
-    return 4 * (plan.N * q + 2 * dc * q + max(dc, 7) * q + 96 + q
-                + 2 * (q - 1) + plan.N)
+    return 4 * (plan.N * q + groups * (2 * dc * q + max(dc, 7) * q + 96)
+                + q + 2 * (q - 1) + plan.N)
+
+
+def groups(plan: Plan, method: str) -> int:
+    """Row groups of the kernel's block (``cuda_qspa.pick_groups``), one
+    for layered TMM: on BDS.576.288.GF.64 its row groups ran slower than
+    one group (10.35 ms with 2, 10.65 with 4, against 9.87; NVIDIA H100,
+    PERF.md), since the 2-deviation search, which holds the SM busy,
+    does not gain from more rows at once, and the levels' barriers and
+    fewer frames an SM cost more than the overlap gives."""
+    if method == "layered_tmm":
+        return 1
+    return cuda_qspa.pick_groups(plan, lambda g: smem_bytes(plan, g))
+
+
+def blocks_per_sm(plan: Plan, method: str, groups: int,
+                  device: torch.device) -> int:
+    """Blocks of the kernel an SM of ``device`` holds with ``groups`` row
+    groups (CUDA's occupancy calculator)."""
+    return _build.load().ldpc_nbms_blocks_per_sm(
+        plan.q, METHOD_IDS[method], groups, plan.N, plan.max_dc, device.index)
 
 
 def supports(code: NBCode, nm: int = 2, nc: int = 2) -> bool:
@@ -74,7 +104,7 @@ def supports(code: NBCode, nm: int = 2, nc: int = 2) -> bool:
 
 
 def _decode(L_ch: torch.Tensor, code: NBCode, max_iters: int, method: str,
-            early_stop: bool) -> NBDecodeResult:
+            early_stop: bool, serial: bool = False) -> NBDecodeResult:
     if L_ch.device.type == "cpu":
         return nb_decode.decode(L_ch, code, method, max_iters,
                                 early_stop=early_stop)
@@ -91,6 +121,9 @@ def _decode(L_ch: torch.Tensor, code: NBCode, max_iters: int, method: str,
     chan = L_ch if method == "ems" else nb_decode.to_min_domain(L_ch)
     lib = _build.load()
     tables = cuda_qspa._device_tables(plan, cuda_qspa.code_key(code), dev)
+    schedule = ("serial" if serial else
+                "layered" if method == "layered_tmm" else "flooding")
+    wave_ptr, wave_row, nwaves = cuda_qspa.device_waves(code, schedule, dev)
     C = torch.empty((B, plan.E, plan.q), dtype=torch.float32, device=dev)
     res = NBDecodeResult(torch.empty((B, plan.N), dtype=torch.int32,
                                      device=dev),
@@ -100,10 +133,11 @@ def _decode(L_ch: torch.Tensor, code: NBCode, max_iters: int, method: str,
     ptr = cuda_qspa._ptr
     err = lib.ldpc_nbms(
         ptr(chan), ptr(C), *(ptr(t) for t in res), *(ptr(t) for t in tables),
-        B, plan.N, plan.M, plan.E, plan.q, plan.max_dc, int(max_iters),
-        METHOD_IDS[method], dev.index,
+        ptr(wave_ptr), ptr(wave_row), nwaves,
+        1 if serial else groups(plan, method), B, plan.N, plan.M, plan.E,
+        plan.q, plan.max_dc, int(max_iters), METHOD_IDS[method], dev.index,
         ctypes.c_void_p(stream))
-    name = f"nbms_{method}"
+    name = f"nbms_{'serial_' if serial else ''}{method}"
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            + lib.ldpc_error_string(err).decode())
@@ -130,3 +164,26 @@ def decode_layered_tmm(L_ch: torch.Tensor, code: NBCode, max_iters: int,
     """Row-layered TMM of positive-domain L_ch [B, N, q] float32; drop-in
     for ops/nb_decode.decode_layered_tmm."""
     return _decode(L_ch, code, max_iters, "layered_tmm", early_stop)
+
+
+def decode_ems_serial(L_ch: torch.Tensor, code: NBCode, max_iters: int,
+                      early_stop: bool = True) -> NBDecodeResult:
+    """``decode_ems`` in the serial design (one row at a time): the
+    yardstick of the row groups, called only by chip_smoke.py and the card
+    tests."""
+    return _decode(L_ch, code, max_iters, "ems", early_stop, serial=True)
+
+
+def decode_tmm_serial(L_ch: torch.Tensor, code: NBCode, max_iters: int,
+                      early_stop: bool = True) -> NBDecodeResult:
+    """``decode_tmm`` in the serial design (see ``decode_ems_serial``)."""
+    return _decode(L_ch, code, max_iters, "tmm", early_stop, serial=True)
+
+
+def decode_layered_tmm_serial(L_ch: torch.Tensor, code: NBCode,
+                              max_iters: int,
+                              early_stop: bool = True) -> NBDecodeResult:
+    """``decode_layered_tmm`` in the serial design (see
+    ``decode_ems_serial``)."""
+    return _decode(L_ch, code, max_iters, "layered_tmm", early_stop,
+                   serial=True)

@@ -16,6 +16,10 @@ enqueues one launch and returns without waiting.
 
 A CPU tensor goes to the plain version in ops/nb_decode.py.  A CUDA tensor
 goes to the kernel, or the call raises.
+
+The adjacency codes' host tables live here for K7 and K8 too: the edge
+plan (``make_plan``), the row waves their row groups walk (``row_waves``)
+and the number of groups a block holds (``pick_groups``).
 """
 
 from __future__ import annotations
@@ -39,6 +43,15 @@ LAUNCHES = {"qspa_flooding": 0, "qspa_layered": 0}
 # Dynamic shared memory a block of an H100 may use (cudaDevAttr-
 # MaxSharedMemoryPerBlockOptin).
 SMEM_LIMIT = 232_448
+# What one H100 SM holds: shared memory (228 KB, of which the runtime
+# reserves 1 KB a block), threads and blocks.
+SM_SMEM, SM_BLOCK_RESERVE, SM_THREADS, SM_BLOCKS = 233_472, 1024, 2048, 32
+# Row groups a block may hold: named barriers 1-7 (csrc/qspa_common.cuh
+# kMaxGroups; 0 is __syncthreads).  A block of more than one group has at
+# most 512 threads, and ptxas gives it 40 registers a thread (its launch
+# bounds, kGroupedThreads and kGroupedBlocks; -Xptxas -v, PERF.md).
+MAX_GROUPS, GROUPED_THREADS, GROUPED_REGISTERS = 7, 512, 40
+SM_REGISTERS = 65_536
 
 
 class Plan(NamedTuple):
@@ -96,6 +109,100 @@ def make_plan(code: NBCode) -> Plan:
             col_ptr=i32(col_ptr), col_edge=i32(col), gf_log=gf_log,
             gf_exp=gf_exp)
     return _PLANS[key]
+
+
+class Waves(NamedTuple):
+    """A schedule's check rows for the row-group kernels (K7, K8): wave w
+    is rows wave_row[wave_ptr[w]:wave_ptr[w + 1]], in ascending order; the
+    rows of one wave may run at once (csrc/qspa_common.cuh)."""
+    wave_ptr: np.ndarray    # [W+1] int32
+    wave_row: np.ndarray    # [M] int32
+
+
+WAVE_SCHEDULES = ("flooding", "layered", "serial")
+
+_WAVES: dict[tuple, Waves] = {}
+
+
+def dependency_levels(plan: Plan) -> np.ndarray:
+    """[M] the serial-row layered schedule's dependency level of each row:
+    0 for a row that shares no VN with an earlier row, else one more than
+    the highest level of the earlier rows it shares a VN with.  Rows of one
+    level touch disjoint VNs, and a row that shares a VN with a later row
+    has the lower level, so running the levels in order, the rows of a level
+    at once, updates every VN's totals in the serial order."""
+    last = np.full(plan.N, -1, dtype=np.int64)
+    level = np.zeros(plan.M, dtype=np.int64)
+    for m in range(plan.M):
+        vns = plan.edge_vn[plan.row_ptr[m]:plan.row_ptr[m + 1]]
+        if len(vns):
+            level[m] = last[vns].max() + 1
+            last[vns] = level[m]
+    return level
+
+
+def row_waves(code: NBCode, schedule: str) -> Waves:
+    """The rows of one pass as waves, cached per code: 'flooding' one wave
+    of every row (a flooding pass's rows are independent); 'layered' the
+    dependency levels (``dependency_levels``); 'serial' one wave a row, the
+    serial design."""
+    if schedule not in WAVE_SCHEDULES:
+        raise ValueError(f"unknown wave schedule {schedule!r}")
+    key = (code_key(code), schedule)
+    if key not in _WAVES:
+        plan = make_plan(code)
+        level = {"flooding": np.zeros(plan.M, dtype=np.int64),
+                 "layered": dependency_levels(plan),
+                 "serial": np.arange(plan.M)}[schedule]
+        order = np.argsort(level, kind="stable")
+        ptr = np.concatenate([[0], np.cumsum(np.bincount(level,
+                                                         minlength=1))])
+        _WAVES[key] = Waves(np.ascontiguousarray(ptr, dtype=np.int32),
+                            np.ascontiguousarray(order, dtype=np.int32))
+    return _WAVES[key]
+
+
+def pick_groups(plan: Plan, smem_of, layered: bool = False) -> int:
+    """Row groups a block of a row-group kernel holds: of the G from 1 to
+    7 whose block fits (32 * max_dc threads a group, 1024 threads for one
+    group and 512 for more, smem_of(G) <= SMEM_LIMIT, G <= M), the one that
+    puts the most row groups on an SM (its blocks an SM, by threads, by
+    shared memory, by registers and by the block cap, times G).  On a tie,
+    flooding takes the larger G (the same groups an SM, fewer frames, each
+    sooner done) and layered the smaller (more frames an SM to cover the
+    levels' block barriers): on BDS.576.288.GF.64 flooding ran fastest at
+    G = 4 and layered at G = 2 (PERF.md)."""
+    threads = 32 * plan.max_dc
+    best, most = 1, 0
+    for g in range(1, min(MAX_GROUPS, plan.M) + 1):
+        if threads * g > (1024 if g == 1 else GROUPED_THREADS):
+            break
+        smem = smem_of(g)
+        if smem > SMEM_LIMIT:
+            break
+        blocks = min(SM_THREADS // (threads * g), SM_BLOCKS,
+                     SM_SMEM // (smem + SM_BLOCK_RESERVE))
+        if g > 1:
+            blocks = min(blocks, SM_REGISTERS // (GROUPED_REGISTERS
+                                                  * threads * g))
+        if blocks * g > most or (blocks * g == most and not layered):
+            best, most = g, blocks * g
+    return best
+
+
+_wave_tables: dict = {}
+
+
+def device_waves(code: NBCode, schedule: str, device: torch.device):
+    """``row_waves`` on the device, once per code, schedule and device:
+    (wave_ptr, wave_row, number of waves)."""
+    k = code_key(code) + (schedule, str(device))
+    if k not in _wave_tables:
+        w = row_waves(code, schedule)
+        _wave_tables[k] = (torch.as_tensor(w.wave_ptr, device=device),
+                           torch.as_tensor(w.wave_row, device=device),
+                           len(w.wave_ptr) - 1)
+    return _wave_tables[k]
 
 
 def smem_bytes(plan: Plan) -> int:

@@ -1,0 +1,257 @@
+"""Where the time of the GF(q) max-domain decoder K8 (EMS, TMM, layered TMM)
+and of the GF(q) QSPA stream step K7 (flooding, layered) goes, phase by
+phase, on a card, for the serial design and the row groups.
+
+    python -m cuda_ldpc_torch.tools.nb_rows_phases [--batch 4096]
+        [--passes 10] [--ebn0 0.0] [--designs serial,groups]
+        [--groups 1,2,4]
+
+It builds, into the git-ignored build directory, a copy of the kernels with
+csrc/nbms.cu and csrc/qspa_stream.cu compiled under ``NB_ROWS_PHASES``:
+thread 0 of every block reads clock64() at the phase boundaries of
+csrc/qspa_common.cuh's ``RowsPhase`` and adds the cycles since its previous
+stamp to a per-block counter, flushed to a device counter per method or
+schedule when the block ends.  One call of at most ``passes`` passes on
+B = ``batch`` frames of BDS.576.288.GF.64 at Eb/N0 ``ebn0`` dB, BPSK
+(chip_smoke.py's timing point: K8 decodes fresh frames; K7 starts from
+fresh slots with max_iters = passes - 1), gives each phase's share of the
+summed cycles, for the serial design (``decode_*_serial``,
+``stream_step_serial``) and the row groups (``decode_*``, ``stream_step``);
+the call's time with the counters and without them (the library the
+package builds) and the blocks an SM holds (CUDA's occupancy calculator)
+are printed beside it.  ``--groups`` also times the row groups at each
+listed number of groups (the package picks its own, ``cuda_nbms.groups`` /
+``cuda_qspa_stream.groups``).  Thread 0's view: it
+is in group 0, so a row phase is group 0's work and a wait its barrier's.
+
+Needs a CUDA device and nvcc; prints one JSON line per measurement, each
+with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import re
+import shutil
+import sys
+
+# csrc/qspa_common.cuh's RowsPhase enum, in order
+PHASES = ("setup", "totals", "decide", "edges", "edges_wait", "mins",
+          "search", "merge", "output", "row_wait", "wave_wait", "exit")
+# the instrumented sources and their counter readers: (file, function,
+# counters)
+SOURCES = (("nbms.cu", "ldpc_nbms_phase_clocks", 3),
+           ("qspa_stream.cu", "ldpc_qspa_stream_phase_clocks", 2))
+# kernel -> (counter reader, its row, K8's decoder or K7's schedule)
+KERNELS = {
+    "nbms_ems": ("ldpc_nbms_phase_clocks", 0, "decode_ems"),
+    "nbms_tmm": ("ldpc_nbms_phase_clocks", 1, "decode_tmm"),
+    "nbms_layered_tmm": ("ldpc_nbms_phase_clocks", 2, "decode_layered_tmm"),
+    "qspa_stream": ("ldpc_qspa_stream_phase_clocks", 0, "flooding"),
+    "qspa_stream_layered": ("ldpc_qspa_stream_phase_clocks", 1, "layered"),
+}
+
+
+def phase_names(src: str) -> tuple:
+    """The RowsPhase enum's names in csrc/qspa_common.cuh's text, lower case
+    without the ``kRp`` prefix and without kRpCount."""
+    body = re.search(r"enum RowsPhase \{(.*?)\};", src, re.S)
+    if body is None:
+        raise ValueError("no RowsPhase enum in qspa_common.cuh")
+    names = re.findall(r"kRp(\w+)", body.group(1))
+    snake = [re.sub(r"(?<!^)([A-Z])", r"_\1", n).lower() for n in names]
+    return tuple(n for n in snake if n != "count")
+
+
+def patched_source(src: str, common: str) -> str:
+    """A kernel source with the phase counters compiled in; raises
+    ValueError when the RowsPhase enum is not the one this tool reads."""
+    if phase_names(common) != PHASES:
+        raise ValueError(f"qspa_common.cuh's phases {phase_names(common)} "
+                         f"are not {PHASES}")
+    return "#define NB_ROWS_PHASES 1\n" + src
+
+
+def _instrumented_lib(root: pathlib.Path):
+    """The package's library built from the patched sources under root."""
+    from cuda_ldpc_torch.ops import _build
+    csrc = root / "csrc"
+    shutil.rmtree(csrc, ignore_errors=True)
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    common = (csrc / "qspa_common.cuh").read_text()
+    for name, _, _ in SOURCES:
+        (csrc / name).write_text(patched_source((csrc / name).read_text(),
+                                                common))
+    saved = _build.CSRC_DIR, _build.BUILD_DIR
+    try:
+        _build.CSRC_DIR, _build.BUILD_DIR = csrc, root / "build"
+        lib = _build._bind(ctypes.CDLL(str(_build.build())))
+    finally:
+        _build.CSRC_DIR, _build.BUILD_DIR = saved
+    for _, fn, _ in SOURCES:
+        getattr(lib, fn).argtypes = [ctypes.c_void_p]
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _calls(code, L, passes):
+    """kernel -> {design: call()} for the serial design and the row groups,
+    each call starting from the same state."""
+    import torch
+
+    from cuda_ldpc_torch.ops import cuda_nbms, cuda_qspa_stream
+    B, dev = L.shape[0], L.device
+    E = int(code.cn_mask.sum())
+    out = {}
+    for kernel, (_, _, what) in KERNELS.items():
+        if kernel.startswith("nbms"):
+            fns = {"serial": getattr(cuda_nbms, what + "_serial"),
+                   "groups": getattr(cuda_nbms, what)}
+            out[kernel] = {d: (lambda f=f: f(L, code, passes))
+                           for d, f in fns.items()}
+            continue
+        state = [torch.empty_like(L), torch.empty((B, E, code.q), device=dev)]
+        state += [torch.empty(B, dtype=torch.int32, device=dev)
+                  for _ in range(3)]
+        fns = {"serial": cuda_qspa_stream.stream_step_serial,
+               "groups": cuda_qspa_stream.stream_step}
+
+        def step(f, layered=what == "layered", state=state):
+            state[0].copy_(L)
+            for x in state[1:]:
+                x.zero_()
+            return f(*state, code, passes, passes - 1, layered=layered)
+
+        out[kernel] = {d: (lambda f=f, step=step: step(f))
+                       for d, f in fns.items()}
+    return out
+
+
+DESIGNS = ("serial", "groups")
+
+
+def measure(batch: int = 4096, passes: int = 10, ebn0: float = 0.0,
+            designs=DESIGNS, groups=()):
+    """Yield one dict per kernel and design (see the module docstring), then
+    one per kernel and listed number of groups."""
+    import numpy as np
+    import torch
+
+    from cuda_ldpc_torch.models.nb_code import NBCode
+    from cuda_ldpc_torch.ops import (_build, channel, cuda_nbms, cuda_qspa,
+                                     cuda_qspa_stream, demod)
+    from cuda_ldpc_torch.utils.constellations import constellation
+    from cuda_ldpc_torch.utils.timing import time_ms
+
+    dev = torch.device("cuda", 0)
+    root = _build.BUILD_DIR / "nb_rows_phases"
+    root.mkdir(parents=True, exist_ok=True)
+    plain_lib = _build.load()
+    lib = _instrumented_lib(root)
+    code = NBCode.from_registry("BDS.576.288.GF.64")
+    plan = cuda_qspa.make_plan(code)
+    sigma = channel.sigma_from_snr(ebn0, code.rate, "ebn0", 1.0)
+    g = torch.Generator(device=dev).manual_seed(47)
+    L = demod.nb_channel_llr(g, np.zeros(code.bit_length, dtype=np.int64),
+                             constellation(2), sigma, batch, code.q,
+                             device=dev)
+    calls = _calls(code, L, passes)
+
+    def picked(kernel):
+        """The groups the package picks for the kernel."""
+        if kernel.startswith("nbms"):
+            return cuda_nbms.groups(plan, kernel[len("nbms_"):])
+        return cuda_qspa_stream.groups(plan, kernel.endswith("layered"))
+
+    def blocks(kernel, G):
+        """Blocks an SM holds of the kernel with G groups."""
+        if kernel.startswith("nbms"):
+            return cuda_nbms.blocks_per_sm(plan, kernel[len("nbms_"):], G,
+                                           dev)
+        return cuda_qspa_stream.blocks_per_sm(plan, kernel.endswith(
+            "layered"), G, dev)
+
+    for kernel in calls:
+        reader, row, _ = KERNELS[kernel]
+        n = dict((fn, c) for _, fn, c in SOURCES)[reader]
+        clocks = (ctypes.c_ulonglong * (n * len(PHASES)))()
+        for design, call in calls[kernel].items():
+            if design not in designs:
+                continue
+            ms = {}
+            try:
+                for which, use in (("plain", plain_lib), ("counted", lib)):
+                    _build._lib = use
+                    ms[which] = time_ms(call, dev, reps=3)
+                getattr(lib, reader)(clocks)        # drop the timed calls
+                _build._lib = lib
+                call()
+                torch.cuda.synchronize(dev)
+            finally:
+                _build._lib = plain_lib
+            if getattr(lib, reader)(clocks):
+                raise RuntimeError("reading the phase counters failed")
+            mine = [clocks[row * len(PHASES) + i] for i in range(len(PHASES))]
+            total = sum(mine)
+            G = 1 if design == "serial" else picked(kernel)
+            yield {"kernel": kernel, "design": design, "groups": G,
+                   "blocks_per_sm": blocks(kernel, G),
+                   "code": code.name, "batch": batch, "max_passes": passes,
+                   "ebn0": ebn0, "ms": ms["plain"],
+                   "ms_with_counters": ms["counted"],
+                   "cycles_per_block": total / batch,
+                   "share": {PHASES[i]: c / total for i, c in enumerate(mine)
+                             if c}}
+    saved = cuda_nbms.groups, cuda_qspa_stream.groups
+    try:
+        for G in groups:
+            cuda_nbms.groups = lambda plan, method, G=G: G
+            cuda_qspa_stream.groups = lambda plan, layered, G=G: G
+            for kernel, call in calls.items():
+                mod = (cuda_nbms if kernel.startswith("nbms")
+                       else cuda_qspa_stream)
+                if mod.smem_bytes(plan, G) > cuda_qspa.SMEM_LIMIT or \
+                        32 * plan.max_dc * G > (
+                            1024 if G == 1 else cuda_qspa.GROUPED_THREADS):
+                    continue
+                yield {"kernel": kernel, "design": "groups", "groups": G,
+                       "blocks_per_sm": blocks(kernel, G),
+                       "code": code.name, "batch": batch,
+                       "max_passes": passes, "ebn0": ebn0,
+                       "ms": time_ms(call["groups"], dev, reps=5)}
+    finally:
+        cuda_nbms.groups, cuda_qspa_stream.groups = saved
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m "
+                                 "cuda_ldpc_torch.tools.nb_rows_phases")
+    ap.add_argument("--batch", type=int, default=4096)
+    ap.add_argument("--passes", type=int, default=10)
+    ap.add_argument("--ebn0", type=float, default=0.0)
+    ap.add_argument("--designs", default=",".join(DESIGNS))
+    ap.add_argument("--groups", default="",
+                    help="comma-separated numbers of row groups to time")
+    args = ap.parse_args(argv)
+    designs = tuple(args.designs.split(","))
+    if not set(designs) <= set(DESIGNS):
+        ap.error(f"--designs takes {','.join(DESIGNS)}")
+    groups = tuple(int(g) for g in args.groups.split(",") if g)
+    if any(not 1 <= g <= 7 for g in groups):
+        ap.error("--groups takes numbers from 1 to 7")
+    import torch
+    if not torch.cuda.is_available():
+        print("nb_rows_phases: needs a CUDA device", file=sys.stderr)
+        return 1
+    from cuda_ldpc_torch.utils.device import card_info
+    card = card_info()
+    for row in measure(args.batch, args.passes, args.ebn0, designs, groups):
+        print(json.dumps({"card": card, **row}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

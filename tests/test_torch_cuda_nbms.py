@@ -2,7 +2,8 @@
 EMS Nm=2/Nc=2, TMM, layered TMM) against its plain PyTorch version.
 Tolerance: none — the kernel does the plain version's fp32 operations in
 its order (ops/nb_decode.py's docstring fixes them; max, min and the GF
-tables are exact), so hard, ok and iters must be exactly equal.
+tables are exact), so hard, ok and iters must be exactly equal, and so
+must its row groups' and its serial design's (``decode_*_serial``).
 
 The kernel cases need a card and skip without one.  The file imports only
 the port, so on a machine with a card and no JAX it runs on its own:
@@ -21,6 +22,9 @@ METHODS = {"ems": (cuda_nbms.decode_ems, nb_decode.decode_ems),
            "tmm": (cuda_nbms.decode_tmm, nb_decode.decode_tmm),
            "layered_tmm": (cuda_nbms.decode_layered_tmm,
                            nb_decode.decode_layered_tmm)}
+SERIAL = {"ems": cuda_nbms.decode_ems_serial,
+          "tmm": cuda_nbms.decode_tmm_serial,
+          "layered_tmm": cuda_nbms.decode_layered_tmm_serial}
 
 
 def _llr(code, ebn0, batch, seed, device, n_qam=2):
@@ -71,13 +75,21 @@ def test_wrapper_takes_the_plain_version_on_cpu(method):
 
 def test_what_the_kernel_takes():
     """The adjacency codes with full rows and q from 32 to 256, EMS at
-    Nm = Nc = 2 only; a block's shared memory holds the totals and the row
-    scratch, the c2v messages live in device memory."""
+    Nm = Nc = 2 only; a block's shared memory holds the totals and each
+    row group's scratch, the c2v messages live in device memory.  On BDS
+    flooding blocks hold 4 row groups of 4 warps: 3 blocks an SM by
+    registers, 12 groups an SM, as many as 2 or 3 groups give; layered TMM
+    runs one group."""
     for name in ("BDS.576.288.GF.64", "LDPC_N576_K288_GF64_d1_exp",
                  "LDPC_N96_K48_GF256_d1_exp", "LDPC_N576_K480_GF256_exp"):
         assert cuda_nbms.supports(NBCode.from_registry(name))
     bds = NBCode.from_registry("BDS.576.288.GF.64")
-    assert cuda_nbms.smem_bytes(cuda_nbms.make_plan(bds)) == 4 * (
+    plan = cuda_nbms.make_plan(bds)
+    assert cuda_nbms.groups(plan, "ems") == cuda_nbms.groups(plan, "tmm") == 4
+    assert cuda_nbms.groups(plan, "layered_tmm") == 1
+    assert cuda_nbms.smem_bytes(plan, 4) == 4 * (
+        96 * 64 + 4 * (2 * 4 * 64 + 7 * 64 + 96) + 64 + 126 + 96)
+    assert cuda_nbms.smem_bytes(plan) == 4 * (
         96 * 64 + 2 * 4 * 64 + 7 * 64 + 96 + 64 + 126 + 96)
     assert not cuda_nbms.supports(bds, nm=3)
     assert not cuda_nbms.supports(bds, nc=3)
@@ -116,6 +128,27 @@ def test_k8_matches_plain_on_card(cuda, method, name, ebn0, batch, iters,
     for x, y in zip(a, b):
         assert torch.equal(x.cpu(), y.cpu())
     assert cuda_nbms.LAUNCHES[f"nbms_{method}"] == before + (iters > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", list(METHODS))
+@pytest.mark.parametrize("name,ebn0,batch,iters,n_qam", K8_CASES,
+                         ids=[f"{c[0]}-{c[4]}qam-it{c[3]}-B{c[2]}"
+                              for c in K8_CASES])
+def test_k8_row_groups_equal_the_serial_design(cuda, method, name, ebn0,
+                                               batch, iters, n_qam):
+    """The row groups (flooding: every row of a pass at once; layered TMM:
+    by dependency level) against the serial design, one row at a time:
+    hard, ok and iters bit for bit."""
+    code = NBCode.from_registry(name)
+    L = _llr(code, ebn0, batch, batch + iters + 1, cuda, n_qam)
+    before = cuda_nbms.LAUNCHES[f"nbms_serial_{method}"]
+    a = METHODS[method][0](L, code, iters)
+    s = SERIAL[method](L, code, iters)
+    torch.cuda.synchronize()
+    for x, y in zip(a, s):
+        assert torch.equal(x, y)
+    assert cuda_nbms.LAUNCHES[f"nbms_serial_{method}"] == before + (iters > 0)
 
 
 @pytest.mark.cuda

@@ -7,7 +7,8 @@ both packages add, compare and scale in the same fp32 order.  bp: the
 check-node output within rtol 1e-5 (atol 1e-6 where phi rounds to about 0),
 because XLA's CPU tanh and log are not the ones torch calls; whole decodes
 have ok and iters exactly equal, and hard exactly equal on every frame whose
-check passed."""
+check passed.  The case against the TPU kernel in interpret mode is in
+tests/test_torch_pallas_minsum.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +17,6 @@ import torch
 
 from cuda_ldpc_tpu import QCBinaryCode
 from cuda_ldpc_tpu.ops import minsum as jax_minsum
-from cuda_ldpc_tpu.ops import pallas_minsum
 from cuda_ldpc_torch import QCBinaryCode as PortCode
 from cuda_ldpc_torch.ops import minsum
 
@@ -84,21 +84,6 @@ def test_decode_layered_matches_jax(name, sigma, batch, iters, check, early,
     _assert_same(a, b)
     if stops_early is not None:     # the case exercises what it claims to
         assert (int(b.iters) < iters) == stops_early
-
-
-def test_decode_layered_matches_pallas_interpret():
-    """The TPU kernel, run as its own tests run it on the CPU.  Its early
-    stop is per 8-frame tile; with B = 8 there is one tile, so it equals the
-    batch-global stop.  (Its total update, (T + R_new) - R_old, rounds
-    otherwise than T + (R_new - R_old); on this input both agree.)"""
-    code, port = _codes("J4_L24_Z256")
-    chan = _llrs(code, 0.5, 8, seed=6)
-    a = pallas_minsum.decode_layered(jnp.asarray(chan), code, 3,
-                                     check="syndrome", early_stop=True,
-                                     interpret=True)
-    b = minsum.decode_layered(torch.from_numpy(chan), port, 3,
-                              check="syndrome", early_stop=True)
-    _assert_same(a, b)
 
 
 def test_layered_converges_in_fewer_iterations_than_flooding():

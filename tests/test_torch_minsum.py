@@ -2,7 +2,8 @@
 package on the same numpy LLRs.  Tolerance: none — hard, ok and iters must
 be exactly equal, since both add, compare and scale in the same fp32 order.
 Each package decodes with its own code object, the port's built from the
-JAX code's base matrix and Z."""
+JAX code's base matrix and Z.  The case against the TPU kernel in interpret
+mode is in tests/test_torch_pallas_minsum.py."""
 
 import functools
 
@@ -14,7 +15,6 @@ import torch
 
 from cuda_ldpc_tpu import QCBinaryCode
 from cuda_ldpc_tpu.ops import minsum as jax_minsum
-from cuda_ldpc_tpu.ops import pallas_minsum
 from cuda_ldpc_torch import QCBinaryCode as PortCode
 from cuda_ldpc_torch.ops import minsum
 
@@ -87,20 +87,6 @@ def test_decode_flooding_matches_jax(name, sigma, batch, iters, check, early,
     _assert_same(a, b)
     if stops_early is not None:     # the case exercises what it claims to
         assert (int(b.iters) < iters) == stops_early
-
-
-def test_decode_flooding_matches_pallas_interpret():
-    """The TPU kernel, run as its own tests run it on the CPU.  Its early
-    stop is per 8-frame tile; with B = 8 there is one tile, so it equals the
-    batch-global stop."""
-    code = _code("J4_L24_Z256")
-    chan = _llrs(code, 0.45, 8, seed=5)
-    a = pallas_minsum.decode_flooding(jnp.asarray(chan), code, 3,
-                                      check="syndrome", early_stop=True,
-                                      interpret=True)
-    b = minsum.decode_flooding(torch.from_numpy(chan), _port(code), 3,
-                               check="syndrome", early_stop=True)
-    _assert_same(a, b)
 
 
 @pytest.mark.parametrize("shape", [(6, 8, 5), (3, 1, 4)])

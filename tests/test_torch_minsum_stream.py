@@ -1,16 +1,15 @@
 """The binary stream step's plain PyTorch version
 (cuda_ldpc_torch.ops.minsum_stream, K4's reference) and the core it drives
-(cuda_ldpc_torch.ops.minsum.build_core) against the JAX package on the same
-numpy LLRs: the JAX kernel cuda_ldpc_tpu/ops/pallas_minsum_stream.stream_step
-in interpret mode, and cuda_ldpc_tpu/ops/minsum.build_core.
+(cuda_ldpc_torch.ops.minsum.build_core) against the JAX package's
+cuda_ldpc_tpu/ops/minsum.build_core (and the stream loop the JAX tests hold
+its TPU kernel to) on the same numpy LLRs.
 
 Tolerances.  Min-sum: none on t, done, okf, hard, R (zeroed on finished
-slots) and the totals, against the jnp core; against the TPU kernel the
-layered totals within 1e-5, since the kernel rounds its update as
-(T + R_new) - R_old where the jnp function and the port add
-T + (R_new - R_old).  bp: t, done, okf and hard exactly, the
-messages and totals within rtol 1e-5 (XLA's CPU tanh and log are not the
-ones torch calls; the tolerance ROADMAP.md:52-54 sets)."""
+slots) and the totals.  bp: t, done, okf and hard exactly, the messages and
+totals within rtol 1e-5 (XLA's CPU tanh and log are not the ones torch
+calls; the tolerance ROADMAP.md:52-54 sets).  The case against the TPU
+kernel cuda_ldpc_tpu/ops/pallas_minsum_stream.stream_step in interpret
+mode is in tests/test_torch_minsum_stream_kernel.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,8 +18,6 @@ import torch
 
 from cuda_ldpc_tpu.models.qc_binary import QCBinaryCode as JaxCode
 from cuda_ldpc_tpu.ops import minsum as jax_minsum
-from cuda_ldpc_tpu.ops import pallas_minsum_stream
-from cuda_ldpc_tpu.ops.pallas_minsum import _lane_pad
 from cuda_ldpc_torch import QCBinaryCode
 from cuda_ldpc_torch.ops import minsum, minsum_stream
 
@@ -72,23 +69,6 @@ def test_build_core_matches_jax(codes, schedule, rule):
         pcarry = pcore.step(pcarry, ptot, torch.from_numpy(cont))
         for a, b in zip(jcarry, pcarry):
             _close(np.asarray(a), b.numpy(), rule)
-
-
-def _jax_step(jc, chan, k, max_it, check, rule, layered):
-    """The JAX kernel in interpret mode on fresh slots; outputs in the
-    port's layout."""
-    B = chan.shape[0]
-    Zp = _lane_pad(jc.Z)
-    cm = np.zeros((jc.L, B, Zp), np.float32)
-    cm[:, :, :jc.Z] = chan.transpose(1, 0, 2)
-    z = jnp.zeros((B, 128), jnp.int32)
-    out = pallas_minsum_stream.stream_step(
-        jnp.asarray(cm), jnp.zeros((jc.num_edges, B, Zp), jnp.float32), z, z,
-        z, jc, k=k, max_iters=max_it, check=check, rule=rule,
-        layered=layered, interpret=True)
-    c2, R2, hard, t2, d2, o2 = (np.asarray(x) for x in out)
-    lz = lambda x: x[:, :, :jc.Z].transpose(1, 0, 2)       # noqa: E731
-    return lz(c2), lz(R2), lz(hard), t2[:, 0], d2[:, 0], o2[:, 0]
 
 
 def _port_step(pc, chan, k, max_it, check, rule, layered):
@@ -152,22 +132,6 @@ def test_stream_step_matches_the_jax_core_loop(codes, schedule, check, rule):
     assert (got[1][got[4] == 1] == 0).all()     # finished slots leave zeroed
     _close(want[0], got[0], rule)                        # chan or totals
     _close(want[1], got[1], rule)                        # R
-
-
-@pytest.mark.parametrize("schedule,check,rule",
-                         [("layered", "syndrome", "minsum")])
-def test_stream_step_matches_the_jax_kernel(codes, schedule, check, rule):
-    """The JAX kernel itself, in interpret mode (about 20 s a call here, so
-    one case; the others are held to the jnp loop above, as the JAX tests
-    hold the kernel)."""
-    jc, pc = codes
-    B, k, max_it = 8, 6, 12
-    chan = _chan(jc, B, _sigma(rule), seed=3, rule=rule)
-    want = _jax_step(jc, chan, k, max_it, check, rule, schedule == "layered")
-    got = _port_step(pc, chan, k, max_it, check, rule, schedule == "layered")
-    for a, b in zip(want[1:], got[1:]):                  # R, hard, t, done, okf
-        np.testing.assert_array_equal(a, b)
-    np.testing.assert_allclose(want[0], got[0], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("schedule,sigma", [("flooding", 0.45),
