@@ -23,14 +23,16 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               2 dB, maxIT 20), a ragged batch of 11, early stop off, 0
               iterations and 64-QAM, and on LDPC_N576_K288_GF64_d1_exp,
               LDPC_N96_K48_GF256_d1_exp and LDPC_N576_K480_GF256_exp (BPSK
-              and 256-QAM); K6 on Tanner_74_9_Z128_GF16 at B=256 in its
+              and 256-QAM), hard, ok and iters exactly equal on every frame,
+              and against its serial design (one row at a time) and, where
+              the dispatch rule puts a row on one warp, its row groups: the
+              same; K6 on Tanner_74_9_Z128_GF16 at B=256 in its
               waterfall (Eb/N0 3.3 dB, early stop on and off) and above it
               (4.3 dB), a ragged batch, and on synthetic fully QC codes
-              over GF(4), GF(16) and GF(32).  ok and iters exactly equal,
+              over GF(4), GF(16) and GF(32): ok and iters exactly equal,
               hard exactly equal on frames whose check passed, every other
-              difference counted; K6 (the staged kernel) also against its
-              global-memory design: hard, ok and iters identical on every
-              frame
+              difference counted, and against its global-memory design:
+              hard, ok and iters identical on every frame
   4. main     the main path through the CLI, each sweep with every launch
               count set to 0 just before it and read just after: J15_L30_Z1280
               at B=4096, maxIT 50, around the waterfall, flooding and layered
@@ -41,10 +43,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               at Eb/N0 3.6 dB, min-sum and bp, whose FERs must be
               statistically compatible with the reference's 33/2021 and
               72/32768.  GF(q): `nb` qspa and layered_qspa on
-              BDS.576.288.GF.64 at Eb/N0 1 dB, maxIT 20, B=4096, compatible
-              with VALIDATION.md's 598/2304 and 872/4096, layered avg_iters no
-              larger; a 64-QAM qspa sweep at 2 dB; Tanner_74_9_Z128_GF16 qspa
-              and glayered_qspa across its waterfall, Eb/N0 3.2:0.2:3.6,
+              BDS.576.288.GF.64 at Eb/N0 1 and 2 dB, maxIT 20, B=4096 (K5
+              with a row on one warp: its counts by design show it for
+              both schedules), compatible with VALIDATION.md:21-22,
+              layered avg_iters no larger; a 64-QAM qspa sweep at 2 dB;
+              Tanner_74_9_Z128_GF16 qspa and glayered_qspa across its
+              waterfall, Eb/N0 3.2:0.2:3.6,
               B=256, FER not rising, glayered avg_iters no larger;
               layered_qspa on the Tanner code must be refused, naming the
               ROADMAP item
@@ -56,9 +60,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               PON_LDPC in turns; the
               same for K5 on BDS.576.288.GF.64 at B=4096 and K6 on
               Tanner_74_9_Z128_GF16 at B=256, at most 10 passes, early stop
-              off, at an Eb/N0 where most frames run every pass (K6: the
-              staged kernel, its global-memory design and the plain
-              version in turns)
+              off, at an Eb/N0 where most frames run every pass (K5: the
+              kernel, its row groups, its serial design and the plain
+              version in turns; K6: the staged kernel, its global-memory
+              design and the plain version in turns)
 The stream steps K4 (binary) and K7 (GF(q)) join each phase:
   parity      K4 against its plain version over a call sequence (k = 1,
               refill, k = 16, refill, drain k = max_iters + 1) on
@@ -516,7 +521,7 @@ def measuring_path(card: str, wrappers) -> None:
         ("binary", "minsum_flooding", "onchip_batch_kernel",
          ["binary", "--code", "J15_L30_Z1280", "--snr=-1.6:0.2:-1.4",
           "--snr-type", "esn0", "--max-iters", "10"]),
-        ("nb qspa", "qspa_flooding", "qspa_kernel",
+        ("nb qspa", "qspa_flooding", "qspa_warp_kernel",
          ["nb", "--code", "BDS.576.288.GF.64", "--method", "qspa", "--snr",
           "1", "--max-iters", "20"]),
         ("nb ems", "nbms_ems", "nbms_kernel",
@@ -970,41 +975,48 @@ def main() -> int:
         kernel, plain = nb_pairs[key]
         a = kernel(L, code, iters, early_stop=early)
         b = plain(L, code, iters, early_stop=early)
-        # K6: the staged kernel against the global design too, every output
-        # of every frame
-        g = (getattr(cuda_qspa_qc, f"decode_{key[len('qspa_qc_'):]}_global")(
-            L, code, iters, early_stop=early) if key.startswith("qspa_qc")
-            else None)
+        # K6: the staged kernel against the global design too; K5: against
+        # the serial design and, where the rule picks a row on one warp, the
+        # row groups; every output of every frame
+        if key.startswith("qspa_qc"):
+            others = {"global": getattr(
+                cuda_qspa_qc, f"decode_{key[len('qspa_qc_'):]}_global")(
+                    L, code, iters, early_stop=early)}
+        else:
+            layout = cuda_qspa.row_layout(cuda_qspa.make_plan(code))
+            others = {d: cuda_qspa.decode_design(
+                L, code, iters, key.endswith("layered"), d, early_stop=early)
+                for d in ("serial", "groups")
+                if d == "serial" or layout == "warp"}
         torch.cuda.synchronize()
         hard_diff = a.hard != b.hard
         counts = {"hard": int(hard_diff.sum()),
                   "hard_in_ok_frames": int(hard_diff[b.ok].sum()),
                   "ok": int((a.ok != b.ok).sum()),
                   "iters": int((a.iters != b.iters).sum())}
-        if g is not None:
-            counts.update({"global_hard": int((a.hard != g.hard).sum()),
-                           "global_ok": int((a.ok != g.ok).sum()),
-                           "global_iters": int((a.iters != g.iters).sum())})
+        for d, g in others.items():
+            counts.update({f"{d}_hard": int((a.hard != g.hard).sum()),
+                           f"{d}_ok": int((a.ok != g.ok).sum()),
+                           f"{d}_iters": int((a.iters != g.iters).sum())})
         # the largest |kernel - plain| over hard symbols, ok and iters
         err = max([int((a.hard - b.hard).abs().max()) if B else 0,
                    counts["ok"] > 0,
                    int((a.iters - b.iters).abs().max()) if B else 0])
         max_err[key] = max(max_err[key], float(err))
-        mismatches[key] += (counts["hard"] + counts["ok"] + counts["iters"]
-                            + counts.get("global_hard", 0)
-                            + counts.get("global_ok", 0)
-                            + counts.get("global_iters", 0))
+        mismatches[key] += sum(v for k, v in counts.items()
+                               if k != "hard_in_ok_frames")
         _emit("parity", kernel=key, code=name, ebn0=ebn0, n_qam=n_qam,
               batch=B, iters=iters, early_stop=early,
+              layout=None if key.startswith("qspa_qc") else layout,
               frames_ok=int(b.ok.sum()),
               avg_iters=float(b.iters.float().mean()) if B else 0.0,
               mismatches=counts, max_abs_err=err)
-        if (counts["ok"] or counts["iters"] or counts["hard_in_ok_frames"]
-                or any(v for k, v in counts.items()
-                       if k.startswith("global"))):
-            raise AssertionError(f"kernel != plain or the global design on "
+        # K5 exactly on every frame; K6's hard on frames whose check passed
+        if any(v for k, v in counts.items()
+               if k != "hard" or not key.startswith("qspa_qc")):
+            raise AssertionError(f"kernel != plain or another design on "
                                  f"GF(q) case {i}: {nb_cases[i]}: {counts}")
-        del a, b, g, L, hard_diff
+        del a, b, others, L, hard_diff
     torch.cuda.empty_cache()
 
     # K8 against the plain nb_decode, and its row groups against the serial
@@ -1220,9 +1232,10 @@ def main() -> int:
             "avg_iters", "false_frames", "alarm_frames", "info_mbps")
     launches = {}
 
-    def drive(tmp, label, kernel, argv):
+    def drive(tmp, label, kernel, argv, also=()):
         """One sweep with every launch count at 0 before it; the counts
-        are read after it, and the named kernel must have launched."""
+        are read after it, and the named kernel (and each count named in
+        ``also``) must have launched."""
         for w in wrappers:
             for k in w.LAUNCHES:
                 w.LAUNCHES[k] = 0
@@ -1230,9 +1243,10 @@ def main() -> int:
         rows = _sweep(cli, os.path.join(tmp, label), argv)
         seconds = time.perf_counter() - t0
         counts = {k: v for w in wrappers for k, v in w.LAUNCHES.items()}
-        if counts[kernel] <= 0:
-            raise AssertionError(f"the {label} sweep never launched the "
-                                 f"{kernel} kernel: {counts}")
+        for k in (kernel, *also):
+            if counts[k] <= 0:
+                raise AssertionError(f"the {label} sweep never launched the "
+                                     f"{k} kernel: {counts}")
         _emit("main_path", sweep=label, seconds=seconds, launches=counts,
               rows=[{k: r[k] for k in keep} for r in rows])
         if not all(r["frames"] > 0 and 0.0 <= r["fer"] <= 1.0 for r in rows):
@@ -1276,10 +1290,6 @@ def main() -> int:
            "--snr-type", "esn0", "--max-iters", "50", "--batch", "4096",
            "--least-error-frames", "50", "--least-test-frames", "4096",
            "--max-frames", "12288"]
-    bds = ["nb", "--code", "BDS.576.288.GF.64", "--snr", "1", "--snr-type",
-           "ebn0", "--max-iters", "20", "--batch", "4096",
-           "--least-error-frames", "50", "--least-test-frames", "8192",
-           "--max-frames", "8192"]
     # (the waterfall of the JAX package's own decoder lies at 3.2-3.6 dB;
     # VALIDATION.md:34's FER 0.81 at 4.2 dB is not what nb_decode gives)
     tanner = ["nb", "--code", "Tanner_74_9_Z128_GF16", "--snr", "3.2:0.2:3.6",
@@ -1341,17 +1351,38 @@ def main() -> int:
                 str(max_frames), *extra])
             anchor(label, "J4_L24_Z96", 3.6, rows[-1], ref)
 
-        # GF(q): BDS.576.288.GF.64 at 1 dB against VALIDATION.md:21-22
+        # GF(q): BDS.576.288.GF.64 at 1 dB against VALIDATION.md:21-22; K5
+        # runs a row on one warp there
+        bds_plan = cuda_qspa.make_plan(nb_code("BDS.576.288.GF.64"))
+        _emit("k5_layout", code="BDS.576.288.GF.64",
+              layout=cuda_qspa.row_layout(bds_plan),
+              shape={s: cuda_qspa.launch_shape(bds_plan, s == "layered",
+                                               "warp")
+                     for s in ("flooding", "layered")})
+        if cuda_qspa.row_layout(bds_plan) != "warp":
+            raise AssertionError("K5 does not put BDS's rows on one warp")
+        # at Eb/N0 1 and 2 dB (VALIDATION.md:21-22: qspa 598/2304 and
+        # 3.245e-3 of 16640 frames, layered 872/4096 and 1.311e-3 of 38912)
+        bds_k5 = ["nb", "--code", "BDS.576.288.GF.64", "--snr", "1:1:2",
+                  "--snr-type", "ebn0", "--max-iters", "20", "--batch",
+                  "4096", "--least-error-frames", "50",
+                  "--least-test-frames", "8192", "--max-frames", "16384"]
+        # K5's counts by design show the row on one warp ran, both schedules
         flood, launches["qspa_flooding"] = drive(
-            tmp, "bds_qspa", "qspa_flooding", bds + ["--method", "qspa"])
-        bds_batch = {"qspa": flood}
-        anchor("bds_qspa", "BDS.576.288.GF.64", 1.0, flood[-1], (598, 2304))
+            tmp, "bds_qspa", "qspa_flooding", bds_k5 + ["--method", "qspa"],
+            also=("qspa_warp_flooding",))
+        bds_batch = {"qspa": flood[:1]}
+        anchor("bds_qspa", "BDS.576.288.GF.64", 1.0, flood[0], (598, 2304))
+        anchor("bds_qspa", "BDS.576.288.GF.64", 2.0, flood[1], (54, 16640))
         lay, launches["qspa_layered"] = drive(
             tmp, "bds_layered_qspa", "qspa_layered",
-            bds + ["--method", "layered_qspa"])
-        anchor("bds_layered_qspa", "BDS.576.288.GF.64", 1.0, lay[-1],
+            bds_k5 + ["--method", "layered_qspa"],
+            also=("qspa_warp_layered",))
+        anchor("bds_layered_qspa", "BDS.576.288.GF.64", 1.0, lay[0],
                (872, 4096))
-        bds_batch["layered_qspa"] = lay
+        anchor("bds_layered_qspa", "BDS.576.288.GF.64", 2.0, lay[1],
+               (51, 38912))
+        bds_batch["layered_qspa"] = lay[:1]
         no_slower("bds qspa", lay, flood)
         drive(tmp, "bds_qspa_64qam", "qspa_flooding",
               ["nb", "--code", "BDS.576.288.GF.64", "--method", "qspa",
@@ -1647,6 +1678,24 @@ def main() -> int:
                 cuda_qspa_qc, f"decode_{name[len('qspa_qc_'):]}_global")
             reps["global"] = 20
             order = ("plain", "kernel", "global", "global", "kernel", "plain")
+        else:
+            # K5: against its serial design and, where the rule puts a row
+            # on one warp, its row groups, in turns
+            lay, plan = name.endswith("layered"), cuda_qspa.make_plan(code)
+            yards = ["serial"]
+            if cuda_qspa.row_layout(plan) == "warp":
+                yards.insert(0, "groups")
+            for d in yards:
+                decoders[d] = functools.partial(cuda_qspa.decode_design,
+                                                layered=lay, design=d)
+                reps[d] = 20
+            order = ("plain", "kernel", *yards, *yards[::-1], "kernel",
+                     "plain")
+            shapes = {d: {"shape": cuda_qspa.launch_shape(plan, lay, d),
+                          "blocks_per_sm": cuda_qspa.blocks_per_sm(
+                              plan, lay, d, dev)}
+                      for d in ("warp", "groups", "serial")
+                      if d != "warp" or "groups" in yards}
 
         def launch(which, i):
             return decoders[which](chans[i % 2], code, iters,
@@ -1664,6 +1713,9 @@ def main() -> int:
         _emit("timing", kernel=name, code=code.name, batch=B, ebn0=ebn0,
               max_passes=iters, avg_iters=float(res.iters.float().mean()),
               card=card, ms_per_batch=runs,
+              layout=(None if name.startswith("qspa_qc")
+                      else cuda_qspa.row_layout(plan)),
+              designs=None if name.startswith("qspa_qc") else shapes,
               info_mbps={k: B * info_bits / (v / 1e3) / 1e6
                          for k, v in ms.items()},
               bound_ms=bound, bound_by=bound_by)

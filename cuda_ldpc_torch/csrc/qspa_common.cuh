@@ -1,10 +1,12 @@
 // Shared by the GF(q) FFT-QSPA decoders (qspa.cu, K5; qspa_qc.cu, K6;
 // qspa_stream.cu, K7) and the max-domain decoders (nbms.cu, K8): the GF(q)
 // tables, the phases of one frame's pass on the adjacency codes (K5, K7 and
-// K8), the row groups and row waves of K7 and K8, and the per-edge steps of
-// the check-node update on one q-vector spread over a group of W lanes
-// (W = 32 for K5, W = q for K6), R = q / W registers per lane: symbol y
-// sits in lane y % W, register y / W.
+// K8), the row groups and row waves of K5, K7 and K8, and the per-edge steps
+// of the check-node update on one q-vector spread over a group of W lanes
+// (W = 32 for a warp an edge, 32 / dc' for K5's row on one warp, W = q for
+// K6), R = q / W registers per lane: symbol y sits in lane y % W, register
+// y / W.  The steps pair the same symbols in the same stride order at any W,
+// so every layout gives the same bits.
 //
 // Arithmetic follows ops/nb_decode.py's `_qspa_cn_core` operation by
 // operation (its docstring fixes every order): fp32 adds, subtracts,
@@ -191,12 +193,14 @@ static __device__ __forceinline__ int group_argmin(const float (&x)[R],
 }
 
 // ---- The phases of one frame's pass for the adjacency-code kernels (K5,
-// qspa.cu; K7, qspa_stream.cu): one block per frame, 32 * max_dc threads,
-// the totals T [N, Q] in shared memory, the frame's c2v messages Cb [E, Q]
-// in device memory; edge e of row m is row_ptr[m] + slot.
+// qspa.cu; K7, qspa_stream.cu; K8, nbms.cu): one block per frame, the
+// totals T [N, Q] in shared memory, the frame's c2v messages Cb [E, Q] in
+// device memory; edge e of row m is row_ptr[m] + slot.
 
 // Flooding totals T = L + (c2v summed over the VN's edges in slot order).
-// The caller puts a barrier after it.
+// L's load is issued before the sum's dependent loads (the serial designs
+// of K5, K7 and K8 ran 7-9% faster for it, PERF.md).  The caller
+// puts a barrier after it.
 template <int Q>
 static __device__ __forceinline__ void frame_totals(
     float* T, const float* L, const float* Cb, const int* __restrict__ col_ptr,
@@ -204,13 +208,14 @@ static __device__ __forceinline__ void frame_totals(
   for (int i = threadIdx.x; i < N * Q; i += blockDim.x) {
     const int n = i / Q, s = i - n * Q;
     const int k0 = col_ptr[n], k1 = col_ptr[n + 1];
+    const float l = L[i];
     float acc = 0.f;
     if (k0 < k1) {
       acc = Cb[(int64_t)col_edge[k0] * Q + s];
       for (int k = k0 + 1; k < k1; ++k)
         acc = __fadd_rn(acc, Cb[(int64_t)col_edge[k] * Q + s]);
     }
-    T[i] = __fadd_rn(L[i], acc);
+    T[i] = __fadd_rn(l, acc);
   }
 }
 
@@ -244,81 +249,7 @@ static __device__ __forceinline__ int frame_decide_check(
   return __syncthreads_or(bad);
 }
 
-// Every check row in series; warp d takes the row's edge d.  Each warp
-// computes its edge's spectrum (v2c, softmax, transform) into the scratch S
-// [max_dc, Q], then, after a barrier, its exclusive product over the row's
-// other spectra in the JAX order, the inverse transform and the log; layered
-// also updates the totals as T + (new - old).  Ends with a barrier.
-template <int R, bool kLayered>
-static __device__ __forceinline__ void frame_cn_rows(
-    float* T, float* S, float* Cb, const int* lg, const int* ex,
-    const int* __restrict__ row_ptr, const int* __restrict__ edge_vn,
-    const int* __restrict__ edge_h, int M) {
-  constexpr int Q = 32 * R;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int m = 0; m < M; ++m) {
-    const int k0 = row_ptr[m], dc = row_ptr[m + 1] - k0;
-    const bool mine = warp < dc;
-    float x[R];
-    int addr[R];
-    int vn = 0, h = 0;
-    float* cp = Cb;
-    if (mine) {
-      const int e = k0 + warp;
-      h = edge_h[e];
-      vn = edge_vn[e];
-      cp = Cb + (int64_t)e * Q;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int y = lane + 32 * j;
-        addr[j] = h ? gf_div(lg, ex, y, h, Q) : y;
-        x[j] = __fsub_rn(T[vn * Q + addr[j]], cp[addr[j]]);
-      }
-      if (!h) {
-        // coefficient 0: nb_decode puts the sum of v2c at y = 0 and 0
-        // elsewhere (the JAX package's one-hot contraction does)
-        const float s = group_rtree_sum<R, 32>(x);
-#pragma unroll
-        for (int j = 0; j < R; ++j) x[j] = (lane + 32 * j) == 0 ? s : 0.f;
-      }
-      group_softmax<R, 32>(x);
-      group_wht<R, 32>(x, lane);
-#pragma unroll
-      for (int j = 0; j < R; ++j) S[warp * Q + lane + 32 * j] = x[j];
-    }
-    __syncthreads();
-    if (mine) {
-      // exclusive product: forward from edge 0, backward from the last
-      // edge, each starting at 1 (nb_decode._qspa_cn_core's order)
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int y = lane + 32 * j;
-        float f = 1.f, bw = 1.f;
-        for (int i = 0; i < warp; ++i) f = __fmul_rn(f, S[i * Q + y]);
-        for (int i = dc - 1; i > warp; --i) bw = __fmul_rn(bw, S[i * Q + y]);
-        x[j] = __fmul_rn(f, bw);
-      }
-      if (h) {
-        group_cn_output<R, 32>(x, lane);
-      } else {  // out[k] = llr[0 * k] - llr[0] = 0
-#pragma unroll
-        for (int j = 0; j < R; ++j) x[j] = 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        if (kLayered) {
-          // total = T + (new - old), the jnp function's order
-          float* tp = T + vn * Q + addr[j];
-          *tp = __fadd_rn(*tp, __fsub_rn(x[j], cp[addr[j]]));
-        }
-        cp[addr[j]] = x[j];
-      }
-    }
-    __syncthreads();  // the spectra are reused; layered: the totals
-  }
-}
-
-// ---- Phase clocks of K7 and K8, compiled in only under NB_ROWS_PHASES
+// ---- Phase clocks of K5, K7 and K8, compiled in only under NB_ROWS_PHASES
 // (cuda_ldpc_torch/tools/nb_rows_phases.py): thread 0 adds the clock64()
 // cycles since its previous stamp to the phase a stamp names.  Thread 0 is
 // in group 0, so a row phase is group 0's, and a wait is its barrier's.
@@ -326,7 +257,8 @@ enum RowsPhase {
   kRpSetup = 0,   // tables, zero fill, the copy of the totals
   kRpTotals,      // flooding totals, with their barrier
   kRpDecide,      // decisions and syndrome, with their barriers
-  kRpEdges,       // each warp's edge: v2c and its message (K7: spectrum)
+  kRpEdges,       // each warp's edge: v2c and its message (K5, K7:
+                  // spectrum; K5's row on a warp: all the row's spectra)
   kRpEdgesWait,   // the group barrier after it
   kRpMins,        // TMM: min1, min2 and the column per eta
   kRpSearch,      // TMM: the 2-deviation search
@@ -369,11 +301,12 @@ struct PhaseClock {
 #define ROWS_PHASE_FLUSH(pc, dst)
 #endif
 
-// ---- Row groups and row waves (K7, qspa_stream.cu; K8, nbms.cu).  A block
-// decoding one frame splits into `groups` groups of 32 * max_dc threads, one
-// warp per edge of a row; each group runs one check row at a time with its
-// own scratch and its own barrier, so that rows which share no VN run at
-// once.  The host plan (ops/cuda_qspa.row_waves) lists the rows wave after
+// ---- Row groups and row waves (K5, qspa.cu; K7, qspa_stream.cu; K8,
+// nbms.cu).  A block decoding one frame splits into `groups` groups of 32 *
+// max_dc threads, one warp per edge of a row; each group runs one check row
+// at a time with its own scratch and its own barrier, so that rows which
+// share no VN run at once (K5's row on one warp walks the same waves with a
+// warp as its group).  The host plan (ops/cuda_qspa.row_waves) lists the rows wave after
 // wave: flooding one wave of every row (no row writes what another reads),
 // layered the dependency levels (a row's wave is one more than the latest
 // wave of an earlier row that shares a VN with it, so every pair of rows
@@ -454,10 +387,12 @@ static __device__ __forceinline__ void walk_waves(
   }
 }
 
-// One check row of FFT-QSPA on a row group (K7): frame_cn_rows's body for
-// row k0 .. k0 + dc - 1, the same operations in the same order, with the
-// group's warp w on the row's edge w, the group's spectra scratch S
-// [max_dc, Q] and the group's barrier.  Ends with that barrier.
+// One check row of FFT-QSPA on a row group (K5, K7), edges k0 .. k0 + dc -
+// 1, a warp an edge: the group's warp w computes edge w's spectrum (v2c,
+// softmax, transform) into the group's scratch S [max_dc, Q], then, after
+// the group's barrier, its exclusive product over the row's other spectra
+// in the JAX order, the inverse transform and the log; layered also updates
+// the totals as T + (new - old).  Ends with the group's barrier.
 template <int R, bool kLayered, int kGroups>
 static __device__ __forceinline__ void cn_row(
     const RowGroup<kGroups>& grp, PhaseClock& pc, float* T, float* S, float* Cb,

@@ -18,13 +18,14 @@
 // finished leaves with its c2v messages zeroed, so that the engine refills
 // only its channel.
 //
-// It is K5 (qspa.cu) with its state carried across calls: one block per
-// slot, the same phases from qspa_common.cuh (frame_totals,
-// frame_decide_check, and cn_row, frame_cn_rows's row on a row group),
-// hence the same arithmetic order.  The differences: C [B, E, q] is read
-// from the previous call instead of zeroed; layered seeds T from `chan`,
-// which carries the running totals, and writes them back; the slot's count
-// t, finished flag and check flag come in and go out; and the check rows
+// It is K5's warp-an-edge design (qspa.cu's qspa_kernel) with its state
+// carried across calls: one block per slot, the same phases from
+// qspa_common.cuh (frame_totals, frame_decide_check, and cn_row, the
+// serial row on a row group), hence the same arithmetic order.  The
+// differences: C [B, E, q] is read from the previous call instead of
+// zeroed; layered seeds T from `chan`, which carries the running totals,
+// and writes them back; the slot's count t, finished flag and check flag
+// come in and go out; and the check rows
 // run on `groups` row groups (qspa_common.cuh), each with its own spectra
 // scratch and barrier, walking the host's wave plan (ops/cuda_qspa
 // .row_waves): flooding every row of a pass at once (the totals are built

@@ -146,11 +146,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [p])                    # stream
     lib.ldpc_qspa_stream.restype = i
     lib.ldpc_qspa.argtypes = (
-        [p] * 12                  # chan C hard ok iters + 5 edge tables +
-                                  # gf_log gf_exp
-        + [i] * 8                 # B N M E q max_dc num_iters layered
+        [p] * 14                  # chan C hard ok iters + 5 edge tables +
+                                  # gf_log gf_exp + wave_ptr wave_row
+        + [i] * 11                # nwaves layout width B N M E q max_dc
+                                  # num_iters layered
         + [i, p])                 # device stream
     lib.ldpc_qspa.restype = i
+    lib.ldpc_qspa_blocks_per_sm.argtypes = [i] * 8  # q layered layout width
+    lib.ldpc_qspa_blocks_per_sm.restype = i         # N E max_dc device
     lib.ldpc_qspa_qc.argtypes = (
         [p] * 15                  # chan T C hard ok iters + 7 block tables +
                                   # gf_log gf_exp

@@ -14,6 +14,15 @@ changes nothing in the outputs (the plain version runs its batch until
 every frame has stopped, with the stopped frames frozen).  The call
 enqueues one launch and returns without waiting.
 
+The kernel runs the check rows of a pass at once on the wave plan
+``row_waves`` (flooding one wave of every row, layered the dependency
+levels), bit for bit the serial schedule, in the layout ``row_layout``
+picks: a whole row on one warp (``warps`` a block) where it fits, else a
+warp an edge on ``groups`` row groups.  The serial design (one row at a
+time) stays callable as ``decode_flooding_serial`` / ``decode_layered_serial``
+and every design as ``decode_design``, for chip_smoke.py, the phase tool
+and the card tests only.
+
 A CPU tensor goes to the plain version in ops/nb_decode.py.  A CUDA tensor
 goes to the kernel, or the call raises.
 
@@ -36,9 +45,14 @@ from cuda_ldpc_torch.ops import _build, nb_decode
 from cuda_ldpc_torch.ops.nb_decode import NBDecodeResult
 from cuda_ldpc_torch.utils import gf as gflib
 
-# Calls that launched the kernel, by schedule; read and reset by
-# chip_smoke.py to show that the main path went through it.
-LAUNCHES = {"qspa_flooding": 0, "qspa_layered": 0}
+# Calls that launched the kernel, by schedule: through decode_flooding /
+# decode_layered under qspa_<schedule> and also under
+# qspa_<design>_<schedule> for the design ``row_layout`` picks, through
+# decode_design under qspa_<design>_<schedule> only; read and reset by
+# chip_smoke.py to show that the main path went through it, in which layout.
+DESIGNS = ("serial", "groups", "warp")
+LAUNCHES = {f"qspa_{d}{s}": 0 for d in ("",) + tuple(x + "_" for x in DESIGNS)
+            for s in ("flooding", "layered")}
 
 # Dynamic shared memory a block of an H100 may use (cudaDevAttr-
 # MaxSharedMemoryPerBlockOptin).
@@ -205,11 +219,14 @@ def device_waves(code: NBCode, schedule: str, device: torch.device):
     return _wave_tables[k]
 
 
-def smem_bytes(plan: Plan) -> int:
+def smem_bytes(plan: Plan, groups: int = 1, c_on_chip: bool = False) -> int:
     """The kernel's dynamic shared memory per block (csrc/qspa.cu
-    smem_bytes): T [N, q] and the row's spectra [max_dc, q] in f32, the GF
-    tables and the decisions in int32."""
-    return 4 * (plan.N * plan.q + plan.max_dc * plan.q
+    smem_bytes): T [N, q] and a row's spectra [max_dc, q] for each of
+    ``groups`` row groups (none for a row on one warp, ``groups`` = 0) in
+    f32, the GF tables and the decisions in int32, and the frame's C [E, q]
+    f32 when it lives on chip."""
+    return 4 * (plan.N * plan.q + groups * plan.max_dc * plan.q
+                + (plan.E * plan.q if c_on_chip else 0)
                 + plan.q + 2 * (plan.q - 1) + plan.N)
 
 
@@ -220,6 +237,102 @@ def supports(code: NBCode) -> bool:
         return False
     plan = make_plan(code)
     return 1 <= plan.max_dc <= 32 and smem_bytes(plan) <= SMEM_LIMIT
+
+
+# The launch bounds of a row on one warp (csrc/qspa.cu kWarpBounds), by
+# schedule, flooding (False) and layered (True): (threads a block, blocks an
+# SM).
+WARP_BOUNDS = {False: (384, 3), True: (256, 4)}
+
+
+def padded_degree(plan: Plan) -> int:
+    """dc': the largest row degree rounded up to a power of two."""
+    return 1 << (plan.max_dc - 1).bit_length()
+
+
+def warp_fits(plan: Plan) -> bool:
+    """A whole check row fits one warp where dc' q <= 256 (dc' lane groups
+    of W = 32 / dc' lanes, q / W <= 8 symbols a lane).  The kernel is built
+    for the registry's such codes, GF(64) with rows of 3 or 4 edges (dc' =
+    4: W = 8 lanes an edge, 8 symbols a lane; lane t holds edge t // W and,
+    in its register j, symbol t % W + W j); no registry code has q = 32.
+    A flooding block also holds the frame's C (``c_on_chip``), so the
+    layout takes a code only where that block fits."""
+    return (plan.q == 64 and padded_degree(plan) == 4
+            and smem_bytes(plan, 0, c_on_chip=True) <= SMEM_LIMIT)
+
+
+def row_layout(plan: Plan) -> str:
+    """The layout the kernel runs a check row in: 'warp' (a row on one
+    warp) where ``warp_fits``, else 'groups' (a warp an edge on row
+    groups).  Where a row fits a warp, the warp layout was the faster on
+    BDS.576.288.GF.64 at B=4096, 10 passes, 0 dB, flooding and layered
+    (PERF.md: chip_smoke.py's K5 turns and
+    ``python -m cuda_ldpc_torch.tools.nb_rows_phases``)."""
+    return "warp" if warp_fits(plan) else "groups"
+
+
+def c_on_chip(layered: bool) -> bool:
+    """Whether the row-a-warp layout keeps each frame's C [E, q] in shared
+    memory: flooding does, layered does not (csrc/qspa.cu ties it to the
+    schedule, and does not build the other two pairings).  On
+    BDS.576.288.GF.64 (B=4096, 10 passes, 0 dB; the phase tool
+    ``python -m cuda_ldpc_torch.tools.nb_rows_phases`` while it still built
+    both places of C, PERF.md) flooding took 3.20 ms with C on chip
+    at 12 warps a block against 3.50 in device memory at 8 (its totals
+    waited on C: 45% of the cycles); layered took 3.06 in device memory at
+    4 against 3.16 on chip at 12."""
+    return not layered
+
+
+def warps(layered: bool) -> int:
+    """Warps a block of the row-a-warp layout, each walking its own rows
+    of a wave: 12 flooding (3 frames, 36 warps an SM on BDS), 4 layered
+    (8 frames, 32 warps an SM); the fastest of the sweep ``c_on_chip``
+    names."""
+    return 4 if layered else 12
+
+
+def groups(plan: Plan, layered: bool) -> int:
+    """Row groups of the warp-an-edge layout: ``pick_groups`` with K5's
+    shared memory (BDS: 4 flooding, 2 layered) for q <= 64, one group for
+    q >= 128.  A block of more than one group keeps to 40 registers a
+    thread, and there ptxas spills for q >= 128 (56-180 bytes, -Xptxas
+    -v); on LDPC_N96_K48_GF256_d1_exp (B=4096, 10 passes, 0 dB; ``python
+    -m cuda_ldpc_torch.tools.nb_rows_phases --code LDPC_N96_K48_GF256_d1_exp
+    --groups 1,2,4``, PERF.md) G = 4 / 2 took 2.80 / 3.52 ms
+    against one group's 2.07 / 2.09, flooding / layered."""
+    if plan.q >= 128:
+        return 1
+    return pick_groups(plan, lambda g: smem_bytes(plan, g), layered)
+
+
+def launch_shape(plan: Plan, layered: bool, design: str) -> tuple[int, int]:
+    """(layout, width) as csrc/qspa.cu's ldpc_qspa takes them: 'serial' a
+    warp an edge on one group, 'groups' on ``groups`` row groups (layout
+    0), 'warp' a row on one warp, ``warps`` warps a block (layout 1)."""
+    if design == "serial":
+        return 0, 1
+    if design == "groups":
+        return 0, groups(plan, layered)
+    if design == "warp":
+        if not warp_fits(plan):
+            raise ValueError(f"a row of {plan.max_dc} edges over GF({plan.q})"
+                             " does not fit one warp")
+        return 1, warps(layered)
+    raise ValueError(f"unknown design {design!r}")
+
+
+def blocks_per_sm(plan: Plan, layered: bool, design: str,
+                  device: torch.device) -> int:
+    """Blocks of the design's kernel an SM of ``device`` holds (CUDA's
+    occupancy calculator)."""
+    layout, width = launch_shape(plan, layered, design)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return _build.load().ldpc_qspa_blocks_per_sm(
+        plan.q, int(layered), layout, width, plan.N, plan.E, plan.max_dc,
+        index)
 
 
 _tables: dict = {}
@@ -260,7 +373,7 @@ def empty_result(B: int, N: int, device: torch.device) -> NBDecodeResult:
 
 
 def _decode(L_ch: torch.Tensor, code: NBCode, max_iters: int, layered: bool,
-            early_stop: bool) -> NBDecodeResult:
+            early_stop: bool, design: str | None = None) -> NBDecodeResult:
     if L_ch.device.type == "cpu":
         plain = (nb_decode.decode_layered_qspa if layered
                  else nb_decode.decode_qspa)
@@ -273,11 +386,19 @@ def _decode(L_ch: torch.Tensor, code: NBCode, max_iters: int, layered: bool,
     plan = make_plan(code)
     check_input(L_ch, plan.N, plan.q)
     B, dev = L_ch.shape[0], L_ch.device
+    main = design is None
+    design = design or row_layout(plan)
+    layout, width = launch_shape(plan, layered, design)
     if B == 0 or max_iters <= 0:
         return empty_result(B, plan.N, dev)
     lib = _build.load()
     tables = _device_tables(plan, code_key(code), dev)
-    C = torch.empty((B, plan.E, plan.q), dtype=torch.float32, device=dev)
+    schedule = "layered" if layered else "flooding"
+    wave_ptr, wave_row, nwaves = device_waves(
+        code, "serial" if design == "serial" else schedule, dev)
+    # a row on one warp keeps a flooding frame's C on chip: no buffer
+    C = torch.empty((0,) if layout == 1 and c_on_chip(layered)
+                    else (B, plan.E, plan.q), dtype=torch.float32, device=dev)
     res = NBDecodeResult(torch.empty((B, plan.N), dtype=torch.int32,
                                      device=dev),
                          torch.empty(B, dtype=torch.bool, device=dev),
@@ -285,14 +406,16 @@ def _decode(L_ch: torch.Tensor, code: NBCode, max_iters: int, layered: bool,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.ldpc_qspa(
         _ptr(L_ch), _ptr(C), *(_ptr(t) for t in res),
-        *(_ptr(t) for t in tables), B, plan.N, plan.M, plan.E, plan.q,
-        plan.max_dc, int(max_iters), int(layered), dev.index,
-        ctypes.c_void_p(stream))
-    name = "qspa_layered" if layered else "qspa_flooding"
+        *(_ptr(t) for t in tables), _ptr(wave_ptr), _ptr(wave_row), nwaves,
+        layout, width, B, plan.N, plan.M, plan.E, plan.q, plan.max_dc,
+        int(max_iters), int(layered), dev.index, ctypes.c_void_p(stream))
+    name = f"qspa_{design}_{schedule}"
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            + lib.ldpc_error_string(err).decode())
     LAUNCHES[name] += 1
+    if main:
+        LAUNCHES[f"qspa_{schedule}"] += 1
     return res
 
 
@@ -308,3 +431,28 @@ def decode_layered(L_ch: torch.Tensor, code: NBCode, max_iters: int,
     """Serial-row layered FFT-QSPA of L_ch [B, N, q] float32; drop-in for
     ops/nb_decode.decode_layered_qspa."""
     return _decode(L_ch, code, max_iters, True, early_stop)
+
+
+def decode_design(L_ch: torch.Tensor, code: NBCode, max_iters: int,
+                  layered: bool, design: str,
+                  early_stop: bool = True) -> NBDecodeResult:
+    """``decode_flooding`` / ``decode_layered`` in the named design of
+    ``DESIGNS`` ('serial': one row at a time; 'groups': a warp an edge on
+    row groups; 'warp': a row on one warp), whatever ``row_layout`` picks:
+    the yardsticks, called only by chip_smoke.py, the phase tool and the
+    card tests."""
+    return _decode(L_ch, code, max_iters, layered, early_stop, design)
+
+
+def decode_flooding_serial(L_ch: torch.Tensor, code: NBCode, max_iters: int,
+                           early_stop: bool = True) -> NBDecodeResult:
+    """``decode_flooding`` in the serial design (one row at a time): the
+    yardstick of the rows at once."""
+    return decode_design(L_ch, code, max_iters, False, "serial", early_stop)
+
+
+def decode_layered_serial(L_ch: torch.Tensor, code: NBCode, max_iters: int,
+                          early_stop: bool = True) -> NBDecodeResult:
+    """``decode_layered`` in the serial design (one row at a time): the
+    yardstick of the rows at once."""
+    return decode_design(L_ch, code, max_iters, True, "serial", early_stop)

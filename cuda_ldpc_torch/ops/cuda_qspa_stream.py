@@ -47,7 +47,7 @@ def smem_bytes(plan: cuda_qspa.Plan, groups: int = 1) -> int:
     """The kernel's dynamic shared memory per block (csrc/qspa_stream.cu
     smem_bytes): K5's, with a row's spectra [max_dc, q] for each row
     group."""
-    return cuda_qspa.smem_bytes(plan) + 4 * (groups - 1) * plan.max_dc * plan.q
+    return cuda_qspa.smem_bytes(plan, groups)
 
 
 def groups(plan: cuda_qspa.Plan, layered: bool) -> int:

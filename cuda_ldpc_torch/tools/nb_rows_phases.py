@@ -1,28 +1,35 @@
-"""Where the time of the GF(q) max-domain decoder K8 (EMS, TMM, layered TMM)
-and of the GF(q) QSPA stream step K7 (flooding, layered) goes, phase by
-phase, on a card, for the serial design and the row groups.
+"""Where the time of the GF(q) QSPA decoder K5 (flooding, layered), of the
+max-domain decoder K8 (EMS, TMM, layered TMM) and of the GF(q) QSPA stream
+step K7 (flooding, layered) goes, phase by phase, on a card, for the serial
+design and the rows at once.
 
     python -m cuda_ldpc_torch.tools.nb_rows_phases [--batch 4096]
-        [--passes 10] [--ebn0 0.0] [--designs serial,groups]
-        [--groups 1,2,4]
+        [--passes 10] [--ebn0 0.0] [--code BDS.576.288.GF.64]
+        [--designs serial,groups,warp]
+        [--kernels qspa,qspa_layered,...] [--groups 1,2,4] [--warps 2,4,8]
 
 It builds, into the git-ignored build directory, a copy of the kernels with
-csrc/nbms.cu and csrc/qspa_stream.cu compiled under ``NB_ROWS_PHASES``:
-thread 0 of every block reads clock64() at the phase boundaries of
-csrc/qspa_common.cuh's ``RowsPhase`` and adds the cycles since its previous
-stamp to a per-block counter, flushed to a device counter per method or
-schedule when the block ends.  One call of at most ``passes`` passes on
-B = ``batch`` frames of BDS.576.288.GF.64 at Eb/N0 ``ebn0`` dB, BPSK
-(chip_smoke.py's timing point: K8 decodes fresh frames; K7 starts from
-fresh slots with max_iters = passes - 1), gives each phase's share of the
-summed cycles, for the serial design (``decode_*_serial``,
-``stream_step_serial``) and the row groups (``decode_*``, ``stream_step``);
-the call's time with the counters and without them (the library the
-package builds) and the blocks an SM holds (CUDA's occupancy calculator)
-are printed beside it.  ``--groups`` also times the row groups at each
-listed number of groups (the package picks its own, ``cuda_nbms.groups`` /
-``cuda_qspa_stream.groups``).  Thread 0's view: it
-is in group 0, so a row phase is group 0's work and a wait its barrier's.
+csrc/qspa.cu, csrc/nbms.cu and csrc/qspa_stream.cu compiled under
+``NB_ROWS_PHASES``: thread 0 of every block reads clock64() at the phase
+boundaries of csrc/qspa_common.cuh's ``RowsPhase`` and adds the cycles since
+its previous stamp to a per-block counter, flushed to a device counter per
+method or schedule when the block ends.  One call of at most ``passes``
+passes on B = ``batch`` frames of ``code`` (an adjacency code, by default
+BDS.576.288.GF.64) at Eb/N0 ``ebn0`` dB, BPSK (chip_smoke.py's timing point: K5 and K8 decode fresh frames; K7
+starts from fresh slots with max_iters = passes - 1), gives each phase's
+share of the summed cycles, for each design: the serial design
+(``decode_*_serial``, ``stream_step_serial``), the row groups (a warp an
+edge; ``decode_*``, ``stream_step``; K5's ``decode_design(..., 'groups')``)
+and K5's row on one warp (``decode_design(..., 'warp')``).  The call's time
+with the counters and without them (the library the package builds) and
+the blocks an SM holds (CUDA's occupancy calculator) are printed beside it.
+``--groups`` also times the row groups at each listed number of groups (the
+package picks its own: ``cuda_qspa.groups``, ``cuda_nbms.groups``,
+``cuda_qspa_stream.groups``), ``--warps`` K5's row on one warp at each
+listed number of warps a block within the schedule's launch bound (the
+package's: ``cuda_qspa.warps``).
+Thread 0's view: it is in group 0 (warp 0), so a row phase is group 0's
+work and a wait its barrier's.
 
 Needs a CUDA device and nvcc; prints one JSON line per measurement, each
 with the card's name and power limit.
@@ -43,16 +50,20 @@ PHASES = ("setup", "totals", "decide", "edges", "edges_wait", "mins",
           "search", "merge", "output", "row_wait", "wave_wait", "exit")
 # the instrumented sources and their counter readers: (file, function,
 # counters)
-SOURCES = (("nbms.cu", "ldpc_nbms_phase_clocks", 3),
+SOURCES = (("qspa.cu", "ldpc_qspa_phase_clocks", 2),
+           ("nbms.cu", "ldpc_nbms_phase_clocks", 3),
            ("qspa_stream.cu", "ldpc_qspa_stream_phase_clocks", 2))
-# kernel -> (counter reader, its row, K8's decoder or K7's schedule)
+# kernel -> (counter reader, its row, K8's decoder or K5's / K7's schedule)
 KERNELS = {
+    "qspa": ("ldpc_qspa_phase_clocks", 0, "flooding"),
+    "qspa_layered": ("ldpc_qspa_phase_clocks", 1, "layered"),
     "nbms_ems": ("ldpc_nbms_phase_clocks", 0, "decode_ems"),
     "nbms_tmm": ("ldpc_nbms_phase_clocks", 1, "decode_tmm"),
     "nbms_layered_tmm": ("ldpc_nbms_phase_clocks", 2, "decode_layered_tmm"),
     "qspa_stream": ("ldpc_qspa_stream_phase_clocks", 0, "flooding"),
     "qspa_stream_layered": ("ldpc_qspa_stream_phase_clocks", 1, "layered"),
 }
+DESIGNS = ("serial", "groups", "warp")
 
 
 def phase_names(src: str) -> tuple:
@@ -97,16 +108,24 @@ def _instrumented_lib(root: pathlib.Path):
     return lib
 
 
-def _calls(code, L, passes):
-    """kernel -> {design: call()} for the serial design and the row groups,
-    each call starting from the same state."""
+def _calls(code, L, passes, kernels):
+    """kernel -> {design: call()} for each design the kernel has, each
+    call starting from the same state."""
     import torch
 
-    from cuda_ldpc_torch.ops import cuda_nbms, cuda_qspa_stream
+    from cuda_ldpc_torch.ops import cuda_nbms, cuda_qspa, cuda_qspa_stream
     B, dev = L.shape[0], L.device
     E = int(code.cn_mask.sum())
     out = {}
-    for kernel, (_, _, what) in KERNELS.items():
+    for kernel in kernels:
+        what = KERNELS[kernel][2]
+        if kernel.startswith("qspa") and not kernel.startswith("qspa_stream"):
+            designs = [d for d in DESIGNS if d != "warp"
+                       or cuda_qspa.warp_fits(cuda_qspa.make_plan(code))]
+            out[kernel] = {d: (lambda d=d, lay=what == "layered":
+                               cuda_qspa.decode_design(L, code, passes, lay, d))
+                           for d in designs}
+            continue
         if kernel.startswith("nbms"):
             fns = {"serial": getattr(cuda_nbms, what + "_serial"),
                    "groups": getattr(cuda_nbms, what)}
@@ -130,13 +149,12 @@ def _calls(code, L, passes):
     return out
 
 
-DESIGNS = ("serial", "groups")
-
-
 def measure(batch: int = 4096, passes: int = 10, ebn0: float = 0.0,
-            designs=DESIGNS, groups=()):
+            designs=DESIGNS, groups=(), warps=(), kernels=tuple(KERNELS),
+            code_name="BDS.576.288.GF.64"):
     """Yield one dict per kernel and design (see the module docstring), then
-    one per kernel and listed number of groups."""
+    one per kernel and listed number of groups, then one per K5 schedule
+    and listed number of warps."""
     import numpy as np
     import torch
 
@@ -151,29 +169,39 @@ def measure(batch: int = 4096, passes: int = 10, ebn0: float = 0.0,
     root.mkdir(parents=True, exist_ok=True)
     plain_lib = _build.load()
     lib = _instrumented_lib(root)
-    code = NBCode.from_registry("BDS.576.288.GF.64")
+    code = NBCode.from_registry(code_name)
     plan = cuda_qspa.make_plan(code)
     sigma = channel.sigma_from_snr(ebn0, code.rate, "ebn0", 1.0)
     g = torch.Generator(device=dev).manual_seed(47)
     L = demod.nb_channel_llr(g, np.zeros(code.bit_length, dtype=np.int64),
                              constellation(2), sigma, batch, code.q,
                              device=dev)
-    calls = _calls(code, L, passes)
+    calls = _calls(code, L, passes, kernels)
 
-    def picked(kernel):
-        """The groups the package picks for the kernel."""
-        if kernel.startswith("nbms"):
-            return cuda_nbms.groups(plan, kernel[len("nbms_"):])
-        return cuda_qspa_stream.groups(plan, kernel.endswith("layered"))
+    def module(kernel):
+        return (cuda_nbms if kernel.startswith("nbms") else cuda_qspa_stream
+                if kernel.startswith("qspa_stream") else cuda_qspa)
 
-    def blocks(kernel, G):
-        """Blocks an SM holds of the kernel with G groups."""
-        if kernel.startswith("nbms"):
-            return cuda_nbms.blocks_per_sm(plan, kernel[len("nbms_"):], G,
-                                           dev)
-        return cuda_qspa_stream.blocks_per_sm(plan, kernel.endswith(
-            "layered"), G, dev)
+    def arg(kernel):
+        """The method (K8) or the schedule (K5, K7) the modules take."""
+        return (kernel[len("nbms_"):] if kernel.startswith("nbms")
+                else kernel.endswith("layered"))
 
+    def shape(kernel, design):
+        """The design's groups or warps, and the blocks an SM holds."""
+        if module(kernel) is cuda_qspa:
+            lay = arg(kernel)
+            layout, width = cuda_qspa.launch_shape(plan, lay, design)
+            got = ({"warps": width, "c_on_chip": cuda_qspa.c_on_chip(lay)}
+                   if design == "warp" else {"groups": width})
+            return got, cuda_qspa.blocks_per_sm(plan, lay, design, dev)
+        G = 1 if design == "serial" else module(kernel).groups(plan,
+                                                               arg(kernel))
+        return {"groups": G}, module(kernel).blocks_per_sm(plan, arg(kernel),
+                                                           G, dev)
+
+    point = {"code": code.name, "batch": batch, "max_passes": passes,
+             "ebn0": ebn0}
     for kernel in calls:
         reader, row, _ = KERNELS[kernel]
         n = dict((fn, c) for _, fn, c in SOURCES)[reader]
@@ -196,34 +224,43 @@ def measure(batch: int = 4096, passes: int = 10, ebn0: float = 0.0,
                 raise RuntimeError("reading the phase counters failed")
             mine = [clocks[row * len(PHASES) + i] for i in range(len(PHASES))]
             total = sum(mine)
-            G = 1 if design == "serial" else picked(kernel)
-            yield {"kernel": kernel, "design": design, "groups": G,
-                   "blocks_per_sm": blocks(kernel, G),
-                   "code": code.name, "batch": batch, "max_passes": passes,
-                   "ebn0": ebn0, "ms": ms["plain"],
+            width, blocks = shape(kernel, design)
+            yield {"kernel": kernel, "design": design, **width,
+                   "blocks_per_sm": blocks, **point, "ms": ms["plain"],
                    "ms_with_counters": ms["counted"],
                    "cycles_per_block": total / batch,
                    "share": {PHASES[i]: c / total for i, c in enumerate(mine)
                              if c}}
-    saved = cuda_nbms.groups, cuda_qspa_stream.groups
+    saved = cuda_nbms.groups, cuda_qspa_stream.groups, cuda_qspa.groups
     try:
         for G in groups:
-            cuda_nbms.groups = lambda plan, method, G=G: G
-            cuda_qspa_stream.groups = lambda plan, layered, G=G: G
+            for mod in (cuda_nbms, cuda_qspa_stream, cuda_qspa):
+                mod.groups = lambda plan, method, G=G: G
             for kernel, call in calls.items():
-                mod = (cuda_nbms if kernel.startswith("nbms")
-                       else cuda_qspa_stream)
-                if mod.smem_bytes(plan, G) > cuda_qspa.SMEM_LIMIT or \
-                        32 * plan.max_dc * G > (
+                if module(kernel).smem_bytes(plan, G) > cuda_qspa.SMEM_LIMIT \
+                        or 32 * plan.max_dc * G > (
                             1024 if G == 1 else cuda_qspa.GROUPED_THREADS):
                     continue
-                yield {"kernel": kernel, "design": "groups", "groups": G,
-                       "blocks_per_sm": blocks(kernel, G),
-                       "code": code.name, "batch": batch,
-                       "max_passes": passes, "ebn0": ebn0,
+                width, blocks = shape(kernel, "groups")
+                yield {"kernel": kernel, "design": "groups", **width,
+                       "blocks_per_sm": blocks, **point,
                        "ms": time_ms(call["groups"], dev, reps=5)}
     finally:
-        cuda_nbms.groups, cuda_qspa_stream.groups = saved
+        cuda_nbms.groups, cuda_qspa_stream.groups, cuda_qspa.groups = saved
+    k5 = [k for k in calls if "warp" in calls[k]]
+    saved = cuda_qspa.warps
+    try:
+        for nw in warps:
+            cuda_qspa.warps = lambda layered, nw=nw: nw
+            for kernel in k5:
+                if not 2 <= nw <= cuda_qspa.WARP_BOUNDS[arg(kernel)][0] // 32:
+                    continue
+                width, blocks = shape(kernel, "warp")
+                yield {"kernel": kernel, "design": "warp", **width,
+                       "blocks_per_sm": blocks, **point,
+                       "ms": time_ms(calls[kernel]["warp"], dev, reps=5)}
+    finally:
+        cuda_qspa.warps = saved
 
 
 def main(argv=None) -> int:
@@ -232,23 +269,35 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--passes", type=int, default=10)
     ap.add_argument("--ebn0", type=float, default=0.0)
+    ap.add_argument("--code", default="BDS.576.288.GF.64")
     ap.add_argument("--designs", default=",".join(DESIGNS))
+    ap.add_argument("--kernels", default=",".join(KERNELS))
     ap.add_argument("--groups", default="",
                     help="comma-separated numbers of row groups to time")
+    ap.add_argument("--warps", default="",
+                    help="comma-separated warps a block of K5's row on one "
+                         "warp to time")
     args = ap.parse_args(argv)
     designs = tuple(args.designs.split(","))
     if not set(designs) <= set(DESIGNS):
         ap.error(f"--designs takes {','.join(DESIGNS)}")
+    kernels = tuple(args.kernels.split(","))
+    if not set(kernels) <= set(KERNELS):
+        ap.error(f"--kernels takes {','.join(KERNELS)}")
     groups = tuple(int(g) for g in args.groups.split(",") if g)
     if any(not 1 <= g <= 7 for g in groups):
         ap.error("--groups takes numbers from 1 to 7")
+    warps = tuple(int(w) for w in args.warps.split(",") if w)
+    if any(not 2 <= w <= 32 for w in warps):
+        ap.error("--warps takes numbers from 2 to 32")
     import torch
     if not torch.cuda.is_available():
         print("nb_rows_phases: needs a CUDA device", file=sys.stderr)
         return 1
     from cuda_ldpc_torch.utils.device import card_info
     card = card_info()
-    for row in measure(args.batch, args.passes, args.ebn0, designs, groups):
+    for row in measure(args.batch, args.passes, args.ebn0, designs, groups,
+                       warps, kernels, args.code):
         print(json.dumps({"card": card, **row}), flush=True)
     return 0
 

@@ -1,6 +1,6 @@
-"""The CUDA GF(q) FFT-QSPA decoders (cuda_ldpc_torch.ops.cuda_qspa, K5, and
-.cuda_qspa_qc, K6, whose staged kernel is also held to its global-memory
-design) against their plain PyTorch versions.  Tolerance: none —
+"""The CUDA GF(q) FFT-QSPA decoders (cuda_ldpc_torch.ops.cuda_qspa, K5, in
+each of its designs, and .cuda_qspa_qc, K6, whose staged kernel is also held
+to its global-memory design) against their plain PyTorch versions.  Tolerance: none —
 the kernels do the plain version's fp32 operations in its order (its
 docstring fixes them), and the card's expf/logf equal torch.exp/torch.log
 there, so hard, ok and iters must be exactly equal.
@@ -82,14 +82,18 @@ def test_shared_memory_plans():
 # --------------------------------------------------------------- card side
 
 K5_CASES = [
-    # code, Eb/N0, batch, iterations, QAM order
+    # code, Eb/N0, batch, iterations, QAM order (the QAM order must equal
+    # q: BPSK, 64-QAM on GF(64), 256-QAM on GF(256)); batches of 11 and 37
+    # leave the last warps of a block's waves idle
     ("BDS.576.288.GF.64", 1.0, 64, 20, 2),
     ("BDS.576.288.GF.64", 1.5, 11, 20, 2),
     ("BDS.576.288.GF.64", 3.0, 32, 10, 64),
     ("BDS.576.288.GF.64", 1.5, 16, 0, 2),
     ("LDPC_N576_K288_GF64_d1_exp", 2.0, 32, 20, 2),
+    ("LDPC_N576_K288_GF64_d1_exp", 4.0, 37, 20, 64),
     ("LDPC_N96_K48_GF256_d1_exp", 2.0, 64, 20, 2),
     ("LDPC_N96_K48_GF256_d1_exp", 6.0, 64, 20, 256),
+    ("LDPC_N96_K48_GF256_d1_exp", 6.0, 37, 20, 256),
     ("LDPC_N576_K480_GF256_exp", 3.0, 32, 20, 2),
 ]
 
@@ -101,17 +105,66 @@ K5_CASES = [
                               for c in K5_CASES])
 def test_k5_matches_plain_on_card(cuda, layered, name, ebn0, batch, iters,
                                   n_qam):
+    """The kernel in the layout the dispatch rule picks, and every design
+    the code takes (the serial design, a warp an edge on row groups, a row
+    on one warp where it fits), against the plain version: hard, ok and
+    iters of every frame.  The main path's call is counted under its
+    schedule and under the design the rule picks."""
     code = NBCode.from_registry(name)
+    plan = cuda_qspa.make_plan(code)
     L = _llr(code, ebn0, batch, batch + iters, cuda, n_qam)
-    key = "qspa_layered" if layered else "qspa_flooding"
-    before = cuda_qspa.LAUNCHES[key]
+    schedule = "layered" if layered else "flooding"
+    before = dict(cuda_qspa.LAUNCHES)
     kernel = cuda_qspa.decode_layered if layered else cuda_qspa.decode_flooding
     plain = (nb_decode.decode_layered_qspa if layered
              else nb_decode.decode_qspa)
+    designs = [d for d in cuda_qspa.DESIGNS
+               if d != "warp" or cuda_qspa.warp_fits(plan)]
+    assert ("warp" in designs) == (name in ("BDS.576.288.GF.64",
+                                            "LDPC_N576_K288_GF64_d1_exp"))
     a, b = kernel(L, code, iters), plain(L, code, iters)
+    each = {d: cuda_qspa.decode_design(L, code, iters, layered, d)
+            for d in designs}
     torch.cuda.synchronize()
     _assert_same(a, b)
-    assert cuda_qspa.LAUNCHES[key] == before + (iters > 0)
+    for got in each.values():
+        _assert_same(got, b)
+    picked = cuda_qspa.row_layout(plan)
+    assert cuda_qspa.LAUNCHES[f"qspa_{schedule}"] == (
+        before[f"qspa_{schedule}"] + (iters > 0))
+    for d in designs:
+        key = f"qspa_{d}_{schedule}"
+        assert cuda_qspa.LAUNCHES[key] == before[key] + (iters > 0) * (
+            1 + (d == picked))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layered", [False, True])
+@pytest.mark.parametrize("name,batch", [("BDS.576.288.GF.64", 512),
+                                        ("LDPC_N576_K288_GF64_d1_exp", 37)])
+def test_k5_row_on_a_warp_at_a_larger_batch(cuda, name, batch, layered):
+    """A row on one warp (flooding with each frame's C on chip, layered
+    with it in device memory) at a batch of many blocks an SM, against
+    the plain version, every frame."""
+    code = NBCode.from_registry(name)
+    L = _llr(code, 1.5, batch, 3, cuda)
+    got = cuda_qspa.decode_design(L, code, 20, layered, "warp")
+    want = (nb_decode.decode_layered_qspa if layered
+            else nb_decode.decode_qspa)(L, code, 20)
+    torch.cuda.synchronize()
+    _assert_same(got, want)
+
+
+@pytest.mark.cuda
+def test_k5_blocks_per_sm(cuda):
+    """The occupancy calculator takes every design of BDS: a row on one
+    warp holds 3 frames an SM flooding (C on chip), 8 layered."""
+    plan = cuda_qspa.make_plan(NBCode.from_registry("BDS.576.288.GF.64"))
+    for layered in (False, True):
+        got = {d: cuda_qspa.blocks_per_sm(plan, layered, d, cuda)
+               for d in cuda_qspa.DESIGNS}
+        assert all(v >= 1 for v in got.values()), got
+        assert got["warp"] == (8 if layered else 3), got
 
 
 def _synthetic_qc(q):

@@ -1,7 +1,7 @@
-"""The host plan of row waves that K7 (csrc/qspa_stream.cu) and K8
-(csrc/nbms.cu) walk with their row groups (cuda_ldpc_torch.ops.cuda_qspa
-.row_waves, .pick_groups), and their phase tool
-(cuda_ldpc_torch.tools.nb_rows_phases), on the CPU.
+"""The host plan of row waves that K5 (csrc/qspa.cu), K7
+(csrc/qspa_stream.cu) and K8 (csrc/nbms.cu) walk with their row groups
+(cuda_ldpc_torch.ops.cuda_qspa.row_waves, .pick_groups), and their phase
+tool (cuda_ldpc_torch.tools.nb_rows_phases), on the CPU.
 
 The plan is right when running its waves in order, the rows of a wave at
 once, gives the serial schedule bit for bit: every row appears once, the
