@@ -118,6 +118,33 @@ phase:
   timing      K8, BDS, B=4096, at most 10 passes at 0 dB from fresh frames,
               each method's row groups, serial design and plain version in
               turns
+Random codewords (the sources of `--tx random`, models/encoder.py) join
+each phase:
+  parity      cases of the tables above whose channel comes from the
+              sweeps' own sources under tx='random' (chan_for, nb_chan):
+              K1/K2 min-sum (early stop on and off, also against the
+              global-memory design) and bp on J4_L24_Z96 and PON_LDPC at
+              B=4096 with the syndrome check; K5 on BDS (BPSK and 64-QAM)
+              at B=4096, K6 on Tanner_74_9_Z128_GF16 at B=256, K7 over its
+              call sequence on BDS, K8 (EMS, TMM, layered TMM) on BDS; each
+              as exact as on the all-zero word.  K4 on PON_LDPC as the
+              stream engine runs it (refills of channel and codeword, the
+              drain), against the same engine over the plain step, every
+              counter and state tensor after every call.  The device encode
+              of a PON_LDPC and a BDS.576.288.GF.64 batch at B=4096 and of
+              its first 16 frames: the numpy encode's codewords on the
+              first 64 frames, H c = 0 on every frame
+  main        J8_L24_Z96 at Eb/N0 2.53 dB, `--tx zero` and `--tx random
+              --check syndrome`, 32768 frames each, compatible with each
+              other and with VALIDATION.md:61-64; PON_LDPC at Es/N0
+              2.4:0.2:2.6, batch and `--engine stream`, compatible with
+              the zero word's batch rows; `nb --tx random` qspa on BDS at 1
+              and 2 dB (VALIDATION.md:21-22), with `--engine stream`, with
+              `--packed` (layered_qspa) and with ems (VALIDATION.md:19)
+  timing      PON_LDPC and BDS at B=4096: the encode (message draw and
+              product) beside the same batch's decode
+              (K1 min-sum, maxIT 50, syndrome, Es/N0 2.5 dB; K5 qspa,
+              maxIT 20, Eb/N0 2 dB), in turns
 The measuring path and the probes K9-K11 (phase 6), each entry point run
 with every launch count at 0 before it and read after it:
   bench       `python -m cuda_ldpc_torch.bench`'s run three times (K1) and
@@ -762,6 +789,248 @@ def roll2_device_times() -> dict:
             "fresh_process_library_ms": row["library_ms"]}
 
 
+def encode_parity(dev) -> None:
+    """The device encode of a PON_LDPC and a BDS.576.288.GF.64 batch at
+    B=4096 (the int8 product, as a card's sweep runs it) and of its first 16
+    frames (the float32 product, the rule's choice for B <= 16): the numpy
+    encode's codewords on those 16 frames and the next 48, H c = 0 on every
+    frame.  Prints each encoder's set-up time (read or eliminated)."""
+    import numpy as np
+    import torch
+
+    from cuda_ldpc_torch import NBCode, QCBinaryCode
+    from cuda_ldpc_torch.models.encoder import BinaryEncoder, NBEncoder
+    from cuda_ldpc_torch.ops import minsum, nb_decode
+
+    for name in ("PON_LDPC", "BDS.576.288.GF.64"):
+        binary = name == "PON_LDPC"
+        code = (QCBinaryCode if binary else NBCode).from_registry(name)
+        t0 = time.perf_counter()
+        enc = (BinaryEncoder if binary else NBEncoder).from_code(code)
+        setup = time.perf_counter() - t0
+        width = enc.k_eff * (1 if binary else code.q_bit)
+        msg = torch.randint(0, 2, (4096, width), dtype=torch.int8,
+                            generator=torch.Generator(device=dev).manual_seed(
+                                11), device=dev)
+        cw = enc.encode_torch(msg)
+        cw16 = enc.encode_torch(msg[:16])
+        head = msg[:64].cpu().numpy().astype(np.int64)
+        if binary:
+            want = enc.encode(head)
+            ok = minsum.syndrome_ok(code, cw.reshape(4096, code.L, code.Z))
+        else:
+            syms = (head.reshape(64, -1, code.q_bit)
+                    << np.arange(code.q_bit)).sum(-1)
+            want = enc.encode(syms)
+            ok = nb_decode._syndrome_ok(nb_decode.build_graph(code), cw)
+        counts = {"vs_numpy": int((cw[:64].cpu().numpy() != want).sum()),
+                  "first_16_vs_numpy": int(
+                      (cw16.cpu().numpy() != want[:16]).sum()),
+                  "frames_failing_Hc": int((~ok).sum())}
+        _emit("encode_parity", code=name, batch=4096, k_eff=enc.k_eff,
+              rank=int(enc.pivots.size), setup_seconds=setup,
+              nonzero_share=float((cw != 0).float().mean()),
+              mismatches=counts)
+        if any(counts.values()):
+            raise AssertionError(f"the device encode of {name}: {counts}")
+
+
+def stream_engine_parity(dev, max_err, mismatches) -> None:
+    """K4 as the binary stream engine runs it on random codewords: PON_LDPC,
+    Es/N0 2.45 dB, B=4096, calls of 16 passes with refills of channel and
+    codeword and the drain, flooding and layered min-sum and flooding bp
+    with the syndrome check; the kernel engine against the same engine over
+    the plain step, every counter and every state tensor exactly after
+    every call."""
+    import torch
+
+    from cuda_ldpc_torch import QCBinaryCode, sim
+    from cuda_ldpc_torch import config as cfg
+    from cuda_ldpc_torch.ops import channel, minsum_stream
+
+    code = QCBinaryCode.from_registry("PON_LDPC")
+    B, steps, max_iters = 4096, 16, 50
+    sigma_t = torch.tensor([channel.sigma_from_snr(2.45, code.rate, "esn0")],
+                           device=dev)
+    pid = torch.zeros(B, dtype=torch.int64, device=dev)
+    for rule, layered, alpha in (("minsum", False, 1.0),
+                                 ("minsum", True, 0.8), ("bp", False, 1.0)):
+        dec = cfg.BinaryDecoderConfig(
+            rule=rule, schedule="layered" if layered else "flooding",
+            check="syndrome", alpha=alpha, max_iters=max_iters,
+            kernel="cuda")
+        scfg = cfg.BinarySimConfig(code=code.name, decoder=dec,
+                                   batch_per_device=B, tx="random",
+                                   engine="stream", stream_steps=steps)
+        kernel = sim.make_binary_stream_engine(code, scfg, dev)
+        plain = sim._kernel_stream(
+            functools.partial(minsum_stream.stream_step, code=code,
+                              max_iters=max_iters, alpha=alpha, beta=0.0,
+                              check="syndrome", rule=rule, layered=layered),
+            (code.num_edges, code.Z),
+            lambda hard, cw: sim._bit_errors(hard, cw, code.L - code.J),
+            sim._binary_source(code, scfg, B, dev), B, 1, max_iters, steps,
+            dev)
+        ks = kernel.init(torch.Generator(device=dev).manual_seed(950),
+                         sigma_t, pid)
+        ps = plain.init(torch.Generator(device=dev).manual_seed(950),
+                        sigma_t, pid)
+        total, per_call = {}, []
+        for ci in range(1, 5):
+            if ci < 4:
+                ks, kc = kernel.run(ks, (17, ci), sigma_t, pid)
+                ps, pc = plain.run(ps, (17, ci), sigma_t, pid)
+            else:
+                ks, kc = kernel.drain(ks)
+                ps, pc = plain.drain(ps)
+            torch.cuda.synchronize()
+            counts = {"counters": int((kc != pc).sum()),
+                      **{f"state{j}": int((~same_bits(x, y)).sum())
+                         for j, x, y in zip(range(len(ks)), ks, ps)}}
+            per_call.append({"call": ci, "counters": kc[0].tolist(),
+                             "mismatches": counts})
+            for n, c in counts.items():
+                total[n] = total.get(n, 0) + c
+        label = (f"PON_LDPC esn0 2.45 {'layered' if layered else 'flooding'}"
+                 f" {rule} syndrome random codewords")
+        mismatches["minsum_stream"] += sum(total.values())
+        _emit("parity", kernel="minsum_stream", tx="random", case=label,
+              batch=B, calls=per_call, state_tensors=len(ks),
+              max_abs_err=float(sum(total.values()) > 0))
+        if len(ks) != 7 or any(total.values()):
+            raise AssertionError(f"K4's engine != plain on {label}: {total}")
+        del kernel, plain, ks, ps
+    torch.cuda.empty_cache()
+
+
+def encode_timing(dev, card) -> None:
+    """Phase 5: what a random-codeword batch costs beside its decode, at
+    B=4096, in turns (decode, encode, encode, decode), one batch in flight:
+    PON_LDPC (the message draw and the product, against K1 flooding min-sum
+    with the syndrome check, maxIT 50, early stop, at Es/N0 2.5 dB, as the
+    `--tx random` sweep decodes it) and BDS.576.288.GF.64 (against K5
+    flooding qspa, maxIT 20, at Eb/N0 2 dB)."""
+    import torch
+
+    from cuda_ldpc_torch import NBCode, QCBinaryCode, sim
+    from cuda_ldpc_torch import config as cfg
+    from cuda_ldpc_torch.models.encoder import BinaryEncoder, NBEncoder
+    from cuda_ldpc_torch.ops import channel, cuda_minsum, cuda_qspa
+
+    B = 4096
+    for name in ("PON_LDPC", "BDS.576.288.GF.64"):
+        binary = name == "PON_LDPC"
+        if binary:
+            code = QCBinaryCode.from_registry(name)
+            enc = BinaryEncoder.from_code(code)
+            width, snr = enc.k_eff, 2.5
+            scfg = cfg.BinarySimConfig(code=name, batch_per_device=B,
+                                       tx="random", decoder=cfg.
+                                       BinaryDecoderConfig(check="syndrome"))
+            src = sim._binary_source(code, scfg, B, dev)
+            sigma = channel.sigma_from_snr(snr, code.rate, "esn0")
+        else:
+            code = NBCode.from_registry(name)
+            enc = NBEncoder.from_code(code)
+            width, snr = enc.k_eff * code.q_bit, 2.0
+            src = sim._make_nb_source(code, cfg.NBSimConfig(
+                code=name, batch_per_device=B, tx="random"), B, dev)
+            sigma = channel.sigma_from_snr(snr, code.rate, "ebn0")
+        chans = [src(torch.Generator(device=dev).manual_seed(60 + i),
+                     sigma)[0] for i in range(2)]
+
+        def launch(which, i):
+            if which == "decode":
+                if binary:
+                    return cuda_minsum.decode_flooding(
+                        chans[i % 2], code, 50, check="syndrome")
+                return cuda_qspa.decode_flooding(chans[i % 2], code, 20)
+            g = torch.Generator(device=dev).manual_seed(70 + i)
+            msg = torch.randint(0, 2, (B, width), generator=g,
+                                dtype=torch.int8, device=dev)
+            return enc.encode_torch(msg)
+
+        runs = time_turns(launch, {"decode": 10, "encode": 20},
+                          order=("decode", "encode", "encode", "decode"))
+        ms = {k: statistics.median(v) for k, v in runs.items()}
+        its = [launch("decode", i).iters for i in range(2)]
+        _emit("encode_timing", code=name, batch=B, snr=snr, card=card,
+              product_shape=[B, width, int(enc.pivots.size)
+                             * (1 if binary else code.q_bit)],
+              ms_per_batch=runs, median_ms=ms,
+              decode_iters=[float(x.float().mean()) for x in its],
+              encode_share_of_decode=ms["encode"] / ms["decode"])
+
+
+def same_bits(x, y):
+    """Elementwise: equal, float32 compared bit for bit (-0.0 != 0.0)."""
+    import torch
+    if x.dtype == torch.float32:
+        return x.view(torch.int32) == y.view(torch.int32)
+    return x == y
+
+
+def _refill(state, new):
+    """A stream step's state after a refill: the finished slots take the
+    new channel values, their counts and flags reset."""
+    import torch
+    chan, msgs, t, done, okf = state
+    fin = done.bool()
+    chan = torch.where(fin.reshape(-1, *([1] * (chan.dim() - 1))), new, chan)
+    return [chan, msgs, t * (~fin).int(), torch.zeros_like(done),
+            torch.zeros_like(okf)]
+
+
+def _stream_parity(dev, max_err, mismatches, key, kernel_step, plain_step,
+                   chans, msg_shape, max_iters, label, other_step=None):
+    """The kernel against the plain step over the stream engines' call
+    sequence (k = 1, refill, k = 16, refill, drain k = max_iters + 1), every
+    tensor bit for bit; with ``other_step`` (another design of the kernel),
+    also the kernel against it, counted under "other_*".  Adds to
+    ``max_err`` and ``mismatches`` under ``key``; returns the totals."""
+    import torch
+    B = chans[0].shape[0]
+    z = torch.zeros(B, dtype=torch.int32, device=dev)
+    start = [chans[0], torch.zeros((B,) + msg_shape, device=dev), z, z, z]
+    ks = [x.clone() for x in start]
+    ps = [x.clone() for x in start]
+    os_ = [x.clone() for x in start]
+    calls = [(1, chans[1]), (16, chans[2]), (max_iters + 1, None)]
+    names = ("chan", "msgs", "hard", "t", "done", "okf")
+    total, err, per_call = {}, 0.0, []
+    for k, new in calls:
+        a = kernel_step(*ks, k=k)
+        b = plain_step(*ps, k=k)
+        o = other_step(*os_, k=k) if other_step else None
+        torch.cuda.synchronize()
+        okv = b[5].bool()
+        counts = {n: int((~same_bits(x, y)).sum())
+                  for n, x, y in zip(names, a, b)}
+        counts["hard_in_ok_slots"] = int((a[2] != b[2])[okv].sum())
+        if o is not None:
+            counts.update({f"other_{n}": int((~same_bits(x, y)).sum())
+                           for n, x, y in zip(names, a, o)})
+        err = max(err, *(float((x.double() - y.double()).abs().max())
+                         for x, y in zip(a, b) if x.numel()))
+        per_call.append({"k": k, "finished": int(b[4].sum()),
+                         "passed": int(okv.sum()), "mismatches": counts})
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        ks = [x for i, x in enumerate(a) if i != 2]
+        ps = [x for i, x in enumerate(b) if i != 2]
+        if new is not None:
+            ks, ps = _refill(ks, new), _refill(ps, new)
+        if o is not None:
+            os_ = [x for i, x in enumerate(o) if i != 2]
+            if new is not None:
+                os_ = _refill(os_, new)
+    max_err[key] = max(max_err[key], err)
+    mismatches[key] += sum(total.values()) - total["hard_in_ok_slots"]
+    _emit("parity", kernel=key, case=label, batch=B, calls=per_call,
+          max_abs_err=err)
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -809,13 +1078,17 @@ def main() -> int:
     def code_of(name):
         return codes.setdefault(name, QCBinaryCode.from_registry(name))
 
-    def chan_for(code, snr_type, snr, batch, seed, rule="minsum"):
+    def chan_for(code, snr_type, snr, batch, seed, rule="minsum",
+                 tx="zero"):
+        """(chan, cw) from the sweep's own source (sim._binary_source): the
+        all-zero word (cw None) or random codewords, BPSK + AWGN; bp's true
+        LLRs, as the sweep's step gives them."""
         sigma = channel.sigma_from_snr(snr, code.rate, snr_type)
-        g = torch.Generator(device=dev).manual_seed(seed)
-        cw = torch.zeros((code.L, code.Z), device=dev)
-        chan = channel.bpsk_awgn_llr(g, cw, sigma, batch)
-        # bp needs true LLRs, as the sweep's step gives it
-        return chan.mul_(2.0 / (sigma * sigma)) if rule == "bp" else chan
+        scfg = cfg.BinarySimConfig(
+            code=code.name, batch_per_device=batch, tx=tx,
+            decoder=cfg.BinaryDecoderConfig(rule=rule, check="syndrome"))
+        return sim._binary_source(code, scfg, batch, dev)(
+            torch.Generator(device=dev).manual_seed(seed), sigma)
 
     def passes_then_fails(batch):
         """Two J4_L24_Z96 frames, tiled to the batch, whose batch needs the
@@ -863,17 +1136,35 @@ def main() -> int:
         ("PON_LDPC", "esn0", 2.3, 4096, 50, "syndrome", True, 1.0, 0.0),
         ("PON_LDPC", "esn0", 2.3, 512, 10, "none", False, 0.8, 0.1),
     ]
-    cases = ([("flooding", "minsum", *c) for c in minsum_cases]
-             + [("layered", "minsum", *c) for c in minsum_cases]
-             + [(s, "bp", *c) for s in ("flooding", "layered")
-                for c in bp_cases])
+    # random codewords (`--tx random`): the rule, then the columns above;
+    # last, so that the all-zero cases keep their seeds
+    random_cases = [
+        ("minsum", "J4_L24_Z96", "ebn0", 3.6, 4096, 50, "syndrome", True, 1.0,
+         0.0),
+        ("minsum", "J4_L24_Z96", "ebn0", 3.3, 4096, 20, "syndrome", False,
+         0.8, 0.1),
+        ("minsum", "PON_LDPC", "esn0", 2.5, 4096, 50, "syndrome", True, 1.0,
+         0.0),
+        ("minsum", "PON_LDPC", "esn0", 2.45, 4096, 10, "syndrome", False, 0.8,
+         0.1),
+        ("bp", "J4_L24_Z96", "ebn0", 3.6, 4096, 50, "syndrome", True, 1.0,
+         0.0),
+        ("bp", "PON_LDPC", "esn0", 2.3, 4096, 50, "syndrome", True, 1.0, 0.0),
+    ]
+    cases = ([("flooding", "minsum", "zero", *c) for c in minsum_cases]
+             + [("layered", "minsum", "zero", *c) for c in minsum_cases]
+             + [(s, "bp", "zero", *c) for s in ("flooding", "layered")
+                for c in bp_cases]
+             + [(s, rule, "random", *c) for rule, *c in random_cases
+                for s in ("flooding", "layered")])
     max_err = {name: 0.0 for name, _, _ in KERNELS}
     mismatches = {name: 0 for name, _, _ in KERNELS}
-    for i, (schedule, rule, name, st, snr, B, iters, check, early, alpha,
+    for i, (schedule, rule, tx, name, st, snr, B, iters, check, early, alpha,
             beta) in enumerate(cases):
         code = code_of(name)
-        chan = (passes_then_fails(B) if st == "crafted" else
-                chan_for(code, st, snr, B, seed=100 + i, rule=rule))
+        chan, cw = ((passes_then_fails(B), None) if st == "crafted"
+                    else chan_for(code, st, snr, B, seed=100 + i, rule=rule,
+                                  tx=tx))
         kw = dict(alpha=alpha, beta=beta, check=check, early_stop=early,
                   rule=rule)
         a = getattr(cuda_minsum, f"decode_{schedule}")(chan, code, iters, **kw)
@@ -900,16 +1191,20 @@ def main() -> int:
         mismatches[key] += (counts["hard"] + counts["ok"]
                             + counts.get("global_hard", 0)
                             + counts.get("global_ok", 0))
-        _emit("parity", kernel=key, code=name, snr=f"{st} {snr}", batch=B,
-              iters=iters, check=check, early_stop=early, alpha=alpha,
-              beta=beta, kernel_iters=int(a.iters), plain_iters=int(b.iters),
-              frames_ok=int(a.ok.sum()), mismatches=counts, max_abs_err=err)
+        wrong = b.hard.bool() if cw is None else b.hard.bool() != cw
+        _emit("parity", kernel=key, tx=tx, code=name, snr=f"{st} {snr}",
+              batch=B, iters=iters, check=check, early_stop=early,
+              alpha=alpha, beta=beta, kernel_iters=int(a.iters),
+              plain_iters=int(b.iters), frames_ok=int(a.ok.sum()),
+              frames_decoded_to_their_codeword=int(
+                  (wrong.flatten(1).sum(1) == 0).sum()),
+              mismatches=counts, max_abs_err=err)
         # exact for both rules: the kernel's logf/tanhf and torch.log /
         # torch.tanh on the card agree to the last bit
         if any(v for k, v in counts.items() if k != "hard_in_ok_frames"):
             raise AssertionError(f"kernel != plain or the global design on "
                                  f"case {i}: {cases[i]}: {counts}")
-        del a, b, g, chan, hard_diff
+        del a, b, g, chan, cw, hard_diff, wrong
     torch.cuda.empty_cache()
 
     # GF(q): K5 and K6 against the plain nb_decode on the same CUDA tensors
@@ -922,16 +1217,21 @@ def main() -> int:
                               else NBCode.from_registry(name))
         return nb_codes[name]
 
-    def nb_chan(code, ebn0, batch, seed, n_qam=2):
-        """Symbol LLRs of the all-zero codeword, BPSK or QAM + AWGN, as the
-        nb sweep's source draws them."""
+    def nb_chan(code, ebn0, batch, seed, n_qam=2, tx="zero"):
+        """(L, tx): symbol LLRs of the all-zero codeword (tx None) or of
+        random codewords (the nb sweep's source under `--tx random`,
+        sim._make_nb_source), BPSK or QAM + AWGN."""
         sigma = channel.sigma_from_snr(ebn0, code.rate, "ebn0",
                                        float(np.log2(n_qam)))
+        g = torch.Generator(device=dev).manual_seed(seed)
+        if tx == "random":
+            ncfg = cfg.NBSimConfig(code=code.name, batch_per_device=batch,
+                                   tx=tx, n_qam=n_qam)
+            return sim._make_nb_source(code, ncfg, batch, dev)(g, sigma)
         labels = np.zeros(code.bit_length if n_qam == 2 else code.n_sym,
                           dtype=np.int64)
-        g = torch.Generator(device=dev).manual_seed(seed)
         return demod.nb_channel_llr(g, labels, constellation(n_qam), sigma,
-                                    batch, code.q, device=dev)
+                                    batch, code.q, device=dev), None
 
     nb_pairs = {   # kernel name -> (wrapper, plain version)
         "qspa_flooding": (cuda_qspa.decode_flooding, nb_decode.decode_qspa),
@@ -965,13 +1265,23 @@ def main() -> int:
         ("synthetic_gf16", 2.5, 2, 37, 12, True),
         ("synthetic_gf32", 3.0, 2, 37, 12, True),
     ]
-    nb_cases = ([(f"qspa_{s}", *c) for s in ("flooding", "layered")
+    # random codewords: the kernel, then the columns above; last, so that
+    # the all-zero cases keep their seeds
+    nb_random = [
+        ("qspa", "BDS.576.288.GF.64", 1.5, 2, 4096, 20, True),
+        ("qspa", "BDS.576.288.GF.64", 7.0, 64, 4096, 20, True),
+        ("qspa_qc", "Tanner_74_9_Z128_GF16", 3.3, 2, 256, 20, True),
+    ]
+    nb_cases = ([(f"qspa_{s}", "zero", *c) for s in ("flooding", "layered")
                  for c in k5_cases]
-                + [(f"qspa_qc_{s}", *c) for s in ("flooding", "layered")
-                   for c in k6_cases])
-    for i, (key, name, ebn0, n_qam, B, iters, early) in enumerate(nb_cases):
+                + [(f"qspa_qc_{s}", "zero", *c)
+                   for s in ("flooding", "layered") for c in k6_cases]
+                + [(f"{k}_{s}", "random", *c) for k, *c in nb_random
+                   for s in ("flooding", "layered")])
+    for i, (key, tx, name, ebn0, n_qam, B, iters,
+            early) in enumerate(nb_cases):
         code = nb_code(name)
-        L = nb_chan(code, ebn0, B, seed=300 + i, n_qam=n_qam)
+        L, sent = nb_chan(code, ebn0, B, seed=300 + i, n_qam=n_qam, tx=tx)
         kernel, plain = nb_pairs[key]
         a = kernel(L, code, iters, early_stop=early)
         b = plain(L, code, iters, early_stop=early)
@@ -1005,10 +1315,12 @@ def main() -> int:
         max_err[key] = max(max_err[key], float(err))
         mismatches[key] += sum(v for k, v in counts.items()
                                if k != "hard_in_ok_frames")
-        _emit("parity", kernel=key, code=name, ebn0=ebn0, n_qam=n_qam,
-              batch=B, iters=iters, early_stop=early,
+        _emit("parity", kernel=key, tx=tx, code=name, ebn0=ebn0,
+              n_qam=n_qam, batch=B, iters=iters, early_stop=early,
               layout=None if key.startswith("qspa_qc") else layout,
               frames_ok=int(b.ok.sum()),
+              frames_decoded_to_their_codeword=int((b.hard == (
+                  0 if sent is None else sent)).all(1).sum()),
               avg_iters=float(b.iters.float().mean()) if B else 0.0,
               mismatches=counts, max_abs_err=err)
         # K5 exactly on every frame; K6's hard on frames whose check passed
@@ -1016,7 +1328,7 @@ def main() -> int:
                if k != "hard" or not key.startswith("qspa_qc")):
             raise AssertionError(f"kernel != plain or another design on "
                                  f"GF(q) case {i}: {nb_cases[i]}: {counts}")
-        del a, b, others, L, hard_diff
+        del a, b, others, L, sent, hard_diff
     torch.cuda.empty_cache()
 
     # K8 against the plain nb_decode, and its row groups against the serial
@@ -1048,10 +1360,17 @@ def main() -> int:
         ("LDPC_N96_K48_GF256_d1_exp", 2.0, 64, 20, True),
         ("LDPC_N576_K480_GF256_exp", 3.0, 16, 20, True),
     ]
+    k8_random = [   # random codewords, last (the cases above keep seeds)
+        ("BDS.576.288.GF.64", 3.0, 4096, 20, False),
+        ("BDS.576.288.GF.64", 2.5, 1024, 10, True),
+    ]
+    k8_all = ([(*c, "zero") for c in k8_cases]
+              + [(*c, "random") for c in k8_random])
     for key in k8_pairs:
-        for i, (name, ebn0, B, iters, layered_plain) in enumerate(k8_cases):
+        for i, (name, ebn0, B, iters, layered_plain,
+                tx) in enumerate(k8_all):
             code = nb_code(name)
-            L = nb_chan(code, ebn0, B, seed=800 + i)
+            L, sent = nb_chan(code, ebn0, B, seed=800 + i, tx=tx)
             kernel, plain = k8_pairs[key]
             a = kernel(L, code, iters)
             s = k8_serial[key](L, code, iters)
@@ -1069,80 +1388,25 @@ def main() -> int:
                        int((a.iters - b.iters).abs().max()) if B else 0])
             max_err[key] = max(max_err[key], float(err))
             mismatches[key] += sum(counts.values())
-            _emit("parity", kernel=key, code=name, ebn0=ebn0, batch=B,
-                  iters=iters, groups=cuda_nbms.groups(
+            _emit("parity", kernel=key, tx=tx, code=name, ebn0=ebn0,
+                  batch=B, iters=iters, groups=cuda_nbms.groups(
                       cuda_nbms.make_plan(code), key[len("nbms_"):]),
                   against_plain=b is not s, frames_ok=int(b.ok.sum()),
+                  frames_decoded_to_their_codeword=int((b.hard == (
+                      0 if sent is None else sent)).all(1).sum()),
                   avg_iters=float(b.iters.float().mean()),
                   mismatches=counts, max_abs_err=err)
             if any(counts.values()):
                 raise AssertionError(f"K8 != plain or the serial design on "
-                                     f"{key} {k8_cases[i]}: {counts}")
-            del a, b, s, L
+                                     f"{key} {k8_all[i]}: {counts}")
+            del a, b, s, L, sent
         torch.cuda.empty_cache()
 
     # K4 and K7 against their plain versions over the stream engines' call
     # sequence: k = 1, refill, k = 16, refill, drain (k = max_iters + 1);
     # both on the card, each on its own copy of the state
-    def refill(state, new):
-        chan, msgs, t, done, okf = state
-        fin = done.bool()
-        chan = torch.where(fin.reshape(-1, *([1] * (chan.dim() - 1))), new,
-                           chan)
-        return [chan, msgs, t * (~fin).int(), torch.zeros_like(done),
-                torch.zeros_like(okf)]
-
-    def same_bits(x, y):
-        """Elementwise: equal, float32 compared bit for bit (-0.0 != 0.0)."""
-        if x.dtype == torch.float32:
-            return x.view(torch.int32) == y.view(torch.int32)
-        return x == y
-
-    def stream_parity(key, kernel_step, plain_step, chans, msg_shape,
-                      max_iters, label, other_step=None):
-        """The kernel against the plain step over the call sequence, every
-        tensor bit for bit; with ``other_step`` (another design of the
-        kernel), also the kernel against it, counted under "other_*"."""
-        B = chans[0].shape[0]
-        z = torch.zeros(B, dtype=torch.int32, device=dev)
-        start = [chans[0], torch.zeros((B,) + msg_shape, device=dev), z, z, z]
-        ks = [x.clone() for x in start]
-        ps = [x.clone() for x in start]
-        os_ = [x.clone() for x in start]
-        calls = [(1, chans[1]), (16, chans[2]), (max_iters + 1, None)]
-        names = ("chan", "msgs", "hard", "t", "done", "okf")
-        total, err, per_call = {}, 0.0, []
-        for k, new in calls:
-            a = kernel_step(*ks, k=k)
-            b = plain_step(*ps, k=k)
-            o = other_step(*os_, k=k) if other_step else None
-            torch.cuda.synchronize()
-            okv = b[5].bool()
-            counts = {n: int((~same_bits(x, y)).sum())
-                      for n, x, y in zip(names, a, b)}
-            counts["hard_in_ok_slots"] = int((a[2] != b[2])[okv].sum())
-            if o is not None:
-                counts.update({f"other_{n}": int((~same_bits(x, y)).sum())
-                               for n, x, y in zip(names, a, o)})
-            err = max(err, *(float((x.double() - y.double()).abs().max())
-                             for x, y in zip(a, b) if x.numel()))
-            per_call.append({"k": k, "finished": int(b[4].sum()),
-                             "passed": int(okv.sum()), "mismatches": counts})
-            for n, c in counts.items():
-                total[n] = total.get(n, 0) + c
-            ks = [x for i, x in enumerate(a) if i != 2]
-            ps = [x for i, x in enumerate(b) if i != 2]
-            if new is not None:
-                ks, ps = refill(ks, new), refill(ps, new)
-            if o is not None:
-                os_ = [x for i, x in enumerate(o) if i != 2]
-                if new is not None:
-                    os_ = refill(os_, new)
-        max_err[key] = max(max_err[key], err)
-        mismatches[key] += sum(total.values()) - total["hard_in_ok_slots"]
-        _emit("parity", kernel=key, case=label, batch=B, calls=per_call,
-              max_abs_err=err)
-        return total
+    stream_parity = functools.partial(_stream_parity, dev, max_err,
+                                      mismatches)
 
     k4_cases = [
         # code, snr type, snr, batch, max_iters
@@ -1162,7 +1426,7 @@ def main() -> int:
         for layered in (False, True):
             for rule in ("minsum", "bp"):
                 chans = [chan_for(code, st, snr, B, seed=500 + 7 * i + j,
-                                  rule=rule) for j in range(3)]
+                                  rule=rule)[0] for j in range(3)]
                 for check, alpha, beta in k4_params[rule]:
                     if alpha is None:
                         alpha = 0.8 if layered else 1.0
@@ -1201,14 +1465,18 @@ def main() -> int:
         ("LDPC_N96_K48_GF256_d1_exp", 2.0, 1024),
         ("LDPC_N576_K480_GF256_exp", 3.0, 512),
     ]
-    for i, (name, ebn0, B) in enumerate(k7_cases):
+    k7_random = [("BDS.576.288.GF.64", 1.0, 4096)]   # last: seeds above kept
+    for i, (name, ebn0, B, tx) in enumerate(
+            [(*c, "zero") for c in k7_cases]
+            + [(*c, "random") for c in k7_random]):
         code = nb_code(name)
-        chans = [nb_chan(code, ebn0, B, seed=700 + 5 * i + j)
+        chans = [nb_chan(code, ebn0, B, seed=700 + 5 * i + j, tx=tx)[0]
                  for j in range(3)]
         E = int(code.cn_mask.sum())
         for layered in (False, True):
             kw = dict(code=code, max_iters=20, layered=layered)
-            label = f"{name} {ebn0} {'layered' if layered else 'flooding'}"
+            label = (f"{name} {ebn0} {'layered' if layered else 'flooding'}"
+                     + (" random codewords" if tx == "random" else ""))
             total = stream_parity(
                 "qspa_stream",
                 functools.partial(cuda_qspa_stream.stream_step, **kw),
@@ -1226,6 +1494,11 @@ def main() -> int:
                                      f"{label}: {total}")
         del chans
     torch.cuda.empty_cache()
+
+    # K4 as the stream engine runs it on random codewords, and the device
+    # encode
+    stream_engine_parity(dev, max_err, mismatches)
+    encode_parity(dev)
 
     # ---- 4. the main path, through the CLI
     keep = ("snr", "frames", "error_frames", "error_units", "fer", "ber",
@@ -1331,6 +1604,7 @@ def main() -> int:
         no_slower("j15 bp", bp_lay, bp)
 
         rows, _ = drive(tmp, "pon", "minsum_flooding", pon)
+        pon_zero = rows
         if len(rows) != 2:
             raise AssertionError(f"bad PON_LDPC rows: {rows}")
         lay, _ = drive(tmp, "pon_layered", "minsum_layered",
@@ -1601,6 +1875,55 @@ def main() -> int:
                 anchor("bds_ems_committed", "BDS.576.288.GF.64", 3.0, r,
                        (105, 2048))
 
+        # random codewords through the CLI (--tx random, the syndrome
+        # check): FERs compatible with the all-zero word's, as linearity
+        # demands, and with the anchors.  J8_L24_Z96 at Eb/N0 2.53 dB,
+        # 32768 frames each (VALIDATION.md:61-64: zero 371, random 360)
+        random = ["--tx", "random", "--check", "syndrome"]
+        j8 = ["binary", "--code", "J8_L24_Z96", "--snr", "2.53",
+              "--snr-type", "ebn0", "--max-iters", "50", "--batch", "4096",
+              "--least-error-frames", "50", "--least-test-frames", "32768",
+              "--max-frames", "32768"]
+        j8_zero, _ = drive(tmp, "j8_zero", "minsum_flooding", j8)
+        j8_random, _ = drive(tmp, "j8_random", "minsum_flooding",
+                             j8 + random)
+        anchor("j8_zero", "J8_L24_Z96", 2.53, j8_zero[0], (371, 32768))
+        anchor("j8_random", "J8_L24_Z96", 2.53, j8_random[0], (360, 32768))
+        same_fer("j8_random_vs_zero", j8_random, j8_zero)
+        # PON_LDPC in its waterfall, batch and stream, against the zero
+        # word's batch rows
+        got, _ = drive(tmp, "pon_random", "minsum_flooding", pon + random)
+        same_fer("pon_random_vs_zero", got, pon_zero)
+        got, n = drive(tmp, "pon_stream_random", "minsum_stream_flooding",
+                       pon + stream + random)
+        launches["minsum_stream"] += n
+        same_fer("pon_stream_random_vs_zero", got, pon_zero)
+        # GF(q): BDS qspa at 1 and 2 dB against VALIDATION.md:21-22, the
+        # stream and packed engines and the default ems
+        got, n = drive(tmp, "bds_qspa_random", "qspa_flooding",
+                       bds_k5 + ["--method", "qspa", "--tx", "random"])
+        launches["qspa_flooding"] += n
+        anchor("bds_qspa_random", "BDS.576.288.GF.64", 1.0, got[0],
+               (598, 2304))
+        anchor("bds_qspa_random", "BDS.576.288.GF.64", 2.0, got[1],
+               (54, 16640))
+        got, n = drive(tmp, "bds_stream_random", "qspa_stream_flooding",
+                       bds12 + stream + ["--method", "qspa", "--tx",
+                                         "random"])
+        launches["qspa_stream"] += n
+        anchor("bds_stream_random", "BDS.576.288.GF.64", 1.0, got[0],
+               (598, 2304))
+        got, _ = drive(tmp, "bds_packed_random", "qspa_layered",
+                       bds12 + ["--packed", "--method", "layered_qspa",
+                                "--tx", "random"])
+        anchor("bds_packed_random", "BDS.576.288.GF.64", 1.0, got[0],
+               (872, 4096))
+        got, n = drive(tmp, "bds_ems_random", "nbms_ems",
+                       bds12 + ["--tx", "random"])
+        launches["nbms_ems"] += n
+        for r, ref in zip(got, ((2046, 2048), (1615, 2048))):
+            anchor("bds_ems_random", "BDS.576.288.GF.64", r["snr"], r, ref)
+
         _emit("stream_vs_batch", card=card, info_mbps=[
             (label, [(a["snr"], a["info_mbps"], b["info_mbps"])
                      for a, b in zip(got, batch_rows)])
@@ -1618,7 +1941,7 @@ def main() -> int:
                for s in ("flooding", "layered")]):
         code = code_of(code_name)
         rule, schedule = name.split("_")
-        chans = [chan_for(code, "esn0", -1.5, B, seed=7 + i, rule=rule)
+        chans = [chan_for(code, "esn0", -1.5, B, seed=7 + i, rule=rule)[0]
                  for i in range(2)]
         decoders = {"kernel": getattr(cuda_minsum, f"decode_{schedule}"),
                     "plain": getattr(minsum, f"decode_{schedule}")}
@@ -1668,7 +1991,7 @@ def main() -> int:
     ]
     for name, code_name, ebn0, B, plain_reps in nb_timing:
         code = nb_code(code_name)
-        chans = [nb_chan(code, ebn0, B, seed=17 + i) for i in range(2)]
+        chans = [nb_chan(code, ebn0, B, seed=17 + i)[0] for i in range(2)]
         decoders = dict(zip(("kernel", "plain"), nb_pairs[name]))
         reps = {"kernel": 20, "plain": plain_reps}
         order = ("plain", "kernel", "kernel", "plain")
@@ -1749,7 +2072,7 @@ def main() -> int:
             ("minsum_stream pon", "PON_LDPC", 0.0, "minsum", False),
             ("minsum_stream pon layered", "PON_LDPC", 0.0, "minsum", True)):
         code = code_of(name)
-        chan0 = chan_for(code, "esn0", snr, B, seed=27, rule=rule)
+        chan0 = chan_for(code, "esn0", snr, B, seed=27, rule=rule)[0]
         steps = {"kernel": cuda_minsum_stream.stream_step,
                  "plain": minsum_stream.stream_step}
         plans = {}
@@ -1800,13 +2123,13 @@ def main() -> int:
     # the select into the finished ones
     scfg = cfg.BinarySimConfig(code=code.name, batch_per_device=B)
     fresh = sim._binary_source(code, scfg, B, dev)
-    chan = fresh(torch.Generator(device=dev).manual_seed(1), 0.9)
+    chan = fresh(torch.Generator(device=dev).manual_seed(1), 0.9)[0]
     fin = torch.rand(B, device=dev) < 0.5
     events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     fresh(torch.Generator(device=dev).manual_seed(2), 0.9)
     events[0].record()
     for i in range(10):
-        new = fresh(torch.Generator(device=dev).manual_seed(3 + i), 0.9)
+        new = fresh(torch.Generator(device=dev).manual_seed(3 + i), 0.9)[0]
         chan = torch.where(fin[:, None, None], new, chan)
     events[1].record()
     events[1].synchronize()
@@ -1821,7 +2144,7 @@ def main() -> int:
     # row groups, the serial design and the plain version in turns
     code = nb_code("BDS.576.288.GF.64")
     E = int(code.cn_mask.sum())
-    chan0 = nb_chan(code, 0.0, B, seed=37)
+    chan0 = nb_chan(code, 0.0, B, seed=37)[0]
     turns = ("plain", "serial", "kernel", "kernel", "serial", "plain")
     for layered in (False, True):
         steps = {"kernel": cuda_qspa_stream.stream_step,
@@ -1865,7 +2188,7 @@ def main() -> int:
     # frames, each method's row groups, serial design and plain version in
     # turns
     code, B, iters = nb_code("BDS.576.288.GF.64"), 4096, 10
-    chans = [nb_chan(code, 0.0, B, seed=47 + i) for i in range(2)]
+    chans = [nb_chan(code, 0.0, B, seed=47 + i)[0] for i in range(2)]
     plan = cuda_nbms.make_plan(code)
     for key, (kernel, plain) in k8_pairs.items():
         decoders = {"kernel": kernel, "serial": k8_serial[key],
@@ -1893,6 +2216,7 @@ def main() -> int:
         del res
         torch.cuda.empty_cache()
     del chans
+    encode_timing(dev, card)
 
     # ---- 6. the measuring path and the probes
     measuring_path(card, wrappers)

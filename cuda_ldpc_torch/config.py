@@ -79,7 +79,10 @@ class BinarySimConfig:
     batch_per_device: int = 4096      # Num_Frames_OneTime (define.cuh:60)
     add_noise: bool = True            # Add_noise (define.cuh:44)
     tx: str = "zero"                  # 'zero' (the reference's only mode) or
-                                      # 'random' (real encoder + syndrome check)
+                                      # 'random' (a random codeword a frame,
+                                      # models/encoder.BinaryEncoder; needs
+                                      # check='syndrome' and the device
+                                      # channel)
     channel: str = "jax"              # 'jax' or 'device' (the device
                                       # generator; 'jax' is the JAX package's
                                       # name for it) or 'reference' (the CUDA
@@ -120,7 +123,8 @@ class NBSimConfig:
     n_qam: int = 2                    # n_QAM (define.h:25): 2 | 64 | 256
     batch_per_device: int = 256
     tx: str = "zero"                  # 'zero' | 'fixture' (codeword_test.h) |
-                                      # 'random' (encoder, not ported yet)
+                                      # 'random' (a random codeword a frame,
+                                      # models/encoder.NBEncoder)
     # engine: 'batch' decodes whole batches to the slowest frame's iteration
     # count (like the reference); 'stream' is the continuous-batching engine
     # (the CUDA stream kernel K7 on a card).

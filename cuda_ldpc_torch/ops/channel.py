@@ -59,3 +59,17 @@ def bpsk_awgn_llr(generator: torch.Generator, codeword: torch.Tensor,
     if isinstance(sigma, torch.Tensor):
         sigma = sigma.to(torch.float32).reshape((-1,) + (1,) * codeword.dim())
     return noise.mul_(sigma).add_(x)
+
+
+def bpsk_awgn_frames(generator: torch.Generator, codewords: torch.Tensor,
+                     sigma: float | torch.Tensor) -> torch.Tensor:
+    """The binary channel of per-frame codewords [B, L, Z] (0/1, one
+    codeword a frame): y = 1 - 2c + sigma * n, with n drawn from
+    ``generator`` in the shape ``bpsk_awgn_llr`` draws for the same batch.
+    ``sigma``: a float or a [B] tensor."""
+    noise = torch.randn(codewords.shape, generator=generator,
+                        dtype=torch.float32, device=codewords.device)
+    if isinstance(sigma, torch.Tensor):
+        sigma = sigma.to(torch.float32).reshape(
+            (-1,) + (1,) * (codewords.dim() - 1))
+    return noise.mul_(sigma).add_(bpsk(codewords))

@@ -1,7 +1,6 @@
 """Non-binary modulation and symbol-LLR demodulation (counterpart of
-cuda_ldpc_tpu/ops/demod.py:25-75 and 109-132; ``nb_channel_llr_tx``, the
-per-frame random-codeword channel, comes with the encoder, ROADMAP.md Queue
-1 items 7 and 11).
+cuda_ldpc_tpu/ops/demod.py:25-132; ``nb_channel_llr_tx`` is the channel of
+per-frame codewords, the random codewords of models/encoder.py).
 
 Capability parity with the reference's encoder/demodulator pair
 (myNBLDPC/src/LDPC_Encoder.cpp:6-36, myNBLDPC/src/LDPC_Decoder.cpp:132-171):
@@ -112,4 +111,39 @@ def nb_channel_llr(generator: torch.Generator, tx_labels: np.ndarray,
     noise = torch.randn((batch,) + tuple(x.shape), generator=generator,
                         dtype=torch.float32, device=device)
     y = x[None] + (sig[:, None, None] if per_frame else sig) * noise
+    return llr_qam(y, sig[:, None, None] if per_frame else sig, points)
+
+
+def nb_channel_llr_tx(generator: torch.Generator, tx_syms: torch.Tensor,
+                      points: np.ndarray, sigma, q: int) -> torch.Tensor:
+    """Per-frame transmit symbols -> modulate -> complex AWGN drawn from
+    ``generator`` -> symbol LLRs (cuda_ldpc_tpu/ops/demod.py:77-106), on
+    tx_syms' device.  tx_syms: [B, N] integer symbols, one codeword a frame
+    (NBEncoder.encode_torch).  ``sigma``: scalar or a [B] vector.  Returns
+    [B, N, q].  BPSK sends one sample per bit, LSB-first, modulated without
+    a gather (x = Re(c0) + bit (Re(c1) - Re(c0))); QAM maps a symbol to a
+    point.  The noise has the shape ``nb_channel_llr`` draws for the same
+    modulation, so a frame of all-zero symbols sees the same samples."""
+    B, N = tx_syms.shape
+    dev = tx_syms.device
+    sig = torch.as_tensor(sigma, dtype=torch.float32, device=dev)
+    per_frame = sig.dim() == 1
+    if len(points) == 2:                             # BPSK: one sample per bit
+        q_bit = q.bit_length() - 1
+        shifts = torch.arange(q_bit, device=dev, dtype=tx_syms.dtype)
+        bits = ((tx_syms[..., None] >> shifts) & 1).reshape(B, N * q_bit)
+        re0, re1 = float(points[0].real), float(points[1].real)
+        x = re0 + bits.to(torch.float32) * (re1 - re0)
+        noise = torch.randn((B, N * q_bit), generator=generator,
+                            dtype=torch.float32, device=dev)
+        y = x + (sig[:, None] if per_frame else sig) * noise
+        return llr_bpsk(y.reshape(B, N, q_bit),
+                        sig[:, None, None] if per_frame else sig, q)
+    idx = tx_syms.long()
+    re = torch.as_tensor(points.real, dtype=torch.float32, device=dev)[idx]
+    im = torch.as_tensor(points.imag, dtype=torch.float32, device=dev)[idx]
+    x = torch.stack([re, im], dim=-1)                # [B, N, 2]
+    noise = torch.randn((B, N, 2), generator=generator, dtype=torch.float32,
+                        device=dev)
+    y = x + (sig[:, None, None] if per_frame else sig) * noise
     return llr_qam(y, sig[:, None, None] if per_frame else sig, points)

@@ -32,8 +32,11 @@ Noise: every draw comes from a ``torch.Generator`` on the device seeded by a
 fixed function of the seed and the draw's indices (``batch_seed``): (point,
 batch) for the batch engine, (batch) for the packed one, (point, call) for
 a kernel stream call's refill and (point, call, iteration) for the plain
-stream's per-iteration refill (packed streams drop the point).  A resumed
-sweep therefore redraws exactly the noise it would have drawn.  The
+stream's per-iteration refill (packed streams drop the point).  Under
+tx='random' each draw takes the frames' message bits first and their noise
+after, from the same generator, and the stream engines carry each slot's
+codeword in their state.  A resumed sweep therefore redraws exactly the
+codewords and noise it would have drawn.  The
 'reference' channel reproduces the CUDA reference's LCG on the host
 (utils/native.py, utils/lcg.py), the same noise the JAX package sees, so its
 rows equal the JAX package's exactly.
@@ -54,6 +57,7 @@ import numpy as np
 import torch
 
 from cuda_ldpc_torch import config as cfg
+from cuda_ldpc_torch.models.encoder import BinaryEncoder, NBEncoder
 from cuda_ldpc_torch.models.nb_code import NBCode
 from cuda_ldpc_torch.models.qc_binary import QCBinaryCode
 from cuda_ldpc_torch.ops import (channel, cuda_minsum, cuda_minsum_stream,
@@ -367,9 +371,7 @@ def _profiler(profile_dir: str | None, engine: str, device: torch.device):
 
 # What the port does not run yet, and the ROADMAP.md item that ports it.
 NOT_PORTED = {
-    "tx=random": "Queue 1 item 7 (models/encoder.py)",
     "msg_dtype": "Queue 1 item 4 (bfloat16 message storage)",
-    "nb tx=random": "Queue 1 items 7 and 11 (NBEncoder)",
 }
 
 
@@ -384,17 +386,29 @@ def not_ported(what: str, detail: str = "") -> NotImplementedError:
 
 def check_ported(sim: cfg.BinarySimConfig):
     """Raise NotImplementedError, naming the ROADMAP.md item, for a
-    configuration the port does not run yet."""
+    configuration the port does not run yet, and ValueError for one that
+    makes no sense: tx='random' with the zero check, or with the
+    'reference' channel, whose noise the reference draws for the all-zero
+    codeword (the JAX package's reference channel sends the all-zero word
+    whatever tx says, cuda_ldpc_tpu/sim.py:444-476; the port refuses)."""
     d = sim.decoder
     if d.msg_dtype != "float32":
         raise not_ported("msg_dtype", f"msg_dtype={d.msg_dtype}")
     if sim.engine not in ("batch", "stream"):
         raise ValueError(f"unknown engine {sim.engine!r} "
                          "(expected 'batch' or 'stream')")
-    if sim.tx == "random":
-        raise not_ported("tx=random")
-    if sim.tx != "zero":
+    if sim.tx not in ("zero", "random"):
         raise ValueError(f"unknown tx {sim.tx!r}")
+    if sim.tx == "random":
+        if d.check == "zero":
+            raise ValueError("tx='random' needs check='syndrome' (the "
+                             "reference's zero-check only works for the "
+                             "all-zero codeword)")
+        if sim.channel == "reference":
+            raise ValueError("channel='reference' replays the reference's "
+                             "noise of the all-zero codeword; it sends no "
+                             "random codewords (tx='random' needs channel="
+                             "'device')")
 
 
 def _pick_binary_decode(dec_cfg: cfg.BinaryDecoderConfig,
@@ -419,10 +433,23 @@ def _pick_binary_decode(dec_cfg: cfg.BinaryDecoderConfig,
     return getattr(module, f"decode_{dec_cfg.schedule}")
 
 
-def _counters(res: minsum.DecodeResult, msg_cols: int) -> torch.Tensor:
-    """The five packed counters of a zero-codeword batch: [error bits, error
-    frames, undetected-error frames, false-alarm frames, iterations]."""
-    errbits = res.hard[:, :msg_cols].sum(dim=(1, 2), dtype=torch.int64)
+def _bit_errors(hard: torch.Tensor, cw: torch.Tensor | None,
+                msg_cols: int) -> torch.Tensor:
+    """Error bits a frame [B] over the first ``msg_cols`` block columns:
+    the decisions against the sent codeword cw [B, L, Z] (bool), or against
+    the all-zero word where cw is None (cuda_ldpc_tpu/sim.py:427-432)."""
+    wrong = hard[:, :msg_cols]
+    if cw is not None:
+        wrong = wrong != cw[:, :msg_cols]
+    return wrong.sum(dim=(1, 2), dtype=torch.int64)
+
+
+def _counters(res: minsum.DecodeResult, msg_cols: int,
+              cw: torch.Tensor | None = None) -> torch.Tensor:
+    """The five packed counters of a batch: [error bits, error frames,
+    undetected-error frames, false-alarm frames, iterations]; ``cw`` as in
+    ``_bit_errors``."""
+    errbits = _bit_errors(res.hard, cw, msg_cols)
     has_err = errbits > 0
     return torch.stack([errbits.sum(),
                         (has_err | ~res.ok).sum(),
@@ -433,16 +460,29 @@ def _counters(res: minsum.DecodeResult, msg_cols: int) -> torch.Tensor:
 
 def _binary_source(code: QCBinaryCode, sim: cfg.BinarySimConfig, B: int,
                    device: torch.device) -> Callable:
-    """Frame source: (generator, sigma) -> chan [B, L, Z], the all-zero
-    codeword through BPSK and AWGN.  ``sigma`` is a float or a [B] tensor
-    (per-frame noise levels)."""
-    cw = torch.zeros((code.L, code.Z), dtype=torch.float32, device=device)
+    """Frame source: (generator, sigma) -> (chan [B, L, Z], cw), the sent
+    codeword through BPSK and AWGN.  tx='zero' sends the all-zero word (cw
+    None); tx='random' a random systematic codeword a frame (cw [B, L, Z]
+    bool, codeword index l*Z + z at [l, z]), its message bits drawn from the
+    generator first and the noise after them, so the noise's shape and
+    place in the draw stay those of tx='zero'.  ``sigma`` is a float or a
+    [B] tensor (per-frame noise levels)."""
+    zero = torch.zeros((code.L, code.Z), dtype=torch.float32, device=device)
+    enc = BinaryEncoder.from_code(code) if sim.tx == "random" else None
 
-    def fresh(generator: torch.Generator, sigma) -> torch.Tensor:
-        if sim.add_noise:
-            chan = channel.bpsk_awgn_llr(generator, cw, sigma, B)
+    def fresh(generator: torch.Generator, sigma):
+        cw = None
+        if enc is not None:
+            msg = torch.randint(0, 2, (B, enc.k_eff), generator=generator,
+                                dtype=torch.int8, device=device)
+            cw = enc.encode_torch(msg).reshape(B, code.L, code.Z)
+            chan = (channel.bpsk_awgn_frames(generator, cw, sigma)
+                    if sim.add_noise else channel.bpsk(cw))
+            cw = cw.bool()
+        elif sim.add_noise:
+            chan = channel.bpsk_awgn_llr(generator, zero, sigma, B)
         else:
-            chan = channel.bpsk(cw).expand(B, -1, -1).contiguous()
+            chan = channel.bpsk(zero).expand(B, -1, -1).contiguous()
         if sim.decoder.rule == "bp":
             # min-sum is scale-invariant, so it takes the raw samples as the
             # reference does (LDPC_Decoder.cu:203); sum-product needs the
@@ -451,15 +491,15 @@ def _binary_source(code: QCBinaryCode, sim: cfg.BinarySimConfig, B: int,
             if isinstance(scale, torch.Tensor):
                 scale = scale.to(torch.float32).reshape(-1, 1, 1)
             chan = chan.mul_(scale)
-        return chan
+        return chan, cw
 
     return fresh
 
 
 def make_binary_step(code: QCBinaryCode, sim: cfg.BinarySimConfig,
                      device: torch.device):
-    """Batch step: all-zero codeword -> BPSK -> AWGN -> flooding or layered
-    min-sum or bp -> five counters on the device.  Returns
+    """Batch step: all-zero or random codeword -> BPSK -> AWGN -> flooding
+    or layered min-sum or bp -> five counters on the device.  Returns
     (fn(generator, sigma), batch)."""
     check_ported(sim)
     dec = sim.decoder
@@ -469,10 +509,10 @@ def make_binary_step(code: QCBinaryCode, sim: cfg.BinarySimConfig,
     fresh = _binary_source(code, sim, B, device)
 
     def step(generator: torch.Generator, sigma: float) -> torch.Tensor:
-        res = decode(fresh(generator, sigma), code, dec.max_iters,
-                     alpha=dec.alpha, beta=dec.beta, check=dec.check,
-                     rule=dec.rule)
-        return _counters(res, msg_cols)
+        chan, cw = fresh(generator, sigma)
+        res = decode(chan, code, dec.max_iters, alpha=dec.alpha,
+                     beta=dec.beta, check=dec.check, rule=dec.rule)
+        return _counters(res, msg_cols, cw)
 
     return step, B
 
@@ -482,7 +522,8 @@ def make_binary_ref_channel_step(code: QCBinaryCode,
                                  device: torch.device):
     """Decode-only step for host-generated channel batches [B, L, Z] — the
     'reference' channel mode (the CUDA reference's exact LCG/Box-Muller
-    noise, bldpc_实习/LDPC_Encoder.cu:25-56)."""
+    noise, bldpc_实习/LDPC_Encoder.cu:25-56), which sends the all-zero
+    codeword only: tx='random' is refused (``check_ported``)."""
     check_ported(sim)
     dec = sim.decoder
     if dec.rule != "minsum":
@@ -581,9 +622,10 @@ def run_binary_sweep(sim: cfg.BinarySimConfig,
                      quiet: bool = False,
                      profile_dir: str | None = None) -> SweepResult:
     """Binary QC-LDPC FER sweep on ``device``, one SNR point at a time (batch
-    or stream engine, flooding or layered min-sum or bp, all-zero
-    codeword).  ``profile_dir``: a torch.profiler trace of batch 1 of each
-    point, ``profile_dir/binary_snr<snr>/trace.json`` (batch engine only)."""
+    or stream engine, flooding or layered min-sum or bp, the all-zero or a
+    random codeword a frame).  ``profile_dir``: a torch.profiler trace of
+    batch 1 of each point, ``profile_dir/binary_snr<snr>/trace.json`` (batch
+    engine only)."""
     device = resolve_device(device)
     code = QCBinaryCode.from_registry(sim.code)
     profile = _profiler(profile_dir, sim.engine, device)
@@ -689,10 +731,10 @@ def make_binary_packed_step(code: QCBinaryCode, sim: cfg.BinarySimConfig,
     fresh = _binary_source(code, sim, B, device)
 
     def step(generator, sigma_vec, pid):
-        res = decode(fresh(generator, sigma_vec), code, dec.max_iters,
-                     alpha=dec.alpha, beta=dec.beta, check=dec.check,
-                     rule=dec.rule)
-        errbits = res.hard[:, :msg_cols].sum(dim=(1, 2), dtype=torch.int64)
+        chan, cw = fresh(generator, sigma_vec)
+        res = decode(chan, code, dec.max_iters, alpha=dec.alpha,
+                     beta=dec.beta, check=dec.check, rule=dec.rule)
+        errbits = _bit_errors(res.hard, cw, msg_cols)
         has_err = errbits > 0
         per = torch.stack([torch.ones_like(errbits), (has_err | ~res.ok).long(),
                            errbits, (has_err & res.ok).long(),
@@ -740,7 +782,10 @@ class StreamEngine(NamedTuple):
     undetected, false alarm and iterations of the frames that finished in
     the call, summed per point id.  ``kernel`` tells the engine that runs
     the CUDA stream step (per-call refill) from the plain one
-    (per-iteration refill)."""
+    (per-iteration refill).  Under random codewords the state's last
+    tensor is each slot's codeword, which a refill replaces with its new
+    frame's, beside the new channel values (cuda_ldpc_tpu/sim.py:566,
+    595-600)."""
     init: Callable
     run: Callable
     drain: Callable
@@ -764,6 +809,12 @@ def _slot_counts(done, ok, errs, t) -> torch.Tensor:
                         d * (~has_err & ~ok), d * t.long()], dim=1)
 
 
+def _tx_leaf(tx: torch.Tensor | None) -> list:
+    """The state's codeword leaf: one tensor under per-frame codewords,
+    none under a constant one."""
+    return [] if tx is None else [tx]
+
+
 def _plain_stream(core, ok_of: Callable, errors: Callable, fresh: Callable,
                   B: int, n_points: int, max_iters: int, steps: int,
                   device: torch.device) -> StreamEngine:
@@ -771,28 +822,37 @@ def _plain_stream(core, ok_of: Callable, errors: Callable, fresh: Callable,
     nb_decode.build_core): every iteration decides, checks and counts the
     finished frames, runs the core's step for the others, and puts fresh
     frames into the finished slots at once (the JAX package's jnp engine,
-    sim.py:577-619 and 1562-1607)."""
+    sim.py:577-619 and 1562-1607).  ``fresh(gen, sigma)`` gives (chan, tx),
+    tx None for a constant codeword; ``errors(hard, tx)``."""
 
     def init(gen, sig_table, pid):
-        c0, c1 = core.init(fresh(gen, sig_table[pid]))
+        chan, tx = fresh(gen, sig_table[pid])
+        c0, c1 = core.init(chan)
         return [c0, c1, torch.zeros(B, dtype=torch.int32, device=device),
-                torch.ones(B, dtype=torch.bool, device=device), pid.clone()]
+                torch.ones(B, dtype=torch.bool, device=device), pid.clone(),
+                *_tx_leaf(tx)]
 
     def one_pass(state, counters, refill=None):
-        c0, c1, t, alive, pid = state
+        c0, c1, t, alive, pid, *tx = state
+        tx = tx[0] if tx else None
         hard, totals = core.decide((c0, c1))
         ok = ok_of(hard)
         done = alive & (ok | (t >= max_iters))
-        counters.index_add_(0, pid, _slot_counts(done, ok, errors(hard), t))
+        counters.index_add_(0, pid, _slot_counts(done, ok, errors(hard, tx),
+                                                 t))
         cont = alive & ~done
         c0, c1 = core.step((c0, c1), totals, cont)
         if refill is None:               # drain: finished slots stay empty
-            return [c0, c1, torch.where(cont, t + 1, t), cont, pid]
+            return [c0, c1, torch.where(cont, t + 1, t), cont, pid,
+                    *_tx_leaf(tx)]
         gen, sig_table, refill_pid = refill
         pid = torch.where(done, refill_pid, pid)
-        n0, n1 = core.init(fresh(gen, sig_table[pid]))
+        chan, new_tx = fresh(gen, sig_table[pid])
+        n0, n1 = core.init(chan)
+        if tx is not None:
+            tx = minsum._freeze(done, new_tx, tx)
         return [minsum._freeze(done, n0, c0), minsum._freeze(done, n1, c1),
-                torch.where(done, 0, t + 1), alive, pid]
+                torch.where(done, 0, t + 1), alive, pid, *_tx_leaf(tx)]
 
     def run(state, seeds, sig_table, refill_pid):
         counters = torch.zeros((n_points, 6), dtype=torch.int64, device=device)
@@ -821,32 +881,37 @@ def _kernel_stream(kstep: Callable, msg_shape: tuple, errors: Callable,
     channel values and their counts reset (their messages leave the kernel
     zeroed).  The drain call runs max_iters + 1 passes, enough to finish
     every frame (the JAX package's fused engines, sim.py:702-734 and
-    1888-1905)."""
+    1888-1905).  ``fresh`` and ``errors`` as in ``_plain_stream``; a
+    refilled slot's codeword is replaced together with its channel
+    values."""
 
     def init(gen, sig_table, pid):
         flags = [torch.zeros(B, dtype=torch.int32, device=device)
                  for _ in range(3)]
-        return [fresh(gen, sig_table[pid]),
-                torch.zeros((B,) + msg_shape, dtype=torch.float32,
-                            device=device), *flags, pid.clone()]
+        chan, tx = fresh(gen, sig_table[pid])
+        return [chan, torch.zeros((B,) + msg_shape, dtype=torch.float32,
+                                  device=device), *flags, pid.clone(),
+                *_tx_leaf(tx)]
 
     def call(state, k):
-        chan, msgs, t, done, okf, pid = state
+        chan, msgs, t, done, okf, pid, *tx = state
         hard = kstep(chan, msgs, t, done, okf, k=k)[2]
-        per = _slot_counts(done.bool(), okf.bool(), errors(hard), t)
+        per = _slot_counts(done.bool(), okf.bool(),
+                           errors(hard, tx[0] if tx else None), t)
         return _segment_sum(per, pid, n_points)
 
     def run(state, seeds, sig_table, refill_pid):
         counters = call(state, steps)
-        chan, msgs, t, done, okf, pid = state
+        chan, msgs, t, done, okf, pid, *tx = state
         fin = done.bool()
         pid = torch.where(fin, refill_pid, pid)
-        new = fresh(_generator(device, *seeds), sig_table[pid])
+        new, new_tx = fresh(_generator(device, *seeds), sig_table[pid])
         chan = minsum._freeze(fin, new, chan)
+        tx = [minsum._freeze(fin, new_tx, old) for old in tx]
         t.mul_((~fin).to(torch.int32))
         done.zero_()
         okf.zero_()
-        return [chan, msgs, t, done, okf, pid], counters
+        return [chan, msgs, t, done, okf, pid, *tx], counters
 
     def drain(state):
         return state, call(state, max_iters + 1)
@@ -884,8 +949,8 @@ def make_binary_stream_engine(code: QCBinaryCode, sim: cfg.BinarySimConfig,
     msg_cols = code.L - code.J if dec.message_only else code.L
     fresh = _binary_source(code, sim, B, device)
 
-    def errors(hard):
-        return hard[:, :msg_cols].sum(dim=(1, 2), dtype=torch.int64)
+    def errors(hard, cw):
+        return _bit_errors(hard, cw, msg_cols)
 
     args = (errors, fresh, B, n_points, dec.max_iters, sim.stream_steps,
             device)
@@ -987,9 +1052,7 @@ def check_nb_ported(sim: cfg.NBSimConfig):
     if sim.engine not in ("batch", "stream"):
         raise ValueError(f"unknown engine {sim.engine!r} "
                          "(expected 'batch' or 'stream')")
-    if sim.tx == "random":
-        raise not_ported("nb tx=random", "nb --tx random")
-    if sim.tx not in ("zero", "fixture"):
+    if sim.tx not in ("zero", "fixture", "random"):
         raise ValueError(f"unknown tx {sim.tx!r}")
 
 
@@ -1035,31 +1098,54 @@ def _nb_decoder_fn(code: NBCode, dec: cfg.NBDecoderConfig,
                              max_iters=dec.max_iters, nm=dec.nm, nc=dec.nc)
 
 
+def _check_qam(code: NBCode, sim: cfg.NBSimConfig):
+    if sim.n_qam not in (2, code.q):
+        raise ValueError(
+            f"QAM order {sim.n_qam} must equal GF order {code.q} "
+            "(the reference maps one symbol per constellation point, "
+            "myNBLDPC/src/LDPC_Encoder.cpp:19-36)")
+
+
 def _nb_tx(code: NBCode, sim: cfg.NBSimConfig):
-    """(labels fed to the modulator, tx symbols) for the configured source."""
+    """(labels fed to the modulator, tx symbols) of a constant codeword."""
+    _check_qam(code, sim)
     if sim.tx == "fixture":
         tx_syms = registry.load_test_codeword(code.n_sym)
     else:
         tx_syms = np.zeros(code.n_sym, dtype=np.int64)
     if sim.n_qam == 2:
         return demod.sym_to_bit(tx_syms, code.q_bit), tx_syms
-    if sim.n_qam != code.q:
-        raise ValueError(
-            f"QAM order {sim.n_qam} must equal GF order {code.q} "
-            "(the reference maps one symbol per constellation point, "
-            "myNBLDPC/src/LDPC_Encoder.cpp:19-36)")
     return tx_syms, tx_syms
 
 
 def _make_nb_source(code: NBCode, sim: cfg.NBSimConfig, B: int,
                     device: torch.device):
-    """Frame source: (generator, sigma) -> (L [B, N, q], tx [N]), with
-    ``sigma`` a float or a [B] tensor; ``src.tx`` is tx.  tx='zero' |
-    'fixture' transmit a constant codeword (the reference's only modes — it
-    has no encoder, myNBLDPC/include/codeword_test.h:1)."""
+    """Frame source: (generator, sigma) -> (L [B, N, q], tx [B, N] int32),
+    with ``sigma`` a float or a [B] tensor (cuda_ldpc_tpu/sim.py:1206-1240).
+    tx='zero' | 'fixture' transmit a constant codeword (the reference's
+    only modes — it has no encoder, myNBLDPC/include/codeword_test.h:1),
+    broadcast to the batch; tx='random' draws message bits from the
+    generator, then the noise, and encodes on the device
+    (NBEncoder.encode_torch).  ``src.tx`` is the constant codeword's
+    [B, N], None under tx='random'."""
     pts = constellation(sim.n_qam)
+    if sim.tx == "random":
+        _check_qam(code, sim)
+        enc = NBEncoder.from_code(code)
+        nbits = enc.k_eff * code.q_bit
+
+        def src(generator: torch.Generator, sigma):
+            mbits = torch.randint(0, 2, (B, nbits), generator=generator,
+                                  dtype=torch.int8, device=device)
+            tx = enc.encode_torch(mbits)
+            return (demod.nb_channel_llr_tx(generator, tx, pts, sigma,
+                                            code.q), tx)
+
+        src.tx = None
+        return src
     tx_labels, tx_syms = _nb_tx(code, sim)
-    tx_dev = torch.as_tensor(tx_syms, dtype=torch.int32, device=device)
+    tx_dev = torch.as_tensor(tx_syms, dtype=torch.int32,
+                             device=device).expand(B, -1)
 
     def src(generator: torch.Generator, sigma):
         L = demod.nb_channel_llr(generator, tx_labels, pts, sigma, batch=B,
@@ -1072,7 +1158,8 @@ def _make_nb_source(code: NBCode, sim: cfg.NBSimConfig, B: int,
 
 def _nb_counters(res: nb_decode.NBDecodeResult,
                  tx: torch.Tensor) -> torch.Tensor:
-    """The five packed counters of a batch: [error symbols, error frames,
+    """The five packed counters of a batch against the sent symbols tx
+    ([B, N], or [N] for every frame): [error symbols, error frames,
     undetected-error frames, false-alarm frames, iterations summed over
     frames] (sim.py:1253-1265)."""
     errsyms = (res.hard != tx).sum(dim=1, dtype=torch.int64)
@@ -1229,13 +1316,14 @@ def make_nb_stream_engine(code: NBCode, sim: cfg.NBSimConfig,
                          "--kernel torch runs the plain PyTorch version")
     B = sim.batch_per_device
     src = _make_nb_source(code, sim, B, device)
-    tx = src.tx
 
     def fresh(gen, sigma):
-        return src(gen, sigma)[0]
+        L, tx = src(gen, sigma)
+        return L, tx if src.tx is None else None
 
-    def errors(hard):
-        return (hard != tx).sum(dim=1, dtype=torch.int64)
+    def errors(hard, tx):
+        return (hard != (src.tx if tx is None else tx)).sum(
+            dim=1, dtype=torch.int64)
 
     args = (errors, fresh, B, n_points, dec.max_iters, sim.stream_steps,
             device)

@@ -165,8 +165,6 @@ def test_nb_stream_max_domain_refused_on_a_card():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--method", "qspa", "--tx", "random"], "NBEncoder"),
-    (["--method", "qspa", "--packed", "--tx", "random"], "NBEncoder"),
     (["--method", "qspa", "--engine", "stream", "--profile", "trace"],
      "batch engine"),
 ])
@@ -178,6 +176,28 @@ def test_cli_nb_refuses_unported_options(argv, item, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert item in err and ("ROADMAP.md" in err or "--profile" in argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--method", "qspa", "--tx", "random"],
+    ["--method", "qspa", "--packed", "--tx", "random"],
+    ["--method", "layered_qspa", "--engine", "stream", "--packed", "--tx",
+     "random", "--n-qam", "64", "--snr", "8"],
+])
+def test_cli_nb_tx_random(tmp_path, argv):
+    """nb --tx random runs on the CPU: batch, packed and packed stream, BPSK
+    and 64-QAM; near the waterfall most frames decode to their own
+    codeword."""
+    out = tmp_path / "res"
+    assert cli.main(["nb", "--device", "cpu", "--code", "BDS.576.288.GF.64",
+                     "--batch", "8", "--max-iters", "8", "--snr", "2.5",
+                     "--least-error-frames", "1", "--least-test-frames", "8",
+                     "--max-frames", "16", "--stream-steps", "3",
+                     "--out-dir", str(out), "--quiet", *argv]) == 0
+    rows = [json.loads(x) for x in
+            (out / "results.jsonl").read_text().splitlines()]
+    assert rows[-1]["frames"] >= 16 and 0.0 <= rows[-1]["fer"] < 0.5
+    assert "tx: random" in (out / "results.txt").read_text()
 
 
 @pytest.mark.parametrize("argv", [

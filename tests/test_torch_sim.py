@@ -216,10 +216,8 @@ def test_clopper_pearson_matches_jax(errors, frames):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--rule", "bp", "--packed", "--tx", "random"],
     ["--schedule", "layered", "--engine", "stream", "--msg-dtype",
      "bfloat16"], ["--packed", "--profile", "trace"],
-    ["--engine", "stream", "--tx", "random"], ["--tx", "random"],
     ["--msg-dtype", "bfloat16"],
 ])
 def test_cli_rejects_unported_options(argv, capsys):
@@ -230,6 +228,40 @@ def test_cli_rejects_unported_options(argv, capsys):
     assert exc.value.code != 0
     want = "batch engine" if "--profile" in argv else "ROADMAP.md"
     assert want in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,refused", [
+    (["--rule", "bp", "--packed", "--tx", "random", "--check", "syndrome"],
+     None),
+    (["--engine", "stream", "--tx", "random", "--check", "syndrome"], None),
+    (["--tx", "random", "--check", "syndrome"], None),
+    (["--engine", "stream", "--tx", "random"], "needs check='syndrome'"),
+    (["--tx", "random", "--check", "syndrome", "--channel", "reference"],
+     "channel='reference'"),
+])
+def test_cli_tx_random(tmp_path, argv, refused, capsys):
+    """--tx random runs on the CPU with the syndrome check, on the batch,
+    packed and stream engines; with the zero check (the default), and with
+    the reference channel, whose noise is the all-zero word's, it is
+    refused with a message."""
+    out = tmp_path / "res"
+    run = ["binary", "--device", "cpu", "--code", "J4_L24_Z96", "--batch",
+           "16", "--max-iters", "8", "--snr", "3.6", "--snr-type", "ebn0",
+           "--least-error-frames", "1", "--least-test-frames", "16",
+           "--max-frames", "32", "--stream-steps", "3", "--out-dir",
+           str(out), "--quiet", *argv]
+    if refused:
+        with pytest.raises(SystemExit) as exc:
+            cli.main(run)
+        assert exc.value.code == 2
+        assert refused in capsys.readouterr().err
+        assert not out.exists()
+        return
+    assert cli.main(run) == 0
+    rows = [json.loads(x) for x in
+            (out / "results.jsonl").read_text().splitlines()]
+    assert rows[-1]["frames"] >= 16 and 0.0 <= rows[-1]["fer"] < 1.0
+    assert " tx: random" in (out / "results.txt").read_text()
 
 
 def _run(args, tmp_path):

@@ -162,6 +162,74 @@ def test_packed_stream_noiseless_accounting_by_point(engine_kind):
     assert drain.tolist() == [[2, 0, 0, 0, 0, 0]] * 2
 
 
+def test_binary_random_noiseless_no_errors_across_refills(engine_kind):
+    """Random codewords without noise: every frame passes its syndrome
+    check at its first decide and decodes to its own codeword, so no
+    finished frame counts an error bit, before or after a refill (a refill
+    that left a slot's old codeword beside its new channel values would
+    count errors at every refill)."""
+    code = QCBinaryCode.from_registry("J4_L24_Z96")
+    scfg = _bin_cfg(add_noise=False, batch_per_device=4, stream_steps=3,
+                    tx="random", decoder=cfg.BinaryDecoderConfig(
+                        max_iters=6, check="syndrome"))
+    engine = sim.make_binary_stream_engine(code, scfg, CPU)
+    state = engine.init(torch.Generator().manual_seed(0), torch.tensor([0.5]),
+                        torch.zeros(4, dtype=torch.int64))
+    assert state[-1].dtype == torch.bool and state[-1].any()
+    runs, drain = _drive(engine, torch.tensor([0.5]),
+                         torch.zeros(4, dtype=torch.int64), 3)
+    per_run = 4 * (3 if engine_kind == "plain" else 1)
+    for c in runs:
+        assert c.tolist() == [[per_run, 0, 0, 0, 0, 0]]
+    assert drain.tolist() == [[4, 0, 0, 0, 0, 0]]
+    with pytest.raises(ValueError, match="needs check='syndrome'"):
+        sim.make_binary_stream_engine(code, _bin_cfg(tx="random"), CPU)
+
+
+def test_nb_random_stream_high_snr_no_errors(engine_kind):
+    """BDS.576.288.GF.64 under random codewords at Eb/N0 11 dB: every
+    frame decodes to its own symbols (a few after an iteration), so no
+    finished frame counts an error symbol; the slots' codewords ride the
+    state through the refills."""
+    code = NBCode.from_registry("BDS.576.288.GF.64")
+    scfg = _nb_cfg(batch_per_device=4, stream_steps=3, tx="random",
+                   decoder=cfg.NBDecoderConfig(method="qspa", max_iters=6))
+    sigma = sim.channel.sigma_from_snr(11.0, code.rate, "ebn0")
+    engine = sim.make_nb_stream_engine(code, scfg, CPU)
+    runs, drain = _drive(engine, torch.tensor([sigma]),
+                         torch.zeros(4, dtype=torch.int64), 3)
+    frames = 0
+    for c in runs + [drain]:
+        assert c[0, 1:5].tolist() == [0, 0, 0, 0]
+        frames += int(c[0, 0])
+    # every refill puts new frames in: at least 4 a call and the drain's
+    assert frames >= 4 * 4
+
+
+def test_random_stream_kill_and_resume(tmp_path, monkeypatch, engine_kind):
+    """A binary stream sweep of random codewords, killed and resumed from
+    its checkpoint (the slots' codewords included), gives the
+    uninterrupted run's rows; a zero-codeword checkpoint of the same sweep
+    is not resumed as a random one."""
+    scfg = _two_points(_bin_cfg(tx="random", decoder=cfg.BinaryDecoderConfig(
+        max_iters=10, check="syndrome")))
+    full = sim.run_binary_sweep(scfg, device=CPU, quiet=True)
+    assert len(full.rows) == 2 and full.rows[0]["error_units"] > 0
+    ck = str(tmp_path / "ck.json")
+    zero = dataclasses.replace(scfg, tx="zero",
+                               decoder=cfg.BinaryDecoderConfig(
+                                   max_iters=10, check="zero"))
+    monkeypatch.setattr(sim, "_STREAM_TEST_INTERRUPT", 3)
+    with pytest.raises(KeyboardInterrupt):
+        sim.run_binary_sweep(zero, device=CPU, checkpoint=ck, quiet=True)
+    with pytest.raises(KeyboardInterrupt):
+        sim.run_binary_sweep(scfg, device=CPU, checkpoint=ck, quiet=True)
+    monkeypatch.setattr(sim, "_STREAM_TEST_INTERRUPT", None)
+    resumed = sim.run_binary_sweep(scfg, device=CPU, checkpoint=ck,
+                                   quiet=True)
+    assert _counters(resumed.rows) == _counters(full.rows)
+
+
 def _compatible(a, b):
     return stats.rates_compatible(a["error_frames"], a["frames"],
                                   b["error_frames"], b["frames"])
