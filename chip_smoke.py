@@ -9,16 +9,20 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               compiler per source, all at once
   3. parity   each kernel vs its plain PyTorch version on the same CUDA
               tensors.  Flooding and layered min-sum (K1, K2, each frame's
-              state on chip), also against their global-memory design:
-              J4_L24_Z96 at B=4096, 37 and 11, J15_L30_Z1280 and PON_LDPC
-              at B=4096, checks zero / syndrome / none, early stop on and
-              off, alpha 0.8 with beta 0.1, 0 iterations, and a crafted
-              batch whose frames pass and then fail, so that the on-chip
-              stop protocol's lockstep steps run.  The bp rule
-              in both schedules (K3) on true LLRs: J4_L24_Z96, J15_L30_Z1280
-              and PON_LDPC at the main path's B=4096, and smaller batches.
-              hard, ok and iters exactly equal; every mismatch is counted
-              and printed.  GF(q) FFT-QSPA, flooding and layered: K5 on
+              state on chip): J4_L24_Z96 at B=4096, 37 and 11,
+              J15_L30_Z1280 and PON_LDPC at B=4096, checks zero / syndrome
+              / none, early stop on and off, alpha 0.8 with beta 0.1, 0
+              iterations, and a crafted batch whose frames pass and then
+              fail, so that the on-chip stop protocol's lockstep steps run.
+              The bp rule in both schedules (K3) on true LLRs: J4_L24_Z96,
+              J15_L30_Z1280 and PON_LDPC at the main path's B=4096, and
+              smaller batches.  The bfloat16 forms of K1, K2 and K3 (T and
+              R stored as bf16, float32 compute) against the plain
+              version's bf16 storage: J4_L24_Z96 (the crafted batch among
+              them), J15_L30_Z1280 and PON_LDPC at B=4096, checks zero /
+              syndrome / none, early stop on and off, alpha 0.8 with beta
+              0.1.  hard, ok and iters exactly equal; every mismatch is
+              counted and printed.  GF(q) FFT-QSPA, flooding and layered: K5 on
               BDS.576.288.GF.64 at the main path's B=4096 (BPSK, Eb/N0 1 and
               2 dB, maxIT 20), a ragged batch of 11, early stop off, 0
               iterations and 64-QAM, and on LDPC_N576_K288_GF64_d1_exp,
@@ -42,7 +46,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               (reported for J15_L30_Z1280 min-sum with alpha 1); J4_L24_Z96
               at Eb/N0 3.6 dB, min-sum and bp, whose FERs must be
               statistically compatible with the reference's 33/2021 and
-              72/32768.  GF(q): `nb` qspa and layered_qspa on
+              72/32768; the J15_L30_Z1280 sweeps again with --msg-dtype
+              bfloat16 (flooding and layered min-sum and bp, and flooding
+              min-sum --packed), whose counts must show the bf16 kernels
+              and no float32 one, FER compatible with float32's at each
+              point, and `--engine stream --msg-dtype bfloat16` refused by
+              design.  GF(q): `nb` qspa and layered_qspa on
               BDS.576.288.GF.64 at Eb/N0 1 and 2 dB, maxIT 20, B=4096 (K5
               with a row on one warp: its counts by design show it for
               both schedules), compatible with VALIDATION.md:21-22,
@@ -53,11 +62,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               layered_qspa on the Tanner code must be refused, naming the
               ROADMAP item
   5. timing   J15_L30_Z1280, B=4096, 10 fixed iterations, one batch in
-              flight: each binary kernel and its plain PyTorch version in
-              turns (plain, kernel, kernel, plain; min-sum with its global-
-              memory design too), then one kernel call under torch.profiler
-              for its device time per CUDA kernel; K1 and K2 min-sum on
-              PON_LDPC in turns; the
+              flight: each binary kernel, its bfloat16 form and both plain
+              PyTorch versions in turns (plain, plain bf16, kernel, bf16,
+              bf16, kernel, plain bf16, plain), then one call of each form
+              under torch.profiler for its device time per CUDA kernel; K1
+              and K2 min-sum on PON_LDPC in turns; the
               same for K5 on BDS.576.288.GF.64 at B=4096 and K6 on
               Tanner_74_9_Z128_GF16 at B=256, at most 10 passes, early stop
               off, at an Eb/N0 where most frames run every pass (K5: the
@@ -122,8 +131,8 @@ Random codewords (the sources of `--tx random`, models/encoder.py) join
 each phase:
   parity      cases of the tables above whose channel comes from the
               sweeps' own sources under tx='random' (chan_for, nb_chan):
-              K1/K2 min-sum (early stop on and off, also against the
-              global-memory design) and bp on J4_L24_Z96 and PON_LDPC at
+              K1/K2 min-sum (early stop on and off) and bp on J4_L24_Z96
+              and PON_LDPC at
               B=4096 with the syndrome check; K5 on BDS (BPSK and 64-QAM)
               at B=4096, K6 on Tanner_74_9_Z128_GF16 at B=256, K7 over its
               call sequence on BDS, K8 (EMS, TMM, layered TMM) on BDS; each
@@ -148,7 +157,8 @@ each phase:
 The measuring path and the probes K9-K11 (phase 6), each entry point run
 with every launch count at 0 before it and read after it:
   bench       `python -m cuda_ldpc_torch.bench`'s run three times (K1) and
-              once with BENCH_KERNEL=torch, each line and the spread
+              once with BENCH_KERNEL=torch, each line and the spread; twice
+              with BENCH_DTYPE=bfloat16 (K1's bf16 form, its own metric)
   profile     `binary --profile` on J15_L30_Z1280 (two points) and on
               J4_L24_Z96 (eleven points in one process), and `nb
               --profile` on BDS.576.288.GF.64, qspa and ems (one point
@@ -193,6 +203,15 @@ KERNELS = [
     ("bp_flooding", "cuda_ldpc_torch/csrc/minsum_flooding.cu",
      "cuda_ldpc_tpu/ops/pallas_minsum.py:134"),
     ("bp_layered", "cuda_ldpc_torch/csrc/minsum_layered.cu",
+     "cuda_ldpc_tpu/ops/pallas_minsum.py:134"),
+    # the bfloat16 storage forms of K1, K2 and K3 (pallas_minsum.py:344)
+    ("minsum_flooding_bf16", "cuda_ldpc_torch/csrc/minsum_flooding.cu",
+     "cuda_ldpc_tpu/ops/pallas_minsum.py:251"),
+    ("minsum_layered_bf16", "cuda_ldpc_torch/csrc/minsum_layered.cu",
+     "cuda_ldpc_tpu/ops/pallas_minsum.py:299"),
+    ("bp_flooding_bf16", "cuda_ldpc_torch/csrc/minsum_flooding.cu",
+     "cuda_ldpc_tpu/ops/pallas_minsum.py:134"),
+    ("bp_layered_bf16", "cuda_ldpc_torch/csrc/minsum_layered.cu",
      "cuda_ldpc_tpu/ops/pallas_minsum.py:134"),
     ("qspa_flooding", "cuda_ldpc_torch/csrc/qspa.cu",
      "cuda_ldpc_tpu/ops/pallas_qspa.py:302"),
@@ -277,7 +296,7 @@ def synthetic_qc_code(q: int, NB: int = 6, MB: int = 2, Z: int = 128,
 
 
 def bound_ms(code, batch: int, iters: int, schedule: str, rule: str,
-             check: str) -> tuple[float, str]:
+             check: str, bf16: bool = False) -> tuple[float, str]:
     """The least time the card could take for one decode call of
     ``iters`` iterations without early stop: the larger of the bytes the
     function must move (chan read once, hard and ok written once) over the
@@ -289,13 +308,27 @@ def bound_ms(code, batch: int, iters: int, schedule: str, rule: str,
     x/2, tanh, log, negate, sign); beta 2 and alpha 1 more; flooding's VN
     one add per edge and iteration and its CN skipped on the last
     iteration; layered's total update 2 per edge.  The zero check costs
-    one compare per message bit, the syndrome check one XOR per edge."""
+    one compare per message bit, the syndrome check one XOR per edge.
+    ``bf16``: T and R stored as bfloat16 add one rounding for each total
+    stored (flooding: each total per iteration; layered: one per edge and
+    iteration, and the start's totals) and for each message the function
+    must round: bp's per edge and CN update, min-sum's two per check node
+    and CN update (rounding to nearest even is symmetric in the sign, so a
+    stored message is its sign on bf16(v1) or bf16(v2)); widening a stored
+    value to float32 is a shift and is not counted.  The bytes are the
+    function's and do not change: T and R are its own state, not its
+    inputs or outputs."""
     lanes = batch * code.num_edges * code.Z
     cn = {"minsum": 6, "bp": 17}[rule]
+    # messages rounded per CN update when stored as bf16
+    rounded = (lanes if rule == "bp" else 2 * batch * code.J * code.Z) \
+        * bool(bf16)
     if schedule == "flooding":
-        ops = lanes * (iters + cn * (iters - 1))
+        ops = lanes * (iters + cn * (iters - 1)) + rounded * (iters - 1)
+        ops += batch * code.n * iters * bool(bf16)
     else:
-        ops = lanes * (cn + 2) * iters
+        ops = (lanes * (cn + 2 + bool(bf16)) + rounded) * iters
+        ops += batch * code.n * bool(bf16)
     ops += iters * batch * {"zero": code.k, "syndrome": code.num_edges *
                             code.Z, "none": 0}[check]
     nbytes = batch * code.n * (4 + 1) + batch + 4
@@ -426,7 +459,10 @@ def time_turns(launch, reps: dict,
                order=("plain", "kernel", "kernel", "plain")) -> dict:
     """Milliseconds per batch of ``launch(which, i)`` for each ``which`` of
     ``reps``, in the turns of ``order`` (by default plain, kernel, kernel,
-    plain): host clock, one batch in flight, device synchronised."""
+    plain): host clock, one batch in flight, device synchronised.  Each
+    turn is warmed up by one call first, except a caller timed once a turn
+    (a plain version whose call takes seconds, already run in the parity
+    phase)."""
     import torch
 
     def time_one(which: str) -> float:
@@ -436,7 +472,8 @@ def time_turns(launch, reps: dict,
             ev.record()
             return res, ev
 
-        go(0)[1].synchronize()                           # warm up
+        if reps[which] > 1:
+            go(0)[1].synchronize()                       # warm up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         prev = go(0)
@@ -497,7 +534,8 @@ def trace_busy(path: str, label: str) -> dict:
 def measuring_path(card: str, wrappers) -> None:
     """Phase 6: the port's measuring path through its entry points, each
     run with every launch count at 0 before it and read after it: the
-    bench (three kernel lines and one plain), --profile on the batch
+    bench (three kernel lines, one plain and two of K1's bfloat16 form),
+    --profile on the batch
     engines (binary J15_L30_Z1280 at two points and J4_L24_Z96 at eleven,
     nb BDS qspa and ems at one), whose traces must hold K1's, K5's and K8's
     device events by name, every point's, and whose rows must equal an
@@ -539,6 +577,19 @@ def measuring_path(card: str, wrappers) -> None:
           spread=(max(values) - min(values)) / statistics.median(values),
           plain_mbps=lines[3][0]["value"],
           launches=lines[0][1]["minsum_flooding"])
+    # T and R in bfloat16: K1's bf16 form, under a metric of its own
+    bf16 = []
+    for _ in range(2):
+        line, counts = counted("minsum_flooding_bf16", lambda: bench.run(
+            {"BENCH_DTYPE": "bfloat16"}))
+        if (line["metric"] != "binary_minsum_bf16_info_mbps_cuda"
+                or not line["value"] > 0 or counts["minsum_flooding"]):
+            raise AssertionError(f"bad bf16 bench line: {line} {counts}")
+        print(json.dumps(line), flush=True)
+        bf16.append(line["value"])
+    _emit("bench_bf16", card=card, kernel_mbps=bf16,
+          float32_kernel_mbps=values,
+          launches=counts["minsum_flooding_bf16"])
 
     keep = ("snr", "frames", "error_frames", "error_units", "iter_sum",
             "false_frames", "alarm_frames")
@@ -1151,46 +1202,63 @@ def main() -> int:
          0.0),
         ("bp", "PON_LDPC", "esn0", 2.3, 4096, 50, "syndrome", True, 1.0, 0.0),
     ]
-    cases = ([("flooding", "minsum", "zero", *c) for c in minsum_cases]
-             + [("layered", "minsum", "zero", *c) for c in minsum_cases]
-             + [(s, "bp", "zero", *c) for s in ("flooding", "layered")
+    # the bfloat16 storage forms (K1, K2 and K3 with T and R in bf16)
+    minsum_bf16_cases = [
+        ("J4_L24_Z96", "crafted", None, 4096, 20, "zero", True, 1.0, 0.0),
+        ("J4_L24_Z96", "ebn0", 3.6, 4096, 50, "syndrome", True, 0.8, 0.1),
+        ("J15_L30_Z1280", "esn0", -1.5, 4096, 50, "zero", True, 1.0, 0.0),
+        ("J15_L30_Z1280", "esn0", -1.3, 4096, 50, "syndrome", True, 0.8,
+         0.1),
+        ("J15_L30_Z1280", "esn0", -1.5, 4096, 10, "none", False, 0.8, 0.1),
+        ("PON_LDPC", "esn0", 2.45, 4096, 50, "zero", True, 1.0, 0.0),
+        ("PON_LDPC", "esn0", 2.6, 4096, 50, "syndrome", True, 0.8, 0.1),
+        ("PON_LDPC", "esn0", 2.45, 4096, 20, "none", True, 1.0, 0.0),
+        ("PON_LDPC", "esn0", 2.45, 4096, 10, "zero", False, 0.8, 0.1),
+    ]
+    bp_bf16_cases = [
+        ("J4_L24_Z96", "ebn0", 3.6, 4096, 50, "zero", True, 1.0, 0.0),
+        ("J15_L30_Z1280", "esn0", -1.6, 4096, 50, "zero", True, 1.0, 0.0),
+        ("J15_L30_Z1280", "esn0", -1.6, 4096, 10, "syndrome", False, 0.8,
+         0.1),
+        ("PON_LDPC", "esn0", 2.3, 4096, 50, "syndrome", True, 1.0, 0.0),
+    ]
+    # schedule, rule, tx, msg_dtype, then the columns above; the bf16 cases
+    # last, so that the float32 cases keep their seeds
+    cases = ([("flooding", "minsum", "zero", None, *c) for c in minsum_cases]
+             + [("layered", "minsum", "zero", None, *c)
+                for c in minsum_cases]
+             + [(s, "bp", "zero", None, *c) for s in ("flooding", "layered")
                 for c in bp_cases]
-             + [(s, rule, "random", *c) for rule, *c in random_cases
-                for s in ("flooding", "layered")])
+             + [(s, rule, "random", None, *c) for rule, *c in random_cases
+                for s in ("flooding", "layered")]
+             + [(s, rule, "zero", "bfloat16", *c)
+                for rule, table in (("minsum", minsum_bf16_cases),
+                                    ("bp", bp_bf16_cases))
+                for c in table for s in ("flooding", "layered")])
     max_err = {name: 0.0 for name, _, _ in KERNELS}
     mismatches = {name: 0 for name, _, _ in KERNELS}
-    for i, (schedule, rule, tx, name, st, snr, B, iters, check, early, alpha,
-            beta) in enumerate(cases):
+    for i, (schedule, rule, tx, dtype, name, st, snr, B, iters, check, early,
+            alpha, beta) in enumerate(cases):
         code = code_of(name)
         chan, cw = ((passes_then_fails(B), None) if st == "crafted"
                     else chan_for(code, st, snr, B, seed=100 + i, rule=rule,
                                   tx=tx))
         kw = dict(alpha=alpha, beta=beta, check=check, early_stop=early,
-                  rule=rule)
+                  rule=rule, msg_dtype=dtype)
         a = getattr(cuda_minsum, f"decode_{schedule}")(chan, code, iters, **kw)
         b = getattr(minsum, f"decode_{schedule}")(chan, code, iters, **kw)
-        # min-sum: the on-chip design against the global-memory one too
-        g = (getattr(cuda_minsum, f"decode_{schedule}_global")(
-            chan, code, iters, alpha=alpha, beta=beta, check=check,
-            early_stop=early) if rule == "minsum" else None)
         torch.cuda.synchronize()
         hard_diff = a.hard != b.hard
         counts = {"hard": int(hard_diff.sum()),
                   "hard_in_ok_frames": int(hard_diff[b.ok].sum()),
                   "ok": int((a.ok != b.ok).sum()),
                   "iters": abs(int(a.iters) - int(b.iters))}
-        if g is not None:
-            counts.update({"global_hard": int((a.hard != g.hard).sum()),
-                           "global_ok": int((a.ok != g.ok).sum()),
-                           "global_iters": abs(int(a.iters) - int(g.iters))})
         # the largest |kernel - plain| over hard, ok and iters
         err = max(int(hard_diff.any()), int(counts["ok"] > 0),
                   counts["iters"])
-        key = f"{rule}_{schedule}"
+        key = f"{rule}_{schedule}" + ("_bf16" if dtype else "")
         max_err[key] = max(max_err[key], float(err))
-        mismatches[key] += (counts["hard"] + counts["ok"]
-                            + counts.get("global_hard", 0)
-                            + counts.get("global_ok", 0))
+        mismatches[key] += counts["hard"] + counts["ok"]
         wrong = b.hard.bool() if cw is None else b.hard.bool() != cw
         _emit("parity", kernel=key, tx=tx, code=name, snr=f"{st} {snr}",
               batch=B, iters=iters, check=check, early_stop=early,
@@ -1202,9 +1270,9 @@ def main() -> int:
         # exact for both rules: the kernel's logf/tanhf and torch.log /
         # torch.tanh on the card agree to the last bit
         if any(v for k, v in counts.items() if k != "hard_in_ok_frames"):
-            raise AssertionError(f"kernel != plain or the global design on "
-                                 f"case {i}: {cases[i]}: {counts}")
-        del a, b, g, chan, cw, hard_diff, wrong
+            raise AssertionError(f"kernel != plain on case {i}: {cases[i]}: "
+                                 f"{counts}")
+        del a, b, chan, cw, hard_diff, wrong
     torch.cuda.empty_cache()
 
     # GF(q): K5 and K6 against the plain nb_decode on the same CUDA tensors
@@ -1505,10 +1573,10 @@ def main() -> int:
             "avg_iters", "false_frames", "alarm_frames", "info_mbps")
     launches = {}
 
-    def drive(tmp, label, kernel, argv, also=()):
+    def drive(tmp, label, kernel, argv, also=(), never=()):
         """One sweep with every launch count at 0 before it; the counts
         are read after it, and the named kernel (and each count named in
-        ``also``) must have launched."""
+        ``also``) must have launched, and none named in ``never``."""
         for w in wrappers:
             for k in w.LAUNCHES:
                 w.LAUNCHES[k] = 0
@@ -1520,6 +1588,9 @@ def main() -> int:
             if counts[k] <= 0:
                 raise AssertionError(f"the {label} sweep never launched the "
                                      f"{k} kernel: {counts}")
+        if any(counts[k] for k in never):
+            raise AssertionError(f"the {label} sweep launched one of "
+                                 f"{never}: {counts}")
         _emit("main_path", sweep=label, seconds=seconds, launches=counts,
               rows=[{k: r[k] for k in keep} for r in rows])
         if not all(r["frames"] > 0 and 0.0 <= r["fer"] <= 1.0 for r in rows):
@@ -1555,6 +1626,20 @@ def main() -> int:
                                  f"dB is not compatible with "
                                  f"{ref[0]}/{ref[1]}")
 
+    def same_fer(label, got, batch_rows):
+        """Each point's FER against another sweep's at the same points
+        (the batch engine's, or float32's), Clopper-Pearson."""
+        pairs = [(a["snr"], a["error_frames"], a["frames"],
+                  b["error_frames"], b["frames"],
+                  rates_compatible(a["error_frames"], a["frames"],
+                                   b["error_frames"], b["frames"]))
+                 for a, b in zip(got, batch_rows)]
+        _emit("fer_vs_batch", sweep=label,
+              snr_errors_frames_batch_errors_frames_compatible=pairs)
+        if len(got) != len(batch_rows) or not all(p[-1] for p in pairs):
+            raise AssertionError(f"{label}: FER not compatible with the "
+                                 f"batch engine's: {pairs}")
+
     j15 = ["binary", "--code", "J15_L30_Z1280", "--snr=-1.6:0.1:-1.4",
            "--snr-type", "esn0", "--max-iters", "50", "--batch", "4096",
            "--least-error-frames", "50", "--least-test-frames", "4096",
@@ -1580,6 +1665,7 @@ def main() -> int:
         lay, launches["minsum_layered"] = drive(
             tmp, "j15_layered", "minsum_layered", j15 + ["--schedule",
                                                          "layered"])
+        j15_layered = lay
         # Unnormalised min-sum (alpha 1, the reference's rule) in the layered
         # schedule leaves more J15_L30_Z1280 frames unconverged than
         # flooding does; the JAX package's decode_layered gives the same
@@ -1602,6 +1688,35 @@ def main() -> int:
             tmp, "j15_bp_layered", "bp_layered",
             j15 + ["--rule", "bp", "--schedule", "layered"])
         no_slower("j15 bp", bp_lay, bp)
+
+        # the same sweeps with T and R stored in bfloat16: the bf16 kernels
+        # launch and no float32 one; FER compatible with float32's
+        bf16 = ["--msg-dtype", "bfloat16"]
+        for label, kernel, extra, f32_rows in [
+                ("j15_bf16", "minsum_flooding", [], j15_batch),
+                ("j15_layered_bf16", "minsum_layered",
+                 ["--schedule", "layered"], j15_layered),
+                ("j15_bp_bf16", "bp_flooding", ["--rule", "bp"], bp),
+                ("j15_bp_layered_bf16", "bp_layered",
+                 ["--rule", "bp", "--schedule", "layered"], bp_lay),
+                ("j15_packed_bf16", "minsum_flooding", ["--packed"],
+                 j15_batch)]:
+            got, n = drive(tmp, label, f"{kernel}_bf16", j15 + bf16 + extra,
+                           never=(kernel,))
+            launches[f"{kernel}_bf16"] = launches.get(f"{kernel}_bf16",
+                                                      0) + n
+            same_fer(label, got, f32_rows)
+        try:
+            _sweep(cli, os.path.join(tmp, "refused_bf16_stream"),
+                   j15 + bf16 + ["--engine", "stream"])
+        except SystemExit as e:
+            if e.code != 2:
+                raise
+            _emit("refused", sweep="j15 --engine stream --msg-dtype "
+                  "bfloat16", code=e.code)
+        else:
+            raise AssertionError("the stream engine ran --msg-dtype "
+                                 "bfloat16")
 
         rows, _ = drive(tmp, "pon", "minsum_flooding", pon)
         pon_zero = rows
@@ -1691,20 +1806,6 @@ def main() -> int:
         # ---- the stream and packed engines: K4 and K7 on the main path
         launches["minsum_stream"] = launches["qspa_stream"] = 0
         engine_rows = []
-
-        def same_fer(label, got, batch_rows):
-            """Each point's FER against the batch engine's, Clopper-
-            Pearson."""
-            pairs = [(a["snr"], a["error_frames"], a["frames"],
-                      b["error_frames"], b["frames"],
-                      rates_compatible(a["error_frames"], a["frames"],
-                                       b["error_frames"], b["frames"]))
-                     for a, b in zip(got, batch_rows)]
-            _emit("fer_vs_batch", sweep=label,
-                  snr_errors_frames_batch_errors_frames_compatible=pairs)
-            if len(got) != len(batch_rows) or not all(p[-1] for p in pairs):
-                raise AssertionError(f"{label}: FER not compatible with the "
-                                     f"batch engine's: {pairs}")
 
         stream = ["--engine", "stream"]
         for label, kernel, extra, batch_rows in [
@@ -1932,11 +2033,11 @@ def main() -> int:
     # ---- 5. timing: 10 fixed iterations, one batch in flight
     B, iters = 4096, 10
     timing = {}
-    # the binary kernels on J15_L30_Z1280, then K1 and K2 min-sum on
-    # PON_LDPC; min-sum ("kernel", each frame's state on chip) also against
-    # its global-memory design ("global"), in turns
+    # the binary kernels on J15_L30_Z1280, each beside its bfloat16 form
+    # ("bf16") and both plain versions, in turns; then K1 and K2 min-sum on
+    # PON_LDPC against the plain version
     for name, code_name, plain_reps in (
-            [(n, "J15_L30_Z1280", 5) for n, _, _ in BINARY]
+            [(n, "J15_L30_Z1280", 3) for n, _, _ in BINARY]
             + [(f"minsum_{s}", "PON_LDPC", 2)
                for s in ("flooding", "layered")]):
         code = code_of(code_name)
@@ -1947,36 +2048,48 @@ def main() -> int:
                     "plain": getattr(minsum, f"decode_{schedule}")}
         reps = {"kernel": 20, "plain": plain_reps}
         order = ("plain", "kernel", "kernel", "plain")
-        if rule == "minsum":
-            decoders["global"] = getattr(cuda_minsum,
-                                         f"decode_{schedule}_global")
-            reps["global"] = 20
-            order = ("plain", "kernel", "global", "global", "kernel", "plain")
+        dtypes = {"kernel": None, "plain": None}
+        on_j15 = code_name == "J15_L30_Z1280"
+        if on_j15:
+            decoders.update(bf16=decoders["kernel"],
+                            plain_bf16=decoders["plain"])
+            reps.update(bf16=20, plain_bf16=3)
+            dtypes.update(bf16="bfloat16", plain_bf16="bfloat16")
+            order = ("plain", "plain_bf16", "kernel", "bf16", "bf16",
+                     "kernel", "plain_bf16", "plain")
 
         def launch(which, i):
-            kw = {} if which == "global" else dict(rule=rule)
             return decoders[which](chans[i % 2], code, iters, check="zero",
-                                   early_stop=False, **kw)
+                                   early_stop=False, rule=rule,
+                                   msg_dtype=dtypes[which])
 
         runs = time_turns(launch, reps, order=order)
         ms = {k: statistics.median(v) for k, v in runs.items()}
         bound, bound_by = bound_ms(code, B, iters, schedule, rule, "zero")
-        label = name if code_name == "J15_L30_Z1280" else f"{name} pon"
-        if label == name:
+        label = name if on_j15 else f"{name} pon"
+        bounds = {"float32": (bound, bound_by)}
+        if on_j15:
             timing[name] = (ms, bound, bound_by)
+            bounds["bfloat16"] = bound_ms(code, B, iters, schedule, rule,
+                                          "zero", bf16=True)
+            timing[f"{name}_bf16"] = (
+                {"kernel": ms["bf16"], "plain": ms["plain_bf16"]},
+                *bounds["bfloat16"])
         _emit("timing", kernel=label, code=code.name, batch=B, iters=iters,
               card=card, ms_per_batch=runs,
               info_mbps={k: B * code.k / (v / 1e3) / 1e6
                          for k, v in ms.items()},
-              bound_ms=bound, bound_by=bound_by)
-        if label == name:
-            # where the kernel's time goes: device time per CUDA kernel of
+              bound_ms=bound, bound_by=bound_by, bounds=bounds)
+        if on_j15:
+            # where each form's time goes: device time per CUDA kernel of
             # one decode call, from torch.profiler
-            device_ms = profile_ms(lambda: launch("kernel", 0))
-            _emit("profile", kernel=name, code=code.name, batch=B,
-                  iters=iters, card=card,
-                  device_ms_total=sum(v[0] for v in device_ms.values()),
-                  device_ms_launches=device_ms)
+            for which in ("kernel", "bf16"):
+                device_ms = profile_ms(lambda: launch(which, 0))
+                _emit("profile", kernel=name + ("_bf16" if which == "bf16"
+                                                else ""),
+                      code=code.name, batch=B, iters=iters, card=card,
+                      device_ms_total=sum(v[0] for v in device_ms.values()),
+                      device_ms_launches=device_ms)
         del chans
         torch.cuda.empty_cache()
 

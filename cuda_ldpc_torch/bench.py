@@ -10,9 +10,10 @@ on the CPU), BENCH_ITERS (10), BENCH_SCHEDULE (flooding | layered),
 BENCH_REPS (8), BENCH_KERNEL (auto: the CUDA kernel on a card and the
 plain PyTorch version on the CPU | cuda | torch: the plain version),
 BENCH_PROFILE=DIR (torch.profiler around the timed loop, a chrome trace
-DIR/trace.json), and BENCH_DEVICE (cuda; cpu only when asked).
-BENCH_DTYPE=bfloat16 is refused (ROADMAP.md Queue 1 item 4) and so is
-BENCH_TILE, the TPU kernel's frame tile (item 17: not ported).
+DIR/trace.json), BENCH_DEVICE (cuda; cpu only when asked) and BENCH_DTYPE
+(float32 | bfloat16: T and R stored as bfloat16, float32 compute, the
+kernels' bf16 forms; ops/minsum.py's module docstring).  BENCH_TILE, the
+TPU kernel's frame tile, is refused (ROADMAP.md item 17: not ported).
 
 Two channel buffers (1 + 0.6 n, drawn on the device) alternate; the timed
 loop launches decode k + 1 and then waits for decode k's ``ok``, whose copy
@@ -20,10 +21,12 @@ to pinned host memory was enqueued right behind it (bench.py:96-105).
 Decodes run with check 'zero' and early stop off.
 
 Prints ONE JSON line: the metric binary_minsum_info_mbps_<device type>
-(binary_minsum_info_mbps_cuda on a card), its value in Mb/s, the card's
+(binary_minsum_info_mbps_cuda on a card; under BENCH_DTYPE=bfloat16
+binary_minsum_bf16_info_mbps_<device type>, so that the two storages are
+never read under one name), its value in Mb/s, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line (null on the CPU), the
-device, B, the iterations, the kernel and the schedule.  There is no
-vs_baseline: bench.py's 1000 Mb/s baseline is a TPU target.
+device, B, the iterations, the kernel, the schedule and the dtype.  There
+is no vs_baseline: bench.py's 1000 Mb/s baseline is a TPU target.
 """
 
 from __future__ import annotations
@@ -62,11 +65,10 @@ def _decoder(kernel: str, schedule: str, device: torch.device):
 
 def run(env: Mapping[str, str]) -> dict:
     """One bench line from the switches in ``env`` (module docstring)."""
-    if env.get("BENCH_DTYPE", "float32") != "float32":
-        raise NotImplementedError(
-            f"BENCH_DTYPE={env['BENCH_DTYPE']} is not ported to "
-            "cuda_ldpc_torch yet (ROADMAP.md Queue 1 item 4: bfloat16 "
-            "message storage)")
+    dtype = env.get("BENCH_DTYPE", "float32")
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"BENCH_DTYPE={dtype!r}: expected float32 or "
+                         "bfloat16")
     if "BENCH_TILE" in env:
         raise NotImplementedError("BENCH_TILE is the TPU kernel's frame tile "
                                   "and is not ported (ROADMAP.md item 17)")
@@ -82,7 +84,8 @@ def run(env: Mapping[str, str]) -> dict:
         raise ValueError(f"BENCH_REPS must be at least 1, got {reps}")
 
     def launch(chan):
-        res = decode(chan, code, iters, check="zero", early_stop=False)
+        res = decode(chan, code, iters, check="zero", early_stop=False,
+                     msg_dtype=dtype)
         return _Fetch(res.ok)
 
     bufs = [torch.randn((B, code.L, code.Z), dtype=torch.float32,
@@ -104,12 +107,13 @@ def run(env: Mapping[str, str]) -> dict:
             prev = nxt
         prev.wait()
         dt = time.perf_counter() - t0
-    line = {"metric": f"binary_minsum_info_mbps_{device.type}",
+    tag = "_bf16" if dtype == "bfloat16" else ""
+    line = {"metric": f"binary_minsum{tag}_info_mbps_{device.type}",
             "value": reps * B * code.k / dt / 1e6, "unit": "Mb/s",
             "card": card_info() if device.type == "cuda" else None,
             "device": str(device), "code": code.name, "batch": B,
             "iters": iters, "schedule": schedule, "kernel": kernel,
-            "reps": reps, "seconds": dt}
+            "dtype": dtype, "reps": reps, "seconds": dt}
     if profile_dir:
         os.makedirs(profile_dir, exist_ok=True)
         line["trace"] = os.path.join(profile_dir, "trace.json")
@@ -120,7 +124,7 @@ def run(env: Mapping[str, str]) -> dict:
 def main() -> int:
     try:
         line = run(os.environ)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         print(f"cuda_ldpc_torch.bench: {e}", file=sys.stderr)
         return 2
     print(json.dumps(line), flush=True)

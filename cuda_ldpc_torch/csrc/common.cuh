@@ -3,8 +3,10 @@
 // hard-decision pass, and the check-node update of one (block row, lane)
 // with either rule.
 //
-// Layout (ops/minsum.py's contract): T [B, L, Z] f32 totals, R [B, E, Z] f32
-// c2v messages, hard [B, L, Z] int8, ok [B] uint8.  A circulant shift is the
+// Layout (ops/minsum.py's contract): T [B, L, Z] totals, R [B, E, Z] c2v
+// messages, both float32, or bfloat16 where a kernel takes a storage type S
+// (read as float32, rounded to nearest even on store: ops/minsum.py's
+// msg_dtype), hard [B, L, Z] int8, ok [B] uint8.  A circulant shift is the
 // index (r + s) % Z.  Offsets are 64-bit.
 //
 // Arithmetic follows ops/minsum.py operation by operation: fp32 adds,
@@ -14,6 +16,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -42,12 +45,42 @@ constexpr int kNotOk = 2;
 
 static inline int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
+// A stored total or message read as float32, and a float32 rounded to the
+// storage type.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename S>
+__device__ __forceinline__ S to_store(float x);
+template <>
+__device__ __forceinline__ float to_store<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_store<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Layered's new total from the old one T, the new message rn and the old
+// one ro, before it is rounded to the storage type S on store: float32's
+// T + (rn - ro), bfloat16's (T + rn) - ro, the TPU kernel's order
+// (pallas_minsum.py:226-227; ops/minsum.py's msg_dtype).
+template <typename S>
+__device__ __forceinline__ float layered_total(float t, float rn, float ro) {
+  if constexpr (sizeof(S) == 4)
+    return __fadd_rn(t, __fsub_rn(rn, ro));
+  else
+    return __fsub_rn(__fadd_rn(t, rn), ro);
+}
+
 // 1 when the frame whose totals are tb [L, Z] fails `check` (none: always),
 // returned to every thread of the block; a barrier for the whole block
 // unless check is none.  zero: a message bit (columns l < L - J come first)
 // is 1; syndrome: some check row's XOR of the decisions is 1.
+template <typename S>
 static __device__ __forceinline__ int frame_bad(
-    const float* tb, const int* __restrict__ edge_l,
+    const S* tb, const int* __restrict__ edge_l,
     const int* __restrict__ edge_s, const int* __restrict__ row_ptr,
     const int* __restrict__ row_edge, int check, int L, int J, int Z) {
   if (check == kCheckNone) return 1;
@@ -55,7 +88,7 @@ static __device__ __forceinline__ int frame_bad(
   if (check == kCheckZero) {
     const int n = (L - J) * Z;
     for (int i = threadIdx.x; i < n && !bad; i += blockDim.x)
-      bad = tb[i] < 0.f;
+      bad = to_f32(tb[i]) < 0.f;
   } else {
     for (int i = threadIdx.x; i < J * Z && !bad; i += blockDim.x) {
       const int j = i / Z, r = i - j * Z;
@@ -64,7 +97,7 @@ static __device__ __forceinline__ int frame_bad(
         const int e = row_edge[k];
         int z = r + edge_s[e];
         if (z >= Z) z -= Z;
-        par ^= tb[edge_l[e] * Z + z] < 0.f;
+        par ^= to_f32(tb[edge_l[e] * Z + z]) < 0.f;
       }
       bad = par;
     }
@@ -72,7 +105,8 @@ static __device__ __forceinline__ int frame_bad(
   return __syncthreads_or(bad);
 }
 
-static __global__ void check_kernel(const float* __restrict__ T,
+template <typename S>
+static __global__ void check_kernel(const S* __restrict__ T,
                                     unsigned char* __restrict__ ok,
                                     const int* __restrict__ edge_l,
                                     const int* __restrict__ edge_s,
@@ -96,11 +130,12 @@ static __global__ void finish_kernel(int* ctl, int stop_when_ok) {
   if (stop_when_ok && ctl[kNotOk] == 0) ctl[kStop] = 1;
 }
 
-static __global__ void hard_kernel(const float* __restrict__ T,
+template <typename S>
+static __global__ void hard_kernel(const S* __restrict__ T,
                                    signed char* __restrict__ hard, int64_t n) {
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * blockDim.x)
-    hard[i] = T[i] < 0.f ? 1 : 0;
+    hard[i] = to_f32(T[i]) < 0.f ? 1 : 0;
 }
 
 // phi(x) = -log(tanh(x / 2)) on a clipped magnitude.
@@ -192,10 +227,12 @@ static inline int bp_degree_bucket(int max_dc) {
 // the addresses it writes) and evaluates phi once per edge, for the output
 // phi(max(sum - phi_e, kBpLo)); then beta, then alpha, then the sign.
 // phi_e is one float, added to the sum and subtracted from it, so keeping
-// it changes no bit of the result.
-template <bool kLayered, int kDeg>
+// it changes no bit of the result.  T and R are stored as S: float32, or
+// bfloat16 read as float32 and rounded on store, with layered's total in
+// layered_total's order for S.
+template <bool kLayered, int kDeg, typename S = float>
 __device__ __forceinline__ void check_node_bp(
-    float* tb, float* rb, const int* __restrict__ edge_l,
+    S* tb, S* rb, const int* __restrict__ edge_l,
     const int* __restrict__ edge_s, const int* __restrict__ row_edge, int k0,
     int k1, int r, int Z,
     float alpha, int use_alpha, float beta, int use_beta) {
@@ -210,7 +247,8 @@ __device__ __forceinline__ void check_node_bp(
       const int e = row_edge[k0 + i];
       int z = r + edge_s[e];
       if (z >= Z) z -= Z;
-      const float t = tb[edge_l[e] * Z + z], rr = rb[(int64_t)e * Z + z];
+      const float t = to_f32(tb[edge_l[e] * Z + z]);
+      const float rr = to_f32(rb[(int64_t)e * Z + z]);
       const float q = __fsub_rn(t, rr);
       if (q < 0.f) signs |= 1ull << i;
       ph[i] = phi_of_message(q);
@@ -236,9 +274,9 @@ __device__ __forceinline__ void check_node_bp(
       if (use_alpha) out = __fmul_rn(out, alpha);
       if (parity ^ (int)((signs >> i) & 1)) out = -out;
       if (kLayered)
-        tb[edge_l[e] * Z + z] = __fadd_rn(t_old[i % kKeep],
-                                          __fsub_rn(out, r_old[i % kKeep]));
-      rb[(int64_t)e * Z + z] = out;
+        tb[edge_l[e] * Z + z] = to_store<S>(
+            layered_total<S>(t_old[i % kKeep], out, r_old[i % kKeep]));
+      rb[(int64_t)e * Z + z] = to_store<S>(out);
     }
   }
 }

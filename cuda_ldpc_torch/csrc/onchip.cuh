@@ -32,6 +32,15 @@
 // edge order, and the flooding phases give it two lanes that share the edge
 // tables.
 //
+// The storage type S of T and of a check node's two magnitudes is float, or
+// __nv_bfloat16 for K1/K2 under msg_dtype bfloat16 (ops/minsum.py's module
+// docstring; the TPU kernel's bf16 scratch, pallas_minsum.py:344-352).
+// Everything computes in float32; a stored value is rounded to nearest even
+// and read back exactly.  A bf16 check node keeps the rounded v1 and v2
+// (2 + 2 bytes beside its word): rounding is symmetric in the sign, so the
+// sign OR-ed onto a rounded magnitude is the rounded message.  A bf16
+// total is 2 bytes; chan stays float32.
+//
 // Arithmetic follows ops/minsum.py operation by operation (common.cuh).
 
 #pragma once
@@ -175,10 +184,84 @@ __device__ __forceinline__ void st_meta(unsigned a, Meta v) {
   }
 }
 
-// A block row's state at address a: float2 (v1, v2)[Z], then Meta[Z].
-template <typename Meta>
+template <bool kLocal>
+__device__ __forceinline__ float ld_b16(unsigned a) {
+  unsigned short v;
+  if constexpr (kLocal)
+    asm volatile("ld.shared.u16 %0, [%1];" : "=h"(v) : "r"(a));
+  else
+    asm volatile("ld.shared::cluster.u16 %0, [%1];" : "=h"(v) : "r"(a));
+  return __uint_as_float((unsigned)v << 16);
+}
+
+template <bool kLocal>
+__device__ __forceinline__ void st_b16(unsigned a, float x) {
+  const unsigned short v = __bfloat16_as_ushort(to_store<__nv_bfloat16>(x));
+  if constexpr (kLocal)
+    asm volatile("st.shared.u16 [%0], %1;" ::"r"(a), "h"(v) : "memory");
+  else
+    asm volatile("st.shared::cluster.u16 [%0], %1;" ::"r"(a), "h"(v)
+                 : "memory");
+}
+
+__device__ __forceinline__ unsigned bf16_bits(float x) {
+  return __bfloat16_as_ushort(to_store<__nv_bfloat16>(x));
+}
+
+// How T and a check node's (v1, v2) are stored in shared memory: kT and kV
+// bytes; ld_*/st_* read them as float and round them on store (to_store);
+// Pair is a saved (v1, v2) in device memory, copied as it is stored.
+template <typename S>
+struct Store;
+
+template <>
+struct Store<float> {
+  static constexpr unsigned kT = 4, kV = 8;
+  using Pair = float2;
+  template <bool kLocal>
+  static __device__ float ld_t(unsigned a) { return ld_f32<kLocal>(a); }
+  template <bool kLocal>
+  static __device__ void st_t(unsigned a, float x) { st_f32<kLocal>(a, x); }
+  template <bool kLocal>
+  static __device__ Pair ld_pair(unsigned a) { return ld_f32x2<kLocal>(a); }
+  template <bool kLocal>
+  static __device__ void st_pair(unsigned a, Pair v) {
+    st_f32x2<kLocal>(a, v);
+  }
+  static __device__ float2 unpack(Pair v) { return v; }
+  static __device__ Pair pack(float2 v) { return v; }
+};
+
+template <>
+struct Store<__nv_bfloat16> {
+  static constexpr unsigned kT = 2, kV = 4;
+  using Pair = uint32_t;  // v1 in the low half, v2 in the high half
+  template <bool kLocal>
+  static __device__ float ld_t(unsigned a) { return ld_b16<kLocal>(a); }
+  template <bool kLocal>
+  static __device__ void st_t(unsigned a, float x) { st_b16<kLocal>(a, x); }
+  template <bool kLocal>
+  static __device__ Pair ld_pair(unsigned a) {
+    return ld_meta<kLocal, uint32_t>(a);
+  }
+  template <bool kLocal>
+  static __device__ void st_pair(unsigned a, Pair v) {
+    st_meta<kLocal, uint32_t>(a, v);
+  }
+  static __device__ float2 unpack(Pair v) {
+    return make_float2(__uint_as_float(v << 16),
+                       __uint_as_float(v & 0xffff0000u));
+  }
+  static __device__ Pair pack(float2 v) {
+    return bf16_bits(v.x) | bf16_bits(v.y) << 16;
+  }
+};
+
+// A block row's state at address a: (v1, v2)[Z] of Store<S>::kV bytes each,
+// then Meta[Z] from the next multiple of 8 bytes (ops/onchip's layout).
+template <typename Meta, typename S = float>
 __device__ __forceinline__ unsigned meta_at(unsigned a, int Z, int r) {
-  return a + 8u * Z + (unsigned)sizeof(Meta) * r;
+  return a + ((Store<S>::kV * Z + 7u) & ~7u) + (unsigned)sizeof(Meta) * r;
 }
 
 // Edge i's message from a compressed check node.
@@ -312,7 +395,7 @@ struct TwoMin {
 // The min-sum update of the check nodes at lanes r[0..kLanes) of one block
 // row (row-ordered edges k0..k1) from the totals and their old states (ov,
 // om): q = T - R_old, then TwoMin.  The lanes share the edge tables.
-template <bool kLocal, typename Meta, int kLanes>
+template <bool kLocal, typename Meta, int kLanes, typename S = float>
 __device__ __forceinline__ void cn_update(
     const Header& h, const float2* ov, const Meta* om, int k0, int k1,
     const int* r, int Z, float alpha, int use_alpha, float beta,
@@ -329,7 +412,8 @@ __device__ __forceinline__ void cn_update(
         for (int x = 0; x < kLanes; ++x) {
           int z = r[x] + (int)(w >> 32);
           if (z >= Z) z -= Z;
-          t[u][x] = ld_f32<kLocal>((unsigned)w + 4u * z);
+          t[u][x] = Store<S>::template ld_t<kLocal>((unsigned)w +
+                                                     Store<S>::kT * z);
         }
       }
     }
@@ -350,10 +434,13 @@ __device__ __forceinline__ void cn_update(
 
 // One block's share of a frame on chip: the header it fills, the columns
 // and rows it owns, and the phases over them.  kLocal: a cluster of one
-// block, every address this block's own.  The caller places the barriers
-// between the phases.
-template <typename Meta, bool kLocal>
+// block, every address this block's own; S: the storage of T and (v1, v2).
+// The caller places the barriers between the phases.
+template <typename Meta, bool kLocal, typename S = float>
 struct OnChip {
+  using St = Store<S>;
+  using Pair = typename St::Pair;
+  static constexpr unsigned kT = St::kT, kV = St::kV;
   Header h;
   int me, cs, tid, nt, L, J, Z;
   float inv_z;
@@ -433,13 +520,18 @@ struct OnChip {
     __syncthreads();
   }
 
-  // My columns of the frame array src [L, Z] into T (to_t) or chan.
-  __device__ __forceinline__ void load_cols(const float* src,
-                                            bool to_t) const {
+  // My columns of the frame array src [L, Z] into T (to_t, rounded to S)
+  // or chan (float32).
+  template <typename Src>
+  __device__ __forceinline__ void load_cols(const Src* src, bool to_t) const {
     for (int i = tid; i < my_cols; i += nt) {
       int z;
       const int l = h.col_order[c0 + divmod(i, Z, inv_z, &z)];
-      st_f32<true>((to_t ? h.col_t : h.col_c)[l] + 4u * z, src[l * Z + z]);
+      const float v = to_f32(src[l * Z + z]);
+      if (to_t)
+        St::template st_t<true>(h.col_t[l] + kT * z, v);
+      else
+        st_f32<true>(h.col_c[l] + 4u * z, v);
     }
   }
 
@@ -497,41 +589,42 @@ struct OnChip {
         }
       }
       const unsigned st = h.row_st[j];
-      st_f32x2<true>(st + 8u * r, make_float2(v1, v2));
-      st_meta<true, Meta>(meta_at<Meta>(st, Z, r),
+      St::template st_pair<true>(st + kV * r, St::pack(make_float2(v1, v2)));
+      st_meta<true, Meta>(meta_at<Meta, S>(st, Z, r),
                           signs | ((Meta)am << MetaBits<Meta>::kAmShift));
     }
   }
 
   // My rows' states: all zero (R = +0.0), or read from / written to a
-  // frame's saved state sv [J, Z] (v1, v2) and sm [J, Z].
+  // frame's saved state sv [J, Z] (v1, v2 as stored) and sm [J, Z].
   __device__ __forceinline__ void zero_rows() const {
     for (int i = tid; i < my_cns; i += nt) {
       int r;
       const unsigned st = h.row_st[h.row_order[j0 + divmod(i, Z, inv_z, &r)]];
-      st_f32x2<true>(st + 8u * r, make_float2(0.f, 0.f));
-      st_meta<true, Meta>(meta_at<Meta>(st, Z, r), (Meta)0);
+      St::template st_pair<true>(st + kV * r,
+                                 St::pack(make_float2(0.f, 0.f)));
+      st_meta<true, Meta>(meta_at<Meta, S>(st, Z, r), (Meta)0);
     }
   }
 
-  __device__ __forceinline__ void load_rows(const float2* sv,
+  __device__ __forceinline__ void load_rows(const Pair* sv,
                                             const Meta* sm) const {
     for (int i = tid; i < my_cns; i += nt) {
       int r;
       const int j = h.row_order[j0 + divmod(i, Z, inv_z, &r)];
       const unsigned st = h.row_st[j];
-      st_f32x2<true>(st + 8u * r, sv[j * Z + r]);
-      st_meta<true, Meta>(meta_at<Meta>(st, Z, r), sm[j * Z + r]);
+      St::template st_pair<true>(st + kV * r, sv[j * Z + r]);
+      st_meta<true, Meta>(meta_at<Meta, S>(st, Z, r), sm[j * Z + r]);
     }
   }
 
-  __device__ __forceinline__ void save_rows(float2* sv, Meta* sm) const {
+  __device__ __forceinline__ void save_rows(Pair* sv, Meta* sm) const {
     for (int i = tid; i < my_cns; i += nt) {
       int r;
       const int j = h.row_order[j0 + divmod(i, Z, inv_z, &r)];
       const unsigned st = h.row_st[j];
-      sv[j * Z + r] = ld_f32x2<true>(st + 8u * r);
-      sm[j * Z + r] = ld_meta<true, Meta>(meta_at<Meta>(st, Z, r));
+      sv[j * Z + r] = St::template ld_pair<true>(st + kV * r);
+      sm[j * Z + r] = ld_meta<true, Meta>(meta_at<Meta, S>(st, Z, r));
     }
   }
 
@@ -567,10 +660,10 @@ struct OnChip {
             int rb = ra + (zb - za);
             if (rb >= Z) rb -= Z;
             pos[u] = info >> 16;
-            xa[u] = ld_f32x2<kLocal>(st + 8u * ra);
-            ma[u] = ld_meta<kLocal, Meta>(meta_at<Meta>(st, Z, ra));
-            xb[u] = ld_f32x2<kLocal>(st + 8u * rb);
-            mb[u] = ld_meta<kLocal, Meta>(meta_at<Meta>(st, Z, rb));
+            xa[u] = St::unpack(St::template ld_pair<kLocal>(st + kV * ra));
+            ma[u] = ld_meta<kLocal, Meta>(meta_at<Meta, S>(st, Z, ra));
+            xb[u] = St::unpack(St::template ld_pair<kLocal>(st + kV * rb));
+            mb[u] = ld_meta<kLocal, Meta>(meta_at<Meta, S>(st, Z, rb));
           }
         }
 #pragma unroll
@@ -581,8 +674,11 @@ struct OnChip {
           }
         }
       }
-      st_f32<true>(h.col_t[l] + 4u * za, va);
-      if (two) st_f32<true>(h.col_t[l] + 4u * zb, vb);
+      // the total as stored: T = S(chan + R[e0] + R[e1] + ...)
+      va = to_f32(to_store<S>(va));
+      vb = to_f32(to_store<S>(vb));
+      St::template st_t<true>(h.col_t[l] + kT * za, va);
+      if (two) St::template st_t<true>(h.col_t[l] + kT * zb, vb);
       if (zero_in_vn && l < L - J) mine |= va < 0.f || (two && vb < 0.f);
     }
     return mine;
@@ -596,7 +692,7 @@ struct OnChip {
       for (int i = tid; i < my_cols && !mine; i += nt) {
         int z;
         const int l = h.col_order[c0 + divmod(i, Z, inv_z, &z)];
-        mine = l < L - J && ld_f32<true>(h.col_t[l] + 4u * z) < 0.f;
+        mine = l < L - J && St::template ld_t<true>(h.col_t[l] + kT * z) < 0.f;
       }
     } else {
       for (int i = tid; i < my_cns && !mine; i += nt) {
@@ -607,7 +703,7 @@ struct OnChip {
           const unsigned long long w = h.cn[kk];
           int z = r + (int)(w >> 32);
           if (z >= Z) z -= Z;
-          par ^= ld_f32<kLocal>((unsigned)w + 4u * z) < 0.f;
+          par ^= St::template ld_t<kLocal>((unsigned)w + kT * z) < 0.f;
         }
         mine = par;
       }
@@ -625,42 +721,44 @@ struct OnChip {
       const int rb = two ? ra + half : ra;
       const unsigned st = h.row_st[j];
       const int r[2] = {ra, rb};
-      const unsigned mp[2] = {meta_at<Meta>(st, Z, ra),
-                              meta_at<Meta>(st, Z, rb)};
-      const float2 ov[2] = {ld_f32x2<true>(st + 8u * ra),
-                            ld_f32x2<true>(st + 8u * rb)};
+      const unsigned mp[2] = {meta_at<Meta, S>(st, Z, ra),
+                              meta_at<Meta, S>(st, Z, rb)};
+      const float2 ov[2] = {
+          St::unpack(St::template ld_pair<true>(st + kV * ra)),
+          St::unpack(St::template ld_pair<true>(st + kV * rb))};
       const Meta om[2] = {ld_meta<true, Meta>(mp[0]),
                           ld_meta<true, Meta>(mp[1])};
       float2 nv[2];
       Meta nm[2];
-      cn_update<kLocal, Meta, 2>(h, ov, om, h.row_ptr[j], h.row_ptr[j + 1],
-                                 r, Z, alpha, use_alpha, beta, use_beta, nv,
-                                 nm);
-      st_f32x2<true>(st + 8u * ra, nv[0]);
+      cn_update<kLocal, Meta, 2, S>(h, ov, om, h.row_ptr[j],
+                                    h.row_ptr[j + 1], r, Z, alpha, use_alpha,
+                                    beta, use_beta, nv, nm);
+      St::template st_pair<true>(st + kV * ra, St::pack(nv[0]));
       st_meta<true, Meta>(mp[0], nm[0]);
       if (two) {
-        st_f32x2<true>(st + 8u * rb, nv[1]);
+        St::template st_pair<true>(st + kV * rb, St::pack(nv[1]));
         st_meta<true, Meta>(mp[1], nm[1]);
       }
     }
   }
 
   // Layered: this block's lanes of block row j, the totals updated as
-  // T + (R_new - R_old).
+  // T + (R_new - R_old) in float32, and as S((T + R_new) - R_old) with R_new
+  // unrounded in bf16 (the TPU kernel's order, pallas_minsum.py:226-227).
   __device__ __forceinline__ void layered_row(int j, float alpha,
                                               int use_alpha, float beta,
                                               int use_beta) const {
     const int k0 = h.row_ptr[j], k1 = h.row_ptr[j + 1];
     const unsigned st = h.row_st[j];
     for (int r = lane0 + tid; r < lane1; r += nt) {
-      const unsigned mp = meta_at<Meta>(st, Z, r);
-      const float2 ov = ld_f32x2<kLocal>(st + 8u * r);
+      const unsigned mp = meta_at<Meta, S>(st, Z, r);
+      const float2 ov = St::unpack(St::template ld_pair<kLocal>(st + kV * r));
       const Meta om = ld_meta<kLocal, Meta>(mp);
       float2 nv;
       Meta nm;
-      cn_update<kLocal, Meta, 1>(h, &ov, &om, k0, k1, &r, Z, alpha,
-                                 use_alpha, beta, use_beta, &nv, &nm);
-      // T + (R_new - R_old), a chunk of totals read at once
+      cn_update<kLocal, Meta, 1, S>(h, &ov, &om, k0, k1, &r, Z, alpha,
+                                    use_alpha, beta, use_beta, &nv, &nm);
+      // the new totals, a chunk of totals read at once
       for (int kc = k0; kc < k1; kc += kChunk) {
         unsigned ta[kChunk];
         float tv[kChunk];
@@ -670,34 +768,36 @@ struct OnChip {
             const unsigned long long w = h.cn[kc + u];
             int z = r + (int)(w >> 32);
             if (z >= Z) z -= Z;
-            ta[u] = (unsigned)w + 4u * z;
-            tv[u] = ld_f32<kLocal>(ta[u]);
+            ta[u] = (unsigned)w + kT * z;
+            tv[u] = St::template ld_t<kLocal>(ta[u]);
           }
         }
 #pragma unroll
         for (int u = 0; u < kChunk; ++u) {
           const int i = kc + u - k0;
-          if (kc + u < k1)
-            st_f32<kLocal>(ta[u],
-                           __fadd_rn(tv[u], __fsub_rn(expand(nv, nm, i),
-                                                      expand(ov, om, i))));
+          if (kc + u < k1) {
+            const float rn = expand(nv, nm, i), ro = expand(ov, om, i);
+            St::template st_t<kLocal>(ta[u],
+                                      layered_total<S>(tv[u], rn, ro));
+          }
         }
       }
-      st_f32x2<kLocal>(st + 8u * r, nv);
+      St::template st_pair<kLocal>(st + kV * r, St::pack(nv));
       st_meta<kLocal, Meta>(mp, nm);
     }
   }
 
   // hard [L, Z] = T < 0 of my columns, and the totals into tout [L, Z]
   // unless it is null.
+  template <typename Dst>
   __device__ __forceinline__ void store_cols(signed char* hb,
-                                             float* tout) const {
+                                             Dst* tout) const {
     for (int i = tid; i < my_cols; i += nt) {
       int z;
       const int l = h.col_order[c0 + divmod(i, Z, inv_z, &z)];
-      const float v = ld_f32<true>(h.col_t[l] + 4u * z);
+      const float v = St::template ld_t<true>(h.col_t[l] + kT * z);
       hb[l * Z + z] = v < 0.f ? 1 : 0;
-      if (tout) tout[l * Z + z] = v;
+      if (tout) tout[l * Z + z] = to_store<S>(v);
     }
   }
 
@@ -708,8 +808,8 @@ struct OnChip {
       int r;
       const int j = h.row_order[j0 + divmod(i, Z, inv_z, &r)];
       const unsigned st = h.row_st[j];
-      const float2 v = ld_f32x2<true>(st + 8u * r);
-      const Meta m = ld_meta<true, Meta>(meta_at<Meta>(st, Z, r));
+      const float2 v = St::unpack(St::template ld_pair<true>(st + kV * r));
+      const Meta m = ld_meta<true, Meta>(meta_at<Meta, S>(st, Z, r));
       const int k0 = h.row_ptr[j];
       for (int kk = k0; kk < h.row_ptr[j + 1]; ++kk) {
         int z = r + (int)(h.cn[kk] >> 32);
@@ -800,13 +900,14 @@ static __global__ void onchip_finish(int* ctl, int num_iters, int from_k) {
 
 // One launch of the protocol (`mode`), a persistent grid of clusters, each
 // walking over frames.  chan, hard [B, L, Z]; ok, kb [B]; the saved states
-// sv [B, J, Z] float2 and sm [B, J, Z] Meta, and (layered) tsave [B, L, Z]
-// f32, touched only when stop_when_ok.
-template <bool kLayered, typename Meta, bool kLocal, int kThreads>
+// sv [B, J, Z] Store<S>::Pair and sm [B, J, Z] Meta, and (layered) tsave
+// [B, L, Z] S, touched only when stop_when_ok.
+template <bool kLayered, typename Meta, bool kLocal, int kThreads,
+          typename S>
 static __global__ void __launch_bounds__(kThreads) onchip_batch_kernel(
-    const float* __restrict__ chan, float* tsave,
+    const float* __restrict__ chan, void* tsave_io,
     signed char* __restrict__ hard, unsigned char* __restrict__ ok, int* kb,
-    float2* sv, void* sm_io, int* ctl, const int* __restrict__ edge_l,
+    void* sv_io, void* sm_io, int* ctl, const int* __restrict__ edge_l,
     const int* __restrict__ edge_s, const int* __restrict__ row_ptr,
     const int* __restrict__ row_edge, const int* __restrict__ col_ptr,
     const int* __restrict__ col_edge, const int* __restrict__ edge_row,
@@ -818,9 +919,11 @@ static __global__ void __launch_bounds__(kThreads) onchip_batch_kernel(
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
   const int me = (int)cluster.block_rank();
-  const OnChip<Meta, kLocal> oc(smem, me, cs, edge_l, edge_s, row_ptr,
-                                row_edge, col_ptr, col_edge, edge_row,
-                                edge_pos, plan, L, J, E, Z);
+  const OnChip<Meta, kLocal, S> oc(smem, me, cs, edge_l, edge_s, row_ptr,
+                                   row_edge, col_ptr, col_edge, edge_row,
+                                   edge_pos, plan, L, J, E, Z);
+  S* tsave = static_cast<S*>(tsave_io);
+  auto* sv = static_cast<typename Store<S>::Pair*>(sv_io);
   Meta* sm = static_cast<Meta*>(sm_io);
   const int K = ctl[kMaxK], now = ctl[kIters];
   // flooding: the zero check rides on the VN phase
@@ -842,8 +945,10 @@ static __global__ void __launch_bounds__(kThreads) onchip_batch_kernel(
     }
 
     // entry: chan (layered: the totals) of my columns, my rows' state
-    if (kLayered)
-      oc.load_cols(mode == kRunFirst ? cb : tsave + b * L * Z, true);
+    if (kLayered && mode == kRunFirst)
+      oc.load_cols(cb, true);
+    else if (kLayered)
+      oc.load_cols(tsave + b * L * Z, true);
     else if (oc.keep_chan)
       oc.load_cols(cb, false);
     if (mode == kRunFirst)
@@ -906,31 +1011,37 @@ static __global__ void __launch_bounds__(kThreads) onchip_batch_kernel(
 // the protocol above on `stream` of CUDA device `device`: a persistent grid
 // of clusters of `cluster` blocks of `threads` (512 or 1024) threads, each
 // with `smem_bytes` of dynamic shared memory laid out by `plan`, 64-bit
-// check-node words when `wide`.  edge_row / edge_pos give each edge's block
-// row and its position in the row.  hard, ok and ctl (kCtlInts ints; the
+// check-node words when `wide`, T and (v1, v2) stored as bfloat16 when
+// `bf16` (else float32).  edge_row / edge_pos give each edge's block row
+// and its position in the row.  hard, ok and ctl (kCtlInts ints; the
 // batch's count ends in ctl[kIters]) are written; kb, sv, sm and (layered)
-// tsave are the caller's scratch, used only with early stop and a check.
-// Returns 0 or the first CUDA error met while enqueueing.
+// tsave (of the storage type; sv of its Pair) are the caller's scratch,
+// used only with early stop and a check.  Returns 0 or the first CUDA error
+// met while enqueueing.
 template <bool kLayered>
 static inline int onchip_batch(
-    const float* chan, float* tsave, signed char* hard, unsigned char* ok,
-    int* kb, float* sv, void* sm, int* ctl, const int* edge_l,
+    const float* chan, void* tsave, signed char* hard, unsigned char* ok,
+    int* kb, void* sv, void* sm, int* ctl, const int* edge_l,
     const int* edge_s, const int* row_ptr, const int* row_edge,
     const int* col_ptr, const int* col_edge, const int* edge_row,
     const int* edge_pos, const int* plan, int B, int L, int J, int E, int Z,
     int num_iters, float alpha, int use_alpha, float beta, int use_beta,
     int check, int early_stop, int cluster, int smem_bytes, int wide,
-    int threads, int device, void* stream) {
+    int threads, int bf16, int device, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if ((err = cudaSetDevice(device))) return err;
-#define BATCH_PICK(T)                                                        \
+#define BATCH_PICK(T, S)                                                     \
   (cluster == 1                                                              \
-       ? (wide ? onchip_batch_kernel<kLayered, uint64_t, true, T>            \
-               : onchip_batch_kernel<kLayered, uint32_t, true, T>)           \
-       : (wide ? onchip_batch_kernel<kLayered, uint64_t, false, T>           \
-               : onchip_batch_kernel<kLayered, uint32_t, false, T>))
-  auto kernel = threads == 512 ? BATCH_PICK(512) : BATCH_PICK(1024);
+       ? (wide ? onchip_batch_kernel<kLayered, uint64_t, true, T, S>         \
+               : onchip_batch_kernel<kLayered, uint32_t, true, T, S>)        \
+       : (wide ? onchip_batch_kernel<kLayered, uint64_t, false, T, S>        \
+               : onchip_batch_kernel<kLayered, uint32_t, false, T, S>))
+  auto kernel =
+      bf16 ? (threads == 512 ? BATCH_PICK(512, __nv_bfloat16)
+                             : BATCH_PICK(1024, __nv_bfloat16))
+           : (threads == 512 ? BATCH_PICK(512, float)
+                             : BATCH_PICK(1024, float));
 #undef BATCH_PICK
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
@@ -940,11 +1051,10 @@ static inline int onchip_batch(
   const int stop_when_ok = early_stop && check != kCheckNone;
   auto launch = [&](int mode) {
     return cudaLaunchKernelEx(
-        &cfg, kernel, chan, tsave, hard, ok, kb,
-        reinterpret_cast<float2*>(sv), sm, ctl, edge_l, edge_s, row_ptr,
-        row_edge, col_ptr, col_edge, edge_row, edge_pos, plan, B, L, J, E, Z,
-        num_iters, alpha, use_alpha, beta, use_beta, check, stop_when_ok,
-        mode);
+        &cfg, kernel, chan, tsave, hard, ok, kb, sv, sm, ctl, edge_l, edge_s,
+        row_ptr, row_edge, col_ptr, col_edge, edge_row, edge_pos, plan, B, L,
+        J, E, Z, num_iters, alpha, use_alpha, beta, use_beta, check,
+        stop_when_ok, mode);
   };
   if ((err = cudaMemsetAsync(ctl, 0, kCtlInts * sizeof(int), st))) return err;
   if ((err = launch(kRunFirst))) return err;

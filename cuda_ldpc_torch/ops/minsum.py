@@ -29,6 +29,19 @@ Messages are ``[B, E, Z]``; the circulant is ``torch.roll`` along Z.  The
 early-stop test reads ``ok.all()`` on the host once per iteration, which
 synchronises with the device: fine for a reference, and the reason the
 kernel keeps its stop flag on the device instead.
+
+``msg_dtype=torch.bfloat16`` is the TPU kernel's bf16 storage
+(cuda_ldpc_tpu/ops/pallas_minsum.py:344-352): the totals T and the messages
+R are stored rounded to bfloat16 (round to nearest even) while every
+operation computes in float32.  The rounding points are the kernel's:
+chan stays float32; flooding's T = bf16(chan + R[e0] + R[e1] + ...), the
+sum in float32 in column-edge order; layered starts from T = bf16(chan);
+the check node reads q = f32(T) - f32(R); layered updates a total as
+T' = bf16((T + R_new) - R_old), the kernel's order, with R_new the
+unrounded float32 output (not the float32 form's T + (R_new - R_old));
+R = bf16(R_new); decisions are T < 0.  This is not the JAX package's jnp
+path under msg_dtype, which computes in bf16 as well: the two agree only
+statistically.  The float32 results are unchanged by the option.
 """
 
 from __future__ import annotations
@@ -40,6 +53,30 @@ import torch
 from cuda_ldpc_torch.models.qc_binary import QCBinaryCode
 
 CHECKS = ("zero", "syndrome", "none")
+MSG_DTYPES = {None: None, torch.float32: None, "float32": None,
+              torch.bfloat16: torch.bfloat16, "bfloat16": torch.bfloat16}
+
+
+def storage(msg_dtype) -> torch.dtype | None:
+    """The storage type of T and R for ``msg_dtype``: None for float32,
+    else torch.bfloat16; ValueError for anything else.  This is the one
+    place the spellings are read: the CLI, the config, the bench and
+    chip_smoke.py pass the names None, "float32" and "bfloat16"; a caller
+    of the decoders may pass the torch dtypes torch.float32 and
+    torch.bfloat16 instead."""
+    try:
+        return MSG_DTYPES[msg_dtype]
+    except (KeyError, TypeError):
+        raise ValueError(f"unknown msg_dtype {msg_dtype!r} (expected "
+                         "float32 or bfloat16)") from None
+
+
+def _rounder(store: torch.dtype | None):
+    """x -> x rounded to the storage type and read back as float32 (the
+    identity for float32)."""
+    if store is None:
+        return lambda x: x
+    return lambda x: x.to(store).to(torch.float32)
 
 
 class DecodeResult(NamedTuple):
@@ -108,16 +145,17 @@ def _cn_bp(Qr: torch.Tensor, alpha: float, beta: float) -> torch.Tensor:
 _CN_RULES = {"minsum": _cn_minsum, "bp": _cn_bp}
 
 
-def _vn_update(code: QCBinaryCode, chan: torch.Tensor, R: torch.Tensor):
-    """VN phase: totals per column, hard decisions, v2c messages
-    (column-aligned)."""
+def _vn_update(code: QCBinaryCode, chan: torch.Tensor, R: torch.Tensor,
+               rnd=lambda x: x):
+    """VN phase: totals per column (stored through ``rnd``), hard
+    decisions, v2c messages (column-aligned)."""
     totals = []
     for l in range(code.L):
         t = chan[:, l]
         for e in code.col_edges[l]:
             t = t + R[:, e]
         totals.append(t)
-    total = torch.stack(totals, dim=1)                     # [B, L, Z]
+    total = rnd(torch.stack(totals, dim=1))                # [B, L, Z]
     hard = total < 0
     edge_l = torch.as_tensor(code.edges[:, 1], device=chan.device)
     Q = total[:, edge_l, :] - R                            # v2c, column-aligned
@@ -198,7 +236,7 @@ def _decode(chan: torch.Tensor, code: QCBinaryCode, num_iters: int,
 def decode_flooding(chan: torch.Tensor, code: QCBinaryCode, num_iters: int,
                     alpha: float = 1.0, beta: float = 0.0,
                     check: str = "syndrome", early_stop: bool = True,
-                    rule: str = "minsum") -> DecodeResult:
+                    rule: str = "minsum", msg_dtype=None) -> DecodeResult:
     """Flooding decode of chan [B, L, Z] (float32 channel values; true LLRs
     2y/sigma^2 for ``rule='bp'``, while min-sum takes raw samples).
 
@@ -206,8 +244,10 @@ def decode_flooding(chan: torch.Tensor, code: QCBinaryCode, num_iters: int,
     check passes when ``early_stop`` (check 'none' never passes).  Each
     iteration's CN update is made at the start of the next one, so the
     final iteration's is skipped: the JAX function computes and drops
-    those messages, so the outputs are the same."""
+    those messages, so the outputs are the same.  ``msg_dtype``: float32
+    (None) or bfloat16 storage of T and R (module docstring)."""
     check_args(check, rule)
+    rnd = _rounder(storage(msg_dtype))
     chan = chan.to(torch.float32)
     state = {"R": torch.zeros((chan.shape[0], code.num_edges, code.Z),
                               dtype=torch.float32, device=chan.device),
@@ -215,8 +255,8 @@ def decode_flooding(chan: torch.Tensor, code: QCBinaryCode, num_iters: int,
 
     def iterate() -> torch.Tensor:
         if state["Q"] is not None:      # the previous iteration's CN phase
-            state["R"] = _cn_update(code, state["Q"], alpha, beta, rule)
-        total, _, state["Q"] = _vn_update(code, chan, state["R"])
+            state["R"] = rnd(_cn_update(code, state["Q"], alpha, beta, rule))
+        total, _, state["Q"] = _vn_update(code, chan, state["R"], rnd)
         return total
 
     return _decode(chan, code, num_iters, check, early_stop, iterate)
@@ -225,29 +265,34 @@ def decode_flooding(chan: torch.Tensor, code: QCBinaryCode, num_iters: int,
 def decode_layered(chan: torch.Tensor, code: QCBinaryCode, num_iters: int,
                    alpha: float = 1.0, beta: float = 0.0,
                    check: str = "syndrome", early_stop: bool = True,
-                   rule: str = "minsum") -> DecodeResult:
+                   rule: str = "minsum", msg_dtype=None) -> DecodeResult:
     """Row-layered decode of chan [B, L, Z]: each block row's CN update goes
     into the running totals at once (the schedule named in the BASELINE
     configs; with bp it needs about half the flooding iterations).
     Stopping and outputs as in ``decode_flooding``; hard and ok come from
-    the totals after each full pass over the block rows."""
+    the totals after each full pass over the block rows.  ``msg_dtype``:
+    float32 (None) or bfloat16 storage of T and R (module docstring)."""
     check_args(check, rule)
-    total = chan.to(torch.float32).clone()
+    store = storage(msg_dtype)
+    total = _rounder(store)(chan.to(torch.float32)).clone()
     R = torch.zeros((chan.shape[0], code.num_edges, code.Z),
                     dtype=torch.float32, device=chan.device)
 
     def iterate() -> torch.Tensor:
-        _layered_pass(code, total, R, alpha, beta, rule)
+        _layered_pass(code, total, R, alpha, beta, rule, store)
         return total
 
     return _decode(chan, code, num_iters, check, early_stop, iterate)
 
 
 def _layered_pass(code: QCBinaryCode, total: torch.Tensor, R: torch.Tensor,
-                  alpha: float, beta: float, rule: str):
+                  alpha: float, beta: float, rule: str,
+                  store: torch.dtype | None = None):
     """One pass over the block rows, updating ``total`` [B, L, Z] and ``R``
-    [B, E, Z] in place."""
+    [B, E, Z] in place; with a bf16 ``store``, in the kernel's order and
+    rounded (module docstring)."""
     cn = _CN_RULES[rule]
+    rnd = _rounder(store)
     edges = code.edges
     for j in range(code.J):
         idx = code.row_edges[j]
@@ -259,8 +304,12 @@ def _layered_pass(code: QCBinaryCode, total: torch.Tensor, R: torch.Tensor,
         Rr = cn(Qr, alpha, beta)
         for i, (e, l, s) in enumerate(zip(idx, cols, shifts)):
             new_col = torch.roll(Rr[:, i], s, dims=-1)
-            total[:, l] = total[:, l] + (new_col - R[:, e])
-            R[:, e] = new_col
+            if store is None:
+                total[:, l] = total[:, l] + (new_col - R[:, e])
+                R[:, e] = new_col
+            else:
+                total[:, l] = rnd((total[:, l] + new_col) - R[:, e])
+                R[:, e] = rnd(new_col)
 
 
 def _freeze(cont: torch.Tensor, new: torch.Tensor,

@@ -5,7 +5,9 @@ and the batch decoders K1 and K2 (ops/cuda_minsum.py).
 A frame's totals T [L, Z] f32 and its c2v messages, compressed per check
 node (v1, v2 f32 and a 32-bit word of the first-minimum index and the sign
 bits: 12 bytes, 16 above NARROW_DEGREE edges a row), stay in shared memory
-for every iteration the kernel runs.  Where one block's 227 KB is too
+for every iteration the kernel runs.  Under bfloat16 storage (K1 and K2
+with msg_dtype bfloat16) T takes 2 bytes a bit and v1, v2 2 bytes each: 8
+bytes a check node (12 when wide); chan stays float32.  Where one block's 227 KB is too
 small, a thread-block cluster holds them in distributed shared memory:
 ``onchip_plan`` picks the smallest cluster that fits, gives each block an
 even share of the block columns and rows with few edges between blocks,
@@ -62,32 +64,44 @@ class OnChipPlan(NamedTuple):
     table: np.ndarray
 
 
+def row_bytes(Z: int, wide: bool, bf16: bool = False) -> int:
+    """A block row's state: (v1, v2)[Z] (8 or, bf16, 4 bytes each), then
+    from the next multiple of 8 bytes the words Meta[Z] (4 or, wide, 8
+    bytes each): csrc/onchip.cuh's ``meta_at``."""
+    pairs = (4 if bf16 else 8) * Z
+    return _align16((pairs + 7) // 8 * 8 + (8 if wide else 4) * Z)
+
+
 def _layout(code: QCBinaryCode, cs: int, keep: bool, wide: bool,
             col_rank: np.ndarray, row_rank: np.ndarray,
-            layered: bool) -> OnChipPlan:
+            layered: bool, bf16: bool = False) -> OnChipPlan:
     """The plan of blocks that own the given block columns and rows: in
     each block, after the header, its T columns, its chan columns (when
-    ``keep``), then its rows' states.  A block has 1024 threads, or 512
-    when it runs a layered row's share of at most 512 lanes (PON_LDPC's
-    256: fewer idle warps at the barrier after each row)."""
+    ``keep``, float32 whatever T's storage), then its rows' states.  A
+    block has 1024 threads, or 512 when it runs a layered row's share of at
+    most 512 lanes (PON_LDPC's 256: fewer idle warps at the barrier after
+    each row)."""
     L, J, Z = code.L, code.J, code.Z
     header = header_bytes(code)
-    col = _align16(4 * Z)
-    row = _align16((8 + (8 if wide else 4)) * Z)
+    col = _align16((2 if bf16 else 4) * Z)
+    chan_col = _align16(4 * Z) if keep else 0
+    row = row_bytes(Z, wide, bf16)
     col_order = np.argsort(col_rank, kind="stable")
     row_order = np.argsort(row_rank, kind="stable")
     ncols = np.bincount(col_rank, minlength=cs)
     nrows = np.bincount(row_rank, minlength=cs)
     cstart = np.concatenate([[0], np.cumsum(ncols)])
     rstart = np.concatenate([[0], np.cumsum(nrows)])
-    col_off = np.empty(L, np.int64)
-    col_off[col_order] = header + (np.arange(L) - cstart[col_rank[col_order]]
-                                   ) * col
-    chan_off = col_off + ncols[col_rank] * col if keep else np.full(L, -1)
+    col_pos = np.empty(L, np.int64)        # each column's place in its block
+    col_pos[col_order] = np.arange(L) - cstart[col_rank[col_order]]
+    col_off = header + col_pos * col
+    chan_off = (header + ncols[col_rank] * col + col_pos * chan_col if keep
+                else np.full(L, -1))
+    cols_bytes = ncols * (col + chan_col)
     row_off = np.empty(J, np.int64)
-    row_off[row_order] = (header + ncols[row_rank[row_order]] * col * (1 + keep)
+    row_off[row_order] = (header + cols_bytes[row_rank[row_order]]
                           + (np.arange(J) - rstart[row_rank[row_order]]) * row)
-    used = tuple(int(header + ncols[c] * col * (1 + keep) + nrows[c] * row)
+    used = tuple(int(header + cols_bytes[c] + nrows[c] * row)
                  for c in range(cs))
     pad = MAX_CLUSTER - cs
     table = np.concatenate([cstart, [L] * pad, rstart, [J] * pad, col_order,
@@ -157,14 +171,15 @@ def _partition(code: QCBinaryCode, cs: int, fits) -> tuple:
 
 
 def onchip_plan(code: QCBinaryCode, layered: bool,
-                cluster: int | None = None) -> OnChipPlan:
+                cluster: int | None = None, bf16: bool = False) -> OnChipPlan:
     """The smallest cluster (1, 2, 4 or 8 blocks, or ``cluster``) whose
     blocks hold T [L, Z] f32 and the compressed state (12 bytes a check
-    node, 16 above NARROW_DEGREE edges a row), each block owning a share of
+    node, 16 above NARROW_DEGREE edges a row), or with ``bf16`` T in
+    bfloat16 and 8 bytes a check node (12), each block owning a share of
     the block columns and block rows (``_partition``: few edges across
-    blocks); flooding also keeps chan on chip where it fits beside them.
-    Raises ValueError for a code no cluster holds, whose rows exceed
-    MAX_DEGREE edges, or whose Z needs more than 16 bits."""
+    blocks); flooding also keeps chan (float32) on chip where it fits
+    beside them.  Raises ValueError for a code no cluster holds, whose rows
+    exceed MAX_DEGREE edges, or whose Z needs more than 16 bits."""
     max_dc = int(code.row_weights.max())
     if max_dc > MAX_DEGREE:
         raise ValueError(f"{code.name}: row degree {max_dc} exceeds the "
@@ -179,12 +194,12 @@ def onchip_plan(code: QCBinaryCode, layered: bool,
         for keep in ((False,) if layered else (True, False)):
             def fits(col_rank, row_rank):
                 plan = _layout(code, cs, keep, wide, col_rank, row_rank,
-                               layered)
+                               layered, bf16)
                 return plan.smem_bytes <= SMEM_PER_BLOCK
 
             ranks = _partition(code, cs, fits)
             if ranks is not None:
-                return _layout(code, cs, keep, wide, *ranks, layered)
+                return _layout(code, cs, keep, wide, *ranks, layered, bf16)
     raise ValueError(f"{code.name}: T and the compressed state need more "
                      f"than {MAX_CLUSTER} x {SMEM_PER_BLOCK} bytes of shared "
                      f"memory")
@@ -208,12 +223,13 @@ def _code_key(code: QCBinaryCode) -> tuple:
     return (code.name, code.Z, code.base.tobytes(), code.base.shape)
 
 
-def cached_plan(code: QCBinaryCode, layered: bool) -> OnChipPlan:
-    """``onchip_plan(code, layered)``, computed once per code and
-    schedule."""
-    key = (*_code_key(code), layered)
+def cached_plan(code: QCBinaryCode, layered: bool,
+                bf16: bool = False) -> OnChipPlan:
+    """``onchip_plan(code, layered, bf16=bf16)``, computed once per code,
+    schedule and storage."""
+    key = (*_code_key(code), layered, bf16)
     if key not in _plans:
-        _plans[key] = onchip_plan(code, layered)
+        _plans[key] = onchip_plan(code, layered, bf16=bf16)
     return _plans[key]
 
 

@@ -369,34 +369,28 @@ def _profiler(profile_dir: str | None, engine: str, device: torch.device):
 # binary simulator
 # --------------------------------------------------------------------------
 
-# What the port does not run yet, and the ROADMAP.md item that ports it.
-NOT_PORTED = {
-    "msg_dtype": "Queue 1 item 4 (bfloat16 message storage)",
-}
-
-
 RULE_NAMES = {"minsum": "min-sum", "bp": "sum-product (bp)"}
 
 
-def not_ported(what: str, detail: str = "") -> NotImplementedError:
-    return NotImplementedError(f"{detail or what} is not ported to "
-                               f"cuda_ldpc_torch yet (ROADMAP.md "
-                               f"{NOT_PORTED[what]})")
-
-
 def check_ported(sim: cfg.BinarySimConfig):
-    """Raise NotImplementedError, naming the ROADMAP.md item, for a
-    configuration the port does not run yet, and ValueError for one that
-    makes no sense: tx='random' with the zero check, or with the
-    'reference' channel, whose noise the reference draws for the all-zero
-    codeword (the JAX package's reference channel sends the all-zero word
-    whatever tx says, cuda_ldpc_tpu/sim.py:444-476; the port refuses)."""
+    """Raise ValueError for a configuration that makes no sense: an unknown
+    msg_dtype, engine or tx; msg_dtype bfloat16 on the stream engine (the
+    TPU stream kernel stores float32 while the JAX stream core computes in
+    bf16, cuda_ldpc_tpu/sim.py:543 and :625, so there is no one function to
+    port); tx='random' with the zero check, or with the 'reference'
+    channel, whose noise the reference draws for the all-zero codeword (the
+    JAX package's reference channel sends the all-zero word whatever tx
+    says, cuda_ldpc_tpu/sim.py:444-476; the port refuses)."""
     d = sim.decoder
-    if d.msg_dtype != "float32":
-        raise not_ported("msg_dtype", f"msg_dtype={d.msg_dtype}")
+    store = minsum.storage(d.msg_dtype)        # ValueError: unknown
     if sim.engine not in ("batch", "stream"):
         raise ValueError(f"unknown engine {sim.engine!r} "
                          "(expected 'batch' or 'stream')")
+    if store is not None and sim.engine == "stream":
+        raise ValueError("msg_dtype='bfloat16' runs on the batch engine "
+                         "(and --packed) only: the stream engine stores "
+                         "float32 by design (the TPU stream kernel has no "
+                         "bf16 form)")
     if sim.tx not in ("zero", "random"):
         raise ValueError(f"unknown tx {sim.tx!r}")
     if sim.tx == "random":
@@ -511,7 +505,8 @@ def make_binary_step(code: QCBinaryCode, sim: cfg.BinarySimConfig,
     def step(generator: torch.Generator, sigma: float) -> torch.Tensor:
         chan, cw = fresh(generator, sigma)
         res = decode(chan, code, dec.max_iters, alpha=dec.alpha,
-                     beta=dec.beta, check=dec.check, rule=dec.rule)
+                     beta=dec.beta, check=dec.check, rule=dec.rule,
+                     msg_dtype=dec.msg_dtype)
         return _counters(res, msg_cols, cw)
 
     return step, B
@@ -534,7 +529,8 @@ def make_binary_ref_channel_step(code: QCBinaryCode,
 
     def step(chan: np.ndarray) -> torch.Tensor:
         res = decode(torch.from_numpy(chan).to(device), code, dec.max_iters,
-                     alpha=dec.alpha, beta=dec.beta, check=dec.check)
+                     alpha=dec.alpha, beta=dec.beta, check=dec.check,
+                     msg_dtype=dec.msg_dtype)
         return _counters(res, msg_cols)
 
     return step, sim.batch_per_device
@@ -733,7 +729,8 @@ def make_binary_packed_step(code: QCBinaryCode, sim: cfg.BinarySimConfig,
     def step(generator, sigma_vec, pid):
         chan, cw = fresh(generator, sigma_vec)
         res = decode(chan, code, dec.max_iters, alpha=dec.alpha,
-                     beta=dec.beta, check=dec.check, rule=dec.rule)
+                     beta=dec.beta, check=dec.check, rule=dec.rule,
+                     msg_dtype=dec.msg_dtype)
         errbits = _bit_errors(res.hard, cw, msg_cols)
         has_err = errbits > 0
         per = torch.stack([torch.ones_like(errbits), (has_err | ~res.ok).long(),

@@ -51,15 +51,37 @@ def test_bench_prints_one_json_line_on_cpu(tmp_path):
     assert line["value"] > 0 and line["unit"] == "Mb/s"
 
 
-@pytest.mark.parametrize("switch,item", [("BENCH_DTYPE", "item 4"),
-                                         ("BENCH_TILE", "item 17")])
+@pytest.mark.parametrize("switch,item", [("BENCH_TILE", "item 17")])
 def test_bench_refuses_what_is_not_ported(switch, item, monkeypatch, capsys):
     for k, v in SMALL.items():
         monkeypatch.setenv(k, v)
-    monkeypatch.setenv(switch, "bfloat16" if switch == "BENCH_DTYPE" else "8")
+    monkeypatch.setenv(switch, "8")
     assert bench.main() == 2
     captured = capsys.readouterr()
     assert captured.out == "" and item in captured.err
+
+
+@pytest.mark.parametrize("dtype,metric", [
+    ("bfloat16", "binary_minsum_bf16_info_mbps_cpu"),
+    ("float16", None)])
+def test_bench_dtype_line(dtype, metric, monkeypatch, capsys):
+    """BENCH_DTYPE=bfloat16 prints one line under a metric of its own (the
+    float32 line's name is never reused); another dtype is refused."""
+    for k, v in dict(SMALL, BENCH_ITERS="3", BENCH_BATCH="4").items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("BENCH_DTYPE", dtype)
+    rc = bench.main()
+    captured = capsys.readouterr()
+    if metric is None:
+        assert rc == 2 and captured.out == ""
+        assert "BENCH_DTYPE" in captured.err
+        return
+    assert rc == 0
+    lines = captured.out.strip().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line["metric"] == metric and line["dtype"] == dtype
+    assert line["kernel"] == "torch" and line["value"] > 0
 
 
 def test_bench_needs_a_card_unless_asked_for_the_cpu(monkeypatch):

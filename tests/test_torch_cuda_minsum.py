@@ -1,11 +1,10 @@
 """The CUDA decoders (cuda_ldpc_torch.ops.cuda_minsum: flooding K1, layered
-K2, each with the min-sum rule or the bp rule K3) against their plain
-PyTorch versions, and min-sum's on-chip design against the global-memory
-one it replaced (``decode_flooding_global`` / ``decode_layered_global``).
+K2, each with the min-sum rule or the bp rule K3, each with float32 or
+bfloat16 storage of T and R) against their plain PyTorch versions.
 Tolerance: none — both do the same fp32 adds, compares and multiplies in
-the same order, and for bp the kernel's logf/tanhf agree with
-torch.log/torch.tanh on the card to the last bit, so hard, ok and iters
-must be exactly equal.
+the same order and round to bfloat16 at the same points, and for bp the
+kernel's logf/tanhf agree with torch.log/torch.tanh on the card to the
+last bit, so hard, ok and iters must be exactly equal.
 
 The kernel cases need a card and skip without one.  The file imports only
 the port, so on a machine with a card and no JAX it runs on its own:
@@ -63,11 +62,14 @@ def test_cpu_tensor_takes_the_plain_version():
     before = dict(cuda_minsum.LAUNCHES)
     for schedule in ("flooding", "layered"):
         for rule in ("minsum", "bp"):
-            a = getattr(cuda_minsum, f"decode_{schedule}")(
-                chan, code, 8, check="syndrome", rule=rule)
-            b = getattr(minsum, f"decode_{schedule}")(
-                chan, code, 8, check="syndrome", rule=rule)
-            _assert_same(a, b)
+            for dtype in (None, torch.bfloat16):
+                a = getattr(cuda_minsum, f"decode_{schedule}")(
+                    chan, code, 8, check="syndrome", rule=rule,
+                    msg_dtype=dtype)
+                b = getattr(minsum, f"decode_{schedule}")(
+                    chan, code, 8, check="syndrome", rule=rule,
+                    msg_dtype=dtype)
+                _assert_same(a, b)
     assert cuda_minsum.LAUNCHES == before       # counted only on launch
 
 
@@ -272,32 +274,95 @@ ONCHIP_CASES = [
 ]
 
 
+def _chan_of(code, sigma, batch, iters, device):
+    """The case's channel: AWGN at ``sigma``, or, for a sigma of None,
+    passes_then_fails() tiled to the batch."""
+    if sigma is None:
+        two = torch.from_numpy(passes_then_fails())
+        return two.repeat((batch + 1) // 2, 1, 1)[:batch].contiguous().to(
+            device)
+    return _chan(code, sigma, batch, seed=batch + iters, device=device)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "schedule,name,sigma,batch,iters,check,early,alpha,beta", ONCHIP_CASES,
     ids=[f"{c[0]}-{c[1]}-{c[5]}-early{int(c[6])}-a{c[7]}b{c[8]}-s{c[2]}"
          f"-B{c[3]}" for c in ONCHIP_CASES])
-def test_onchip_minsum_matches_plain_and_global_on_card(
+def test_onchip_minsum_matches_plain_on_card(
         cuda, schedule, name, sigma, batch, iters, check, early, alpha,
         beta):
     code = _code(name)
-    if sigma is None:
-        two = torch.from_numpy(passes_then_fails())
-        chan = two.repeat((batch + 1) // 2, 1, 1)[:batch].contiguous()
-        chan = chan.to(cuda)
-    else:
-        chan = _chan(code, sigma, batch, seed=batch + iters, device=cuda)
+    chan = _chan_of(code, sigma, batch, iters, cuda)
     key = f"minsum_{schedule}"
     before = cuda_minsum.LAUNCHES[key]
     kw = dict(alpha=alpha, beta=beta, check=check, early_stop=early)
     a = getattr(cuda_minsum, f"decode_{schedule}")(chan, code, iters, **kw)
-    g = getattr(cuda_minsum, f"decode_{schedule}_global")(chan, code, iters,
-                                                          **kw)
     b = getattr(minsum, f"decode_{schedule}")(chan, code, iters, **kw)
     torch.cuda.synchronize()
     _assert_same(a, b)
-    _assert_same(a, g)
-    assert cuda_minsum.LAUNCHES[key] == before + 1     # the global uncounted
+    assert cuda_minsum.LAUNCHES[key] == before + 1
+
+
+# rule, schedule, code, sigma, batch, iters, check, early stop, alpha, beta;
+# a sigma of None is passes_then_fails() tiled to the batch
+BF16_CASES = [
+    ("minsum", "flooding", "J4_L24_Z96", 0.52, 37, 30, "zero", True, 1.0,
+     0.0),
+    ("minsum", "layered", "J4_L24_Z96", 0.52, 37, 30, "syndrome", True, 0.8,
+     0.1),
+    ("minsum", "flooding", "J4_L24_Z96", None, 4096, 20, "zero", True, 1.0,
+     0.0),
+    ("minsum", "layered", "J4_L24_Z96", None, 37, 20, "zero", True, 1.0,
+     0.0),
+    ("minsum", "flooding", "J4_L24_Z96", 0.55, 4096, 12, "none", True, 0.8,
+     0.1),
+    ("minsum", "layered", "J4_L24_Z96", 0.55, 4096, 12, "zero", False, 1.0,
+     0.0),
+    ("minsum", "flooding", "PON_LDPC", 0.72, 4096, 30, "syndrome", True, 0.8,
+     0.1),
+    ("minsum", "layered", "PON_LDPC", 0.72, 4096, 30, "zero", True, 1.0,
+     0.0),
+    ("minsum", "flooding", "J15_L30_Z1280", 0.78, 512, 10, "zero", True,
+     1.0, 0.0),
+    ("minsum", "layered", "J15_L30_Z1280", 0.78, 512, 10, "syndrome", False,
+     0.8, 0.1),
+    ("minsum", "flooding", "deg40", 0.45, 37, 10, "syndrome", True, 1.0,
+     0.0),
+    ("minsum", "layered", "deg40", 0.45, 37, 10, "zero", True, 0.8, 0.1),
+    ("bp", "flooding", "J4_L24_Z96", 0.60, 64, 20, "zero", True, 1.0, 0.0),
+    ("bp", "layered", "J4_L24_Z96", 0.60, 64, 20, "syndrome", True, 0.8,
+     0.1),
+    ("bp", "flooding", "J15_L30_Z1280", 0.75, 16, 20, "syndrome", False, 1.0,
+     0.0),
+    ("bp", "layered", "PON_LDPC", 0.72, 16, 20, "zero", True, 0.8, 0.1),
+    ("bp", "flooding", "deg40", 0.45, 32, 10, "none", True, 1.0, 0.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "rule,schedule,name,sigma,batch,iters,check,early,alpha,beta", BF16_CASES,
+    ids=[f"{c[0]}-{c[1]}-{c[2]}-{c[6]}-early{int(c[7])}-a{c[8]}b{c[9]}"
+         f"-s{c[3]}-B{c[4]}" for c in BF16_CASES])
+def test_bf16_kernels_match_plain_on_card(cuda, rule, schedule, name, sigma,
+                                          batch, iters, check, early, alpha,
+                                          beta):
+    """K1, K2 and K3 with T and R stored in bfloat16 against the plain
+    version's bf16 storage, counted under their own key."""
+    code = _code(name)
+    chan = _chan_of(code, sigma, batch, iters, cuda)
+    if rule == "bp":
+        chan = chan * (2.0 / sigma**2)
+    key = f"{rule}_{schedule}_bf16"
+    before = dict(cuda_minsum.LAUNCHES)
+    kw = dict(alpha=alpha, beta=beta, check=check, early_stop=early,
+              rule=rule, msg_dtype=torch.bfloat16)
+    a = getattr(cuda_minsum, f"decode_{schedule}")(chan, code, iters, **kw)
+    b = getattr(minsum, f"decode_{schedule}")(chan, code, iters, **kw)
+    torch.cuda.synchronize()
+    _assert_same(a, b)
+    assert cuda_minsum.LAUNCHES == dict(before, **{key: before[key] + 1})
 
 
 @pytest.mark.cuda

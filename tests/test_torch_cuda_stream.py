@@ -159,6 +159,43 @@ def _plan_tables(plan, code):
     return out
 
 
+def _assert_layout(code, plan, keep_chan, bf16=False):
+    """Each block owns the columns and rows its lists name; its T columns
+    (4 or, bf16, 2 bytes a value), chan (4) and row states (``row_bytes``)
+    lie after its header, within its bytes and apart from each other; a
+    block's rows follow one another at ``row_bytes``."""
+    L, J, Z, E, cs = code.L, code.J, code.Z, code.num_edges, plan.cluster
+    t_bytes = 2 if bf16 else 4
+    t = _plan_tables(plan, code)
+    assert t["col_start"][-1] == L and t["row_start"][-1] == J
+    for c in range(cs):
+        mine = t["col_order"][t["col_start"][c]:t["col_start"][c + 1]]
+        assert (t["col_rank"][mine] == c).all()
+        mine = t["row_order"][t["row_start"][c]:t["row_start"][c + 1]]
+        assert (t["row_rank"][mine] == c).all()
+    assert sorted(t["col_order"]) == list(range(L))
+    assert sorted(t["row_order"]) == list(range(J))
+    header = 32 + 16 * E + 4 * (4 * L + 3 * J + 2)
+    assert onchip.header_bytes(code) >= header
+    spans = {c: [] for c in range(cs)}
+    for l in range(L):
+        spans[t["col_rank"][l]].append((t["col_off"][l], t_bytes * Z))
+        if keep_chan:
+            spans[t["col_rank"][l]].append((t["chan_off"][l], 4 * Z))
+    assert (t["chan_off"] >= 0).all() == keep_chan
+    row = onchip.row_bytes(Z, plan.wide, bf16)
+    for j in range(J):
+        spans[t["row_rank"][j]].append((t["row_off"][j], row))
+    for c, sp in spans.items():
+        sp.sort()
+        assert sp[0][0] >= header
+        assert all(a + n <= b for (a, n), (b, _) in zip(sp, sp[1:]))
+        assert sp[-1][0] + sp[-1][1] <= plan.block_bytes[c]
+    for c in range(cs):
+        mine = t["row_order"][t["row_start"][c]:t["row_start"][c + 1]]
+        assert (np.diff(t["row_off"][mine]) == row).all()
+
+
 @pytest.mark.parametrize("name,layered,cluster,keep_chan", [
     ("J15_L30_Z1280", False, 2, False), ("J15_L30_Z1280", True, 2, False),
     ("PON_LDPC", False, 1, True), ("PON_LDPC", True, 1, False),
@@ -175,34 +212,43 @@ def test_onchip_plan_picks_the_smallest_cluster(name, layered, cluster,
                                                          False)
     assert plan.smem_bytes == max(plan.block_bytes) <= \
         onchip.SMEM_PER_BLOCK
-    L, J, Z, E, cs = code.L, code.J, code.Z, code.num_edges, plan.cluster
-    t = _plan_tables(plan, code)
-    assert t["col_start"][-1] == L and t["row_start"][-1] == J
-    for c in range(cs):
-        mine = t["col_order"][t["col_start"][c]:t["col_start"][c + 1]]
-        assert (t["col_rank"][mine] == c).all()
-        mine = t["row_order"][t["row_start"][c]:t["row_start"][c + 1]]
-        assert (t["row_rank"][mine] == c).all()
-    assert sorted(t["col_order"]) == list(range(L))
-    assert sorted(t["row_order"]) == list(range(J))
-    header = 32 + 16 * E + 4 * (4 * L + 3 * J + 2)
-    assert onchip.header_bytes(code) >= header
-    spans = {c: [] for c in range(cs)}
-    for l in range(L):
-        spans[t["col_rank"][l]].append((t["col_off"][l], 4 * Z))
-        if keep_chan:
-            spans[t["col_rank"][l]].append((t["chan_off"][l], 4 * Z))
-    assert (t["chan_off"] >= 0).all() == keep_chan
-    for j in range(J):
-        spans[t["row_rank"][j]].append((t["row_off"][j], 12 * Z))
-    for c, sp in spans.items():
-        sp.sort()
-        assert sp[0][0] >= header
-        assert all(a + n <= b for (a, n), (b, _) in zip(sp, sp[1:]))
-        assert sp[-1][0] + sp[-1][1] <= plan.block_bytes[c]
+    _assert_layout(code, plan, keep_chan)
     if cluster > 1:
         with pytest.raises(ValueError):
             onchip.onchip_plan(code, layered, cluster=1)
+
+
+@pytest.mark.parametrize("name,layered,cluster,keep_chan", [
+    ("J15_L30_Z1280", False, 2, True), ("J15_L30_Z1280", True, 2, False),
+    ("PON_LDPC", False, 1, True), ("PON_LDPC", True, 1, False),
+    ("J4_L24_Z96", False, 1, True), ("J4_L24_Z96", True, 1, False)])
+def test_onchip_plan_bf16(name, layered, cluster, keep_chan):
+    """Under bfloat16 storage (T 2 bytes, a check node 4 + 4): J15 still
+    needs a cluster of two, whose flooding plan now also holds chan; the
+    smaller codes fit one block."""
+    code = QCBinaryCode.from_registry(name)
+    plan = onchip.onchip_plan(code, layered, bf16=True)
+    assert (plan.cluster, plan.keep_chan, plan.wide) == (cluster, keep_chan,
+                                                         False)
+    assert plan.smem_bytes == max(plan.block_bytes) <= \
+        onchip.SMEM_PER_BLOCK
+    _assert_layout(code, plan, keep_chan, bf16=True)
+    if cluster > 1:
+        with pytest.raises(ValueError):
+            onchip.onchip_plan(code, layered, cluster=1, bf16=True)
+
+
+@pytest.mark.parametrize("Z", [1, 7, 96, 255, 1280])
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_row_bytes_hold_meta_at(Z, wide, bf16):
+    """A row's state as csrc/onchip.cuh's meta_at lays it out: (v1, v2)[Z]
+    of kV = 8 or, bf16, 4 bytes, then Meta[Z] (4 or, wide, 8 bytes) from
+    the next multiple of 8; the row takes that, rounded up to 16."""
+    kv, meta = (4 if bf16 else 8), (8 if wide else 4)
+    end = ((kv * Z + 7) & ~7) + meta * Z
+    row = onchip.row_bytes(Z, wide, bf16)
+    assert row % 16 == 0 and end <= row < end + 16
 
 
 def test_onchip_plan_keeps_few_edges_across_the_cluster():

@@ -215,19 +215,15 @@ def test_clopper_pearson_matches_jax(errors, frames):
     assert not stats.rates_compatible(51, 38912, 304, 4096)
 
 
-@pytest.mark.parametrize("argv", [
-    ["--schedule", "layered", "--engine", "stream", "--msg-dtype",
-     "bfloat16"], ["--packed", "--profile", "trace"],
-    ["--msg-dtype", "bfloat16"],
-])
+@pytest.mark.parametrize("argv", [["--packed", "--profile", "trace"]])
 def test_cli_rejects_unported_options(argv, capsys):
-    """Options not ported yet name their ROADMAP.md item; --profile, which
-    traces a batch of the batch engine, is refused with --packed."""
+    """--profile, which traces a batch of the batch engine, is refused with
+    --packed.  (--msg-dtype bfloat16 runs: tests/test_torch_minsum_bf16.py
+    holds it, and its refusal on the stream engine, by design.)"""
     with pytest.raises(SystemExit) as exc:
         cli.main(["binary", "--device", "cpu", *argv])
     assert exc.value.code != 0
-    want = "batch engine" if "--profile" in argv else "ROADMAP.md"
-    assert want in capsys.readouterr().err
+    assert "batch engine" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv,refused", [
