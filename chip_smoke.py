@@ -108,41 +108,43 @@ The stream steps K4 (binary) and K7 (GF(q)) join each phase:
               flooding and layered, the row groups, the serial design and
               the plain version in turns; the refill of one call; the
               stream sweeps' throughput beside the batch sweeps'
-The max-domain decoder K8 (EMS Nm=2/Nc=2, TMM, layered TMM) joins each
-phase:
-  parity      K8 against its plain version and its row groups against
-              the serial design (one row at a time), each method on the
-              four adjacency codes: BDS.576.288.GF.64 at B=4096 where most
+The max-domain decoder K8 (EMS Nm=2/Nc=2, full EMS, TMM, layered TMM)
+joins each phase:
+  parity      K8 against its plain version, each method on the four
+              adjacency codes: BDS.576.288.GF.64 at B=4096 where most
               frames converge and where few do, a ragged 37, B=512 at Eb/N0
-              0, 2 and 4 dB (layered TMM there against the serial design
-              only: its plain version costs ~0.6 s a pass), max_iters 0, 1
-              and 20; hard, ok and iters exactly equal
+              0, 2 and 4 dB (not layered TMM there: its plain version costs
+              ~0.6 s a pass), max_iters 0, 1 and 20; full EMS at the same
+              points with its batch cut to 1024 on GF(64) and 64 on GF(256)
+              (its plain version holds [B, M, q, q] per convolution); hard,
+              ok and iters exactly equal
   main        `nb` with no --method (ems) on BDS at Eb/N0 1 and 2 dB, then
-              tmm and layered_tmm, FER compatible with VALIDATION.md:19,
-              23, 24; `nb --packed` ems; `nb --engine stream --method ems`
-              refused on the card, naming the ROADMAP item; the committed
-              GF(q) workload (ems, maxIT 20, Eb/N0 0:0.5:5, >=50 errors and
+              tmm, layered_tmm and ems_full, FER compatible with
+              VALIDATION.md:19, 23, 24 and 20 (ems_full: 2048 frames a
+              point); `nb --packed` ems; `nb --engine stream --method ems`
+              and `nb --method ems_full` on Tanner_74_9_Z128_GF16 refused
+              on the card, naming their ROADMAP items; the committed GF(q)
+              workload (ems, maxIT 20, Eb/N0 0:0.5:5, >=50 errors and
               >=1000 frames) as one packed sweep with a frame cap, each
               point reported as stopped by the rule or by the cap
   timing      K8, BDS, B=4096, at most 10 passes at 0 dB from fresh frames,
-              each method's row groups, serial design and plain version in
-              turns
+              each method's kernel and plain version in turns
 Random codewords (the sources of `--tx random`, models/encoder.py) join
 each phase:
   parity      cases of the tables above whose channel comes from the
               sweeps' own sources under tx='random' (chan_for, nb_chan):
               K1/K2 min-sum (early stop on and off) and bp on J4_L24_Z96
-              and PON_LDPC at
-              B=4096 with the syndrome check; K5 on BDS (BPSK and 64-QAM)
-              at B=4096, K6 on Tanner_74_9_Z128_GF16 at B=256, K7 over its
-              call sequence on BDS, K8 (EMS, TMM, layered TMM) on BDS; each
-              as exact as on the all-zero word.  K4 on PON_LDPC as the
-              stream engine runs it (refills of channel and codeword, the
-              drain), against the same engine over the plain step, every
-              counter and state tensor after every call.  The device encode
-              of a PON_LDPC and a BDS.576.288.GF.64 batch at B=4096 and of
-              its first 16 frames: the numpy encode's codewords on the
-              first 64 frames, H c = 0 on every frame
+              and PON_LDPC at B=4096 with the syndrome check; K5 on BDS
+              (BPSK and 64-QAM) at B=4096, K6 on Tanner_74_9_Z128_GF16 at
+              B=256, K7 over its call sequence on BDS, K8 (EMS, full EMS,
+              TMM, layered TMM) on BDS; each as exact as on the all-zero
+              word.  K4 on PON_LDPC as the stream engine runs it (refills
+              of channel and codeword, the drain), against the same engine
+              over the plain step, every counter and state tensor after
+              every call.  The device encode of a PON_LDPC and a
+              BDS.576.288.GF.64 batch at B=4096 and of its first 16
+              frames: the numpy encode's codewords on the first 64 frames,
+              H c = 0 on every frame
   main        J8_L24_Z96 at Eb/N0 2.53 dB, `--tx zero` and `--tx random
               --check syndrome`, 32768 frames each, compatible with each
               other and with VALIDATION.md:61-64; PON_LDPC at Es/N0
@@ -231,6 +233,9 @@ KERNELS = [
      "cuda_ldpc_tpu/ops/pallas_nbms.py:376"),
     ("nbms_layered_tmm", "cuda_ldpc_torch/csrc/nbms.cu",
      "cuda_ldpc_tpu/ops/pallas_nbms.py:376"),
+    # full EMS has no TPU kernel: the JAX package runs it in jnp
+    ("nbms_ems_full", "cuda_ldpc_torch/csrc/nbms.cu",
+     "cuda_ldpc_tpu/ops/nb_decode.py:371"),
     # the probes, on the measuring path (phase 6)
     ("probe_bitops", "cuda_ldpc_torch/csrc/probe_bitops.cu",
      "tools/probe_bitops.py:28"),
@@ -435,7 +440,15 @@ def nbms_bound_ms(N: int, M: int, E: int, q: int, batch: int, iters,
     so the first j of a pair decides), 4 each (the value compare, the max,
     the compare with the best so far and its select), and 3 per eta for
     the I/E choice.  Per pass, 2 per VN and symbol for the decision and,
-    flooding, the totals' dv adds per VN and symbol (E q in all)."""
+    flooding, the totals' dv adds per VN and symbol (E q in all).  Full
+    EMS, per row: the (max,+) convolutions out[x] = max_u A[u] + B[u ^ x]
+    the function needs, 2 q^2 each (an add and a max a term): dc - 2 for
+    the prefixes U[0] * ... * U[k], k = 1 .. dc - 2, dc - 2 for the
+    suffixes U[k] * ... * U[dc - 1], k = 1 .. dc - 2, and dc - 2 for the
+    inner edges' exclusive values (a prefix with a suffix; the end edges'
+    are a suffix and a prefix already), 3 dc - 6 in all (the plain version
+    and the kernel do 3 dc - 2, those with the identity too); per edge and
+    symbol, 1 (v2c) and 2 (the output's subtract and multiply)."""
     iters = [int(i) for i in iters]
     updates = sum(min(i, max_iters - 1) for i in iters)
     passes = sum(min(i + 1, max_iters) for i in iters)
@@ -443,6 +456,8 @@ def nbms_bound_ms(N: int, M: int, E: int, q: int, batch: int, iters,
     if method == "ems":
         per_update = (E * q * (8 + dc - 2) + M * dc * (dc - 1) // 2
                       + E * (dc - 1) * (dc - 2) // 2)
+    elif method == "ems_full":
+        per_update = M * (3 * dc - 6) * 2 * q * q + E * q * 3
     else:
         per_update = (E * q * (11 + (3 if method == "layered_tmm" else 0))
                       + M * (4 * q * (q - 1) // 2 + 3 * q))
@@ -1399,21 +1414,18 @@ def main() -> int:
         del a, b, others, L, sent, hard_diff
     torch.cuda.empty_cache()
 
-    # K8 against the plain nb_decode, and its row groups against the serial
-    # design: every output exactly equal
+    # K8 against the plain nb_decode: every output exactly equal
     k8_pairs = {
         "nbms_ems": (cuda_nbms.decode_ems, nb_decode.decode_ems),
         "nbms_tmm": (cuda_nbms.decode_tmm, nb_decode.decode_tmm),
         "nbms_layered_tmm": (cuda_nbms.decode_layered_tmm,
                              nb_decode.decode_layered_tmm),
+        "nbms_ems_full": (cuda_nbms.decode_ems_full,
+                          functools.partial(nb_decode.decode_ems, full=True)),
     }
-    k8_serial = {"nbms_ems": cuda_nbms.decode_ems_serial,
-                 "nbms_tmm": cuda_nbms.decode_tmm_serial,
-                 "nbms_layered_tmm": cuda_nbms.decode_layered_tmm_serial}
     k8_cases = [
         # code, Eb/N0, batch, iterations, and whether the plain layered TMM
-        # (about 0.6 s a pass whatever the batch) joins the case; the row
-        # groups meet the serial design on every case
+        # (about 0.6 s a pass whatever the batch) joins the case
         ("BDS.576.288.GF.64", 3.0, 4096, 20, True),   # most frames converge
         ("BDS.576.288.GF.64", 0.5, 1024, 20, True),   # few do
         ("BDS.576.288.GF.64", 1.0, 4096, 1, True),
@@ -1437,20 +1449,19 @@ def main() -> int:
     for key in k8_pairs:
         for i, (name, ebn0, B, iters, layered_plain,
                 tx) in enumerate(k8_all):
+            if key == "nbms_layered_tmm" and not layered_plain:
+                continue
             code = nb_code(name)
+            if key == "nbms_ems_full":
+                # the plain full EMS holds [B, M, q, q] a convolution
+                B = min(B, 1024 if code.q <= 64 else 64)
             L, sent = nb_chan(code, ebn0, B, seed=800 + i, tx=tx)
             kernel, plain = k8_pairs[key]
-            a = kernel(L, code, iters)
-            s = k8_serial[key](L, code, iters)
-            b = (plain(L, code, iters)
-                 if layered_plain or key != "nbms_layered_tmm" else s)
+            a, b = kernel(L, code, iters), plain(L, code, iters)
             torch.cuda.synchronize()
             counts = {"hard": int((a.hard != b.hard).sum()),
                       "ok": int((a.ok != b.ok).sum()),
-                      "iters": int((a.iters != b.iters).sum()),
-                      "serial_hard": int((a.hard != s.hard).sum()),
-                      "serial_ok": int((a.ok != s.ok).sum()),
-                      "serial_iters": int((a.iters != s.iters).sum())}
+                      "iters": int((a.iters != b.iters).sum())}
             err = max([int((a.hard - b.hard).abs().max()) if B else 0,
                        counts["ok"] > 0,
                        int((a.iters - b.iters).abs().max()) if B else 0])
@@ -1459,15 +1470,15 @@ def main() -> int:
             _emit("parity", kernel=key, tx=tx, code=name, ebn0=ebn0,
                   batch=B, iters=iters, groups=cuda_nbms.groups(
                       cuda_nbms.make_plan(code), key[len("nbms_"):]),
-                  against_plain=b is not s, frames_ok=int(b.ok.sum()),
+                  frames_ok=int(b.ok.sum()),
                   frames_decoded_to_their_codeword=int((b.hard == (
                       0 if sent is None else sent)).all(1).sum()),
                   avg_iters=float(b.iters.float().mean()),
                   mismatches=counts, max_abs_err=err)
             if any(counts.values()):
-                raise AssertionError(f"K8 != plain or the serial design on "
-                                     f"{key} {k8_all[i]}: {counts}")
-            del a, b, s, L, sent
+                raise AssertionError(f"K8 != plain on {key} {k8_all[i]}: "
+                                     f"{counts}")
+            del a, b, L, sent
         torch.cuda.empty_cache()
 
     # K4 and K7 against their plain versions over the stream engines' call
@@ -1932,6 +1943,17 @@ def main() -> int:
             launches[kernel] = n
             for r, ref in zip(got, refs):
                 anchor(label, "BDS.576.288.GF.64", r["snr"], r, ref)
+        # full EMS, VALIDATION.md:20: 0.3213 (2048 frames) at 1 dB, 3.562e-3
+        # (8704 frames) at 2 dB; 2048 frames a point here (the batch that
+        # meets the 1024-frame cap and the one in flight)
+        got, n = drive(tmp, "bds_ems_full", "nbms_ems_full",
+                       bds12[:bds12.index("--batch")]
+                       + ["--batch", "1024", "--least-error-frames", "50",
+                          "--least-test-frames", "1024", "--max-frames",
+                          "1024", "--method", "ems_full"])
+        launches["nbms_ems_full"] = n
+        for r, ref in zip(got, ((658, 2048), (31, 8704))):
+            anchor("bds_ems_full", "BDS.576.288.GF.64", r["snr"], r, ref)
         got, _ = drive(tmp, "bds_ems_packed", "nbms_ems", bds12 + ["--packed"])
         for r, ref in zip(got, ((2046, 2048), (1615, 2048))):
             anchor("bds_ems_packed", "BDS.576.288.GF.64", r["snr"], r, ref)
@@ -1945,6 +1967,16 @@ def main() -> int:
         else:
             raise AssertionError("the stream engine ran ems under kernel "
                                  "auto")
+        try:
+            _sweep(cli, os.path.join(tmp, "refused_tanner_ems_full"),
+                   tanner + ["--method", "ems_full"])
+        except ValueError as e:
+            if "ROADMAP.md Queue 1 item 19" not in str(e):
+                raise
+            _emit("refused", sweep="tanner ems_full", error=str(e))
+        else:
+            raise AssertionError("ems_full ran on Tanner_74_9_Z128_GF16 "
+                                 "under kernel auto")
 
         # the GF(q) committed workload (myNBLDPC/include/define.h:23-61),
         # capped here at 40,960 frames a point
@@ -2298,21 +2330,21 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # K8: BDS.576.288.GF.64, B=4096, at most 10 passes at 0 dB from fresh
-    # frames, each method's row groups, serial design and plain version in
-    # turns
+    # frames, each method's kernel and plain version in turns (plain,
+    # kernel, kernel, plain); the plain layered TMM and full EMS take
+    # seconds a call, so one call a turn
     code, B, iters = nb_code("BDS.576.288.GF.64"), 4096, 10
     chans = [nb_chan(code, 0.0, B, seed=47 + i)[0] for i in range(2)]
     plan = cuda_nbms.make_plan(code)
     for key, (kernel, plain) in k8_pairs.items():
-        decoders = {"kernel": kernel, "serial": k8_serial[key],
-                    "plain": plain}
+        decoders = {"kernel": kernel, "plain": plain}
 
         def launch(which, i):
             return decoders[which](chans[i % 2], code, iters)
 
         runs = time_turns(launch, {
-            "plain": 1 if key == "nbms_layered_tmm" else 3, "kernel": 20,
-            "serial": 20}, order=turns)
+            "plain": 1 if key in ("nbms_layered_tmm", "nbms_ems_full") else 3,
+            "kernel": 20})
         ms = {k: statistics.median(v) for k, v in runs.items()}
         res = launch("kernel", 0)
         bound, bound_by = nbms_bound_ms(code.n_sym, code.m_sym, plan.E,

@@ -142,9 +142,13 @@ def build_parser() -> argparse.ArgumentParser:
                             "glayered_qspa", "tmm", "layered_tmm",
                             "glayered_tmm"],
                    help="decoder: ems (the reference's default, Nm/Nc "
-                        "below), ems_full, tmm, layered_tmm, glayered_tmm "
-                        "(max domain) or qspa, layered_qspa, glayered_qspa "
-                        "(exact sum-product)")
+                        "below), ems_full (every configuration, the "
+                        "reference's decoder_method 2; no Nm/Nc), tmm, "
+                        "layered_tmm, glayered_tmm (max domain) or qspa, "
+                        "layered_qspa, glayered_qspa (exact sum-product); "
+                        "on a card, ems at Nm=Nc=2, ems_full, tmm and "
+                        "layered_tmm run the kernel csrc/nbms.cu on the "
+                        "adjacency codes")
     n.add_argument("--nm", type=int, default=nd.decoder.nm,
                    help="EMS: slots per edge in the configuration sets "
                         "(EMS_NM); the card's kernel runs 2")

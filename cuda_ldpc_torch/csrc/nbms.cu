@@ -1,18 +1,23 @@
 // GF(q) max-domain decoders for codes given by their adjacency: flooding
-// EMS (Nm = 2, Nc = 2, /1.2), flooding TMM (x0.8, accumulating totals) and
-// row-layered TMM, CUDA C++ for sm_90a.
+// EMS (Nm = 2, Nc = 2, /1.2), flooding full EMS (every configuration, /1.2),
+// flooding TMM (x0.8, accumulating totals) and row-layered TMM, CUDA C++ for
+// sm_90a.
 //
 // Replaces the TPU kernel cuda_ldpc_tpu/ops/pallas_nbms.py `_kernel`
-// (:376).  It computes what ops/nb_decode.py's plain `decode` computes for
-// 'ems' (nm = nc = 2), 'tmm' and 'layered_tmm', operation for operation
-// (the order is fixed there): per pass, the totals (EMS: L + the c2v summed
-// over the VN's edges in slot order; TMM: the state plus that sum; layered:
-// the state as it stands), the decisions (argmax for EMS, argmin for TMM,
-// the smallest symbol on ties), the true GF syndrome, then, if the frame
-// goes on, every check row.  A frame whose syndrome passes at the entry of
-// pass t reports t iterations; one that never passes reports num_iters
-// with the decisions of the last pass.  TMM takes its channel already in
-// the min domain (the wrapper applies nb_decode.to_min_domain).
+// (:376), which compiles EMS, TMM and layered TMM; full EMS (the
+// reference's decoder_method 2) has no TPU kernel: the JAX package runs it
+// in jnp (cuda_ldpc_tpu/ops/nb_decode.py:371, `_ems_full_cn_core`).  It
+// computes what ops/nb_decode.py's plain `decode` computes for 'ems' (nm =
+// nc = 2), 'ems_full', 'tmm' and 'layered_tmm', operation for operation
+// (the order is fixed there): per pass, the totals (EMS, full EMS: L + the
+// c2v summed over the VN's edges in slot order; TMM: the state plus that
+// sum; layered: the state as it stands), the decisions (argmax for EMS,
+// argmin for TMM, the smallest symbol on ties), the true GF syndrome,
+// then, if the frame goes on, every check row.  A frame whose syndrome
+// passes at the entry of pass t reports t iterations; one that never
+// passes reports num_iters with the decisions of the last pass.  TMM
+// takes its channel already in the min domain (the wrapper applies
+// nb_decode.to_min_domain).
 //
 // Design for the card, not a copy of the TPU tiles.  The TPU kernel runs
 // each GF permutation and each per-frame XOR shift as [q, q] one-hot
@@ -40,20 +45,18 @@
 //   Lc2p[h k ^ syn ^ Zn]; layered also writes the totals T + (fma(x, 0.8,
 //   v2c) - T), the plain version's order.
 // The rows of a pass come from the host's wave plan (ops/cuda_qspa
-// .row_waves): flooding (EMS, TMM) is one wave, every row at once over the
-// groups (group g takes rows g, g + G, ...), since no row writes what
-// another reads (EMS reads the totals, TMM accumulates them before the
-// rows); layered TMM runs its dependency levels, the rows of a level over
-// the groups and a block barrier between levels, so that every pair of rows
-// that share a VN keeps its serial order and the result is the serial
-// schedule's bit for bit.  The serial design (one group, a wave a row, the
-// block barrier) is the same kernel under the serial plan
-// (cuda_nbms.decode_*_serial), kept as the yardstick of the row groups.
-// Measured on BDS.576.288.GF.64 (NVIDIA H100, PERF.md): the row groups
-// take EMS from 8.1 to 6.1 ms, TMM only from 11.0 to 10.7 (its search
-// keeps the SM's issue slots busy, whatever the rows in flight), and ran
-// layered TMM slower, so the wrapper runs layered TMM on one group, in
-// level order.
+// .row_waves): flooding (EMS, full EMS, TMM) is one wave, every row at
+// once over the groups (group g takes rows g, g + G, ...), since no row
+// writes what another reads (EMS reads the totals, TMM accumulates them
+// before the rows); layered TMM runs its dependency levels, the rows of a
+// level over the groups and a block barrier between levels, so that every
+// pair of rows that share a VN keeps its serial order and the result is
+// the serial schedule's bit for bit.  Measured on BDS.576.288.GF.64
+// (NVIDIA H100, PERF.md), against one group running one row at a time:
+// the row groups take EMS from 8.1 to 6.1 ms, TMM only from 11.0 to 10.7
+// (its search keeps the SM's issue slots busy, whatever the rows in
+// flight), and ran layered TMM slower, so the wrapper runs layered TMM on
+// one group, in level order.
 // The totals T [N, q] live in shared memory, the c2v messages C [E, q] in
 // the caller's device buffer [B, E, q]: with C beside T in shared memory a
 // BDS.576.288.GF.64 block took 79 KB in the serial design, which left room
@@ -68,14 +71,16 @@
 // unordered 2-deviation candidates of 4 fp32 operations per row, 48 rows a
 // pass, per frame (chip_smoke.nbms_bound_ms); the search here scans all
 // q^2 ordered ones, so it does about twice the candidates the function
-// needs.  EMS needs a dozen operations per edge and symbol.  The bytes are
-// the channel and the decisions once per call; so operations bound it, and
-// in practice the latency of each row's barriers and shuffle chains, which
-// the row groups overlap.
+// needs.  EMS needs a dozen operations per edge and symbol; full EMS 3 dc
+// - 2 convolutions of 2 q^2 operations per row, which the kernel does once
+// each.  The bytes are the channel and the decisions once per call; so
+// operations bound it, and in practice the latency of each row's barriers
+// and shuffle chains, which the row groups overlap.
 //
 // Built with -DNB_ROWS_PHASES (cuda_ldpc_torch/tools/nb_rows_phases.py),
 // thread 0 of every block adds the clock64() cycles of each phase to
-// g_nbms_clk[method] when the block ends.
+// g_nbms_clk[method] when the block ends (full EMS: its chains under
+// kRpSearch, its exclusive convolutions under kRpMerge).
 
 #include "qspa_common.cuh"
 
@@ -87,14 +92,16 @@ constexpr float kPos = 1e30f;
 constexpr float kEmsScale = 0.833333313465118408203125f;  // f32(1 / 1.2)
 constexpr float kTmmScale = 0.800000011920928955078125f;  // f32(0.8)
 
-enum Method { kEms = 0, kTmm = 1, kLayeredTmm = 2 };
+enum Method { kEms = 0, kTmm = 1, kLayeredTmm = 2, kEmsFull = 3 };
+constexpr int kMethods = 4;
 
 #ifdef NB_ROWS_PHASES
-__device__ unsigned long long g_nbms_clk[3][kRpCount];
+__device__ unsigned long long g_nbms_clk[kMethods][kRpCount];
 #endif
 
 // Floats of one row group's scratch: X and Y [max_dc, Q], A [max(max_dc,
-// 7), Q] and the per-edge scalars [3 * 32].
+// 7), Q] and the per-edge scalars [3 * 32] (full EMS: U, fwd and bwd [dc,
+// Q] in X, Y and A).
 __host__ __device__ inline int group_floats(int q, int max_dc) {
   return (2 * max_dc + (max_dc > 7 ? max_dc : 7)) * q + 3 * 32;
 }
@@ -105,6 +112,29 @@ size_t smem_bytes(int N, int q, int max_dc, int groups) {
   return sizeof(float) * ((size_t)N * q +
                           (size_t)groups * group_floats(q, max_dc)) +
          sizeof(int) * ((size_t)q + 2 * (q - 1) + N);
+}
+
+// This lane's symbols y = lane + 32 j of an edge's v2c message in the CN
+// domain: U[y] = (T - C)[vn][y / h]; a coefficient 0 puts the sum of the
+// v2c at y = 0 and 0 elsewhere (nb_decode._to_cn_domain).  EMS and full
+// EMS.
+template <int R>
+__device__ __forceinline__ void cn_domain_v2c(const float* T, const float* cp,
+                                              int vn, int h, const int* lg,
+                                              const int* ex, int lane,
+                                              float (&u)[R]) {
+  constexpr int Q = 32 * R;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int y = lane + 32 * j;
+    const int a = h ? gf_div(lg, ex, y, h, Q) : y;
+    u[j] = __fsub_rn(T[vn * Q + a], cp[a]);
+  }
+  if (!h) {
+    const float s = group_rtree_sum<R, 32>(u);
+#pragma unroll
+    for (int j = 0; j < R; ++j) u[j] = (lane + 32 * j) == 0 ? s : 0.f;
+  }
 }
 
 // One EMS check row (Nm = Nc = 2) on a row group; the group's warp w
@@ -128,17 +158,7 @@ __device__ __forceinline__ void ems_row(const RowGroup<kGroups>& grp,
     h = edge_h[e];
     cp = Cb + (int64_t)e * Q;
     float u[R];
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int y = lane + 32 * j;
-      const int a = h ? gf_div(lg, ex, y, h, Q) : y;
-      u[j] = __fsub_rn(T[vn * Q + a], cp[a]);
-    }
-    if (!h) {  // coefficient 0: the sum of v2c at y = 0, 0 elsewhere
-      const float s = group_rtree_sum<R, 32>(u);
-#pragma unroll
-      for (int j = 0; j < R; ++j) u[j] = (lane + 32 * j) == 0 ? s : 0.f;
-    }
+    cn_domain_v2c<R>(T, cp, vn, h, lg, ex, lane, u);
     const float v0 = group_max<R, 32>(u);
     const int c0 = group_argmax<R, 32>(u, lane);
     float* xw = X + w * Q;
@@ -207,6 +227,135 @@ __device__ __forceinline__ void ems_row(const RowGroup<kGroups>& grp,
       const int k = lane + 32 * j;
       const int idx = (h ? gf_mul(lg, ex, h, k) : 0) ^ g0;
       cp[k] = __fmul_rn(__fsub_rn(dw[idx], d0), kEmsScale);
+    }
+  }
+  pc.stamp(kRpOutput);
+  grp.sync();
+  pc.stamp(kRpRowWait);
+}
+
+// out[x] = max_u A[u] + B[u ^ x] (x, u < Q) for `njobs` convolutions at
+// once on a group's threads; operands(j, A, B, O) names job j's inputs and
+// output, in shared memory, 16-byte aligned, O apart from A and B.  A unit
+// is a tile of 4 outputs x0 + k of one job and one of S interleaved parts
+// of the 4-symbol u tiles: for u = u0 + i, u ^ x = (u0 ^ x0) + (i ^ k), so
+// one 16-byte load of A and one of B give 16 terms.  S, a power of 2 up to
+// 32, uses threads that would idle; the S partial maxima of a tile sit on
+// neighbouring lanes and meet by shuffles.  Each term is one add and the
+// maxima are exact, so every split gives the plain version's bits.  All
+// the group's threads call it (the shuffles need whole warps).
+template <int Q, class Operands>
+__device__ __forceinline__ void maxconvs(int tid, int nth, int njobs,
+                                         Operands&& operands) {
+  constexpr int kTiles = Q / 4;
+  int S = 1;
+  while (2 * S <= 32 && 2 * S <= kTiles && 2 * S * njobs * kTiles <= nth)
+    S *= 2;
+  const int units = njobs * kTiles * S;
+  for (int base = 0; base < units; base += nth) {  // the same trips a group
+    const int unit = base + tid;
+    const bool live = unit < units;
+    const int part = unit % S, tile = (unit / S) % kTiles;
+    const float ninf = -__int_as_float(0x7f800000);  // max's identity
+    float acc[4] = {ninf, ninf, ninf, ninf};
+    const float* A = nullptr;
+    const float* B = nullptr;
+    float* O = nullptr;
+    if (live) {
+      operands(unit / (S * kTiles), A, B, O);
+      const int x0 = 4 * tile;
+      for (int t = part; t < kTiles; t += S) {
+        const float4 a4 = *reinterpret_cast<const float4*>(A + 4 * t);
+        const float4 b4 = *reinterpret_cast<const float4*>(B + ((4 * t) ^ x0));
+        const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+        const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            acc[k] = fmaxf(acc[k], __fadd_rn(a[i], b[i ^ k]));
+      }
+    }
+    for (int o = S / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        acc[k] = fmaxf(acc[k], __shfl_xor_sync(kFull, acc[k], o));
+    if (live && part == 0)
+      *reinterpret_cast<float4*>(O + 4 * tile) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+  }
+}
+
+// One full-EMS check row on a row group (nb_decode._ems_full_cn_core): the
+// group's warp w holds edge k0 + w; U [dc, Q] in X, then excl over it; fwd
+// [dc, Q] in Y, bwd [dc, Q] in A.  Ends with the group's barrier.
+template <int R, int kGroups>
+__device__ __forceinline__ void ems_full_row(const RowGroup<kGroups>& grp,
+                                             PhaseClock& pc, const float* T,
+                                             float* Cb, float* X, float* Y,
+                                             float* A, const int* lg,
+                                             const int* ex, int k0, int dc,
+                                             const int* __restrict__ edge_vn,
+                                             const int* __restrict__ edge_h) {
+  constexpr int Q = 32 * R;
+  const int tid = grp.tid, nth = grp.nth;
+  const int w = tid >> 5, lane = tid & 31;
+  const bool mine = w < dc;
+  int h = 0;
+  float* cp = Cb;
+  if (mine) {
+    const int e = k0 + w;
+    h = edge_h[e];
+    cp = Cb + (int64_t)e * Q;
+    float u[R];
+    cn_domain_v2c<R>(T, cp, edge_vn[e], h, lg, ex, lane, u);
+#pragma unroll
+    for (int j = 0; j < R; ++j) X[w * Q + lane + 32 * j] = u[j];
+  }
+  for (int y = tid; y < Q; y += nth) {  // fwd[0] and bwd[dc - 1]: identity
+    const float id = y == 0 ? 0.f : kNeg;
+    Y[y] = id;
+    A[(dc - 1) * Q + y] = id;
+  }
+  pc.stamp(kRpEdges);
+  grp.sync();
+  pc.stamp(kRpEdgesWait);
+  for (int s = 0; s + 1 < dc; ++s) {
+    const int d = dc - 1 - s;
+    maxconvs<Q>(tid, nth, 2, [&](int job, const float*& a, const float*& b,
+                                 float*& o) {
+      if (job == 0) {  // fwd[s + 1] = maxconv(fwd[s], U[s])
+        a = Y + s * Q;
+        b = X + s * Q;
+        o = Y + (s + 1) * Q;
+      } else {         // bwd[d - 1] = maxconv(bwd[d], U[d])
+        a = A + d * Q;
+        b = X + d * Q;
+        o = A + (d - 1) * Q;
+      }
+    });
+    pc.stamp(kRpSearch);
+    grp.sync();
+    pc.stamp(kRpRowWait);
+  }
+  // excl[d] = maxconv(fwd[d], bwd[d]), over U[d]
+  maxconvs<Q>(tid, nth, dc, [&](int job, const float*& a, const float*& b,
+                                float*& o) {
+    a = Y + job * Q;
+    b = A + job * Q;
+    o = X + job * Q;
+  });
+  pc.stamp(kRpMerge);
+  grp.sync();
+  pc.stamp(kRpRowWait);
+  if (mine) {
+    const float* xw = X + w * Q;
+    const float e0 = xw[0];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int k = lane + 32 * j;
+      const int idx = h ? gf_mul(lg, ex, h, k) : 0;
+      cp[k] = __fmul_rn(__fsub_rn(xw[idx], e0), kEmsScale);
     }
   }
   pc.stamp(kRpOutput);
@@ -367,7 +516,9 @@ __global__ void __launch_bounds__(kGroups == 1 ? 1024 : kGroupedThreads,
     int nwaves, int groups, int N, int M, int E, int max_dc,
     int num_iters) {
   constexpr int Q = 32 * R;
-  extern __shared__ float smem[];
+  // EMS and full EMS: positive-domain LLRs, the totals from L each pass
+  constexpr bool kEmsLike = kMethod == kEms || kMethod == kEmsFull;
+  extern __shared__ __align__(16) float smem[];
   const RowGroup<kGroups> grp = row_group<kGroups>(groups);
   const int gf = group_floats(Q, max_dc);
   float* T = smem;
@@ -387,13 +538,13 @@ __global__ void __launch_bounds__(kGroups == 1 ? 1024 : kGroupedThreads,
 
   load_gf_tables(lg, ex, gf_log, gf_exp, Q);
   for (int i = tid; i < E * Q; i += nth) Cb[i] = 0.f;
-  if (kMethod != kEms)
+  if (!kEmsLike)
     for (int i = tid; i < N * Q; i += nth) T[i] = L[i];
   __syncthreads();
   pc.stamp(kRpSetup);
 
   for (int t = 0;; ++t) {
-    if (kMethod == kEms) {
+    if (kEmsLike) {
       frame_totals<Q>(T, L, Cb, col_ptr, col_edge, N);
       __syncthreads();
       pc.stamp(kRpTotals);
@@ -402,7 +553,7 @@ __global__ void __launch_bounds__(kGroups == 1 ? 1024 : kGroupedThreads,
       __syncthreads();
       pc.stamp(kRpTotals);
     }
-    const int bad = frame_decide_check<R, kMethod != kEms>(
+    const int bad = frame_decide_check<R, !kEmsLike>(
         T, hs, lg, ex, row_ptr, edge_vn, edge_h, N, M);
     pc.stamp(kRpDecide);
     if (!bad || t + 1 >= num_iters) {
@@ -420,6 +571,9 @@ __global__ void __launch_bounds__(kGroups == 1 ? 1024 : kGroupedThreads,
       if (kMethod == kEms)
         ems_row<R, kGroups>(grp, pc, T, Cb, X, Y, A, ei, ef, lg, ex, k0, dc,
                             edge_vn, edge_h);
+      else if (kMethod == kEmsFull)
+        ems_full_row<R, kGroups>(grp, pc, T, Cb, X, Y, A, lg, ex, k0, dc,
+                                 edge_vn, edge_h);
       else
         tmm_row<R, kMethod == kLayeredTmm, kGroups>(
             grp, pc, T, Cb, X, Y, A, ei, lg, ex, k0, dc, edge_vn, edge_h);
@@ -427,13 +581,16 @@ __global__ void __launch_bounds__(kGroups == 1 ? 1024 : kGroupedThreads,
   }
 }
 
-// The kernel for R, the method and the number of groups: the serial
+// The kernel for R, the method and the number of groups: the one-group
 // instantiation (no named barrier) for one group, else kMaxGroups'.
 template <int R>
 auto kernel_for(int method, int groups) {
   const bool one = groups == 1;
   return method == kEms
              ? (one ? nbms_kernel<R, kEms, 1> : nbms_kernel<R, kEms, kMaxGroups>)
+         : method == kEmsFull
+             ? (one ? nbms_kernel<R, kEmsFull, 1>
+                    : nbms_kernel<R, kEmsFull, kMaxGroups>)
          : method == kTmm
              ? (one ? nbms_kernel<R, kTmm, 1> : nbms_kernel<R, kTmm, kMaxGroups>)
              : (one ? nbms_kernel<R, kLayeredTmm, 1>
@@ -481,13 +638,13 @@ extern "C" {
 
 // Decodes the batch chan [B, N, q] (q in 32, 64, 128, 256; 2 <= max_dc <=
 // 32 edges per row) for at most `num_iters` >= 1 passes on `stream` of CUDA
-// device `device`, with `method` 0 = EMS (positive-domain LLRs), 1 = TMM,
-// 2 = layered TMM (min-domain LLRs), on `groups` row groups (1 to 7; one
-// group at most 1024 threads, more at most 512) walking the rows of the wave plan wave_ptr
-// [nwaves + 1], wave_row [M] (ops/cuda_qspa.row_waves).  C [B, E, q] is
-// the caller's scratch; hard [B, N], ok [B] and iters [B] the outputs.  The
-// tables are those of ldpc_qspa.  Returns 0 or the first CUDA error met
-// while enqueueing.
+// device `device`, with `method` 0 = EMS, 3 = full EMS (positive-domain
+// LLRs), 1 = TMM, 2 = layered TMM (min-domain LLRs), on `groups` row groups
+// (1 to 7; one group at most 1024 threads, more at most 512) walking the
+// rows of the wave plan wave_ptr [nwaves + 1], wave_row [M]
+// (ops/cuda_qspa.row_waves).  C [B, E, q] is the caller's scratch; hard
+// [B, N], ok [B] and iters [B] the outputs.  The tables are those of
+// ldpc_qspa.  Returns 0 or the first CUDA error met while enqueueing.
 int ldpc_nbms(const float* chan, float* C, int* hard, unsigned char* ok,
               int* iters, const int* row_ptr, const int* edge_vn,
               const int* edge_h, const int* col_ptr, const int* col_edge,
@@ -498,8 +655,8 @@ int ldpc_nbms(const float* chan, float* C, int* hard, unsigned char* ok,
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if ((err = cudaSetDevice(device))) return err;
-  if (max_dc < 2 || max_dc > 32 || method < 0 || method > 2 || groups < 1 ||
-      groups > kMaxGroups ||
+  if (max_dc < 2 || max_dc > 32 || method < 0 || method >= kMethods ||
+      groups < 1 || groups > kMaxGroups ||
       32 * max_dc * groups > (groups == 1 ? 1024 : kGroupedThreads))
     return cudaErrorInvalidValue;
 #define NBMS_LAUNCH(R)                                                    \
@@ -523,7 +680,7 @@ int ldpc_nbms(const float* chan, float* C, int* hard, unsigned char* ok,
 int ldpc_nbms_blocks_per_sm(int q, int method, int groups, int N, int max_dc,
                             int device) {
   if (cudaSetDevice(device) || max_dc < 2 || max_dc > 32 || method < 0 ||
-      method > 2 || groups < 1 || groups > kMaxGroups ||
+      method >= kMethods || groups < 1 || groups > kMaxGroups ||
       32 * max_dc * groups > (groups == 1 ? 1024 : kGroupedThreads))
     return -1;
   switch (q) {
@@ -536,12 +693,12 @@ int ldpc_nbms_blocks_per_sm(int q, int method, int groups, int N, int max_dc,
 }
 
 #ifdef NB_ROWS_PHASES
-// Copies the phase counters [3][kRpCount] (EMS, TMM, layered TMM) into out
+// Copies the phase counters [kMethods][kRpCount] (by method id) into out
 // and zeroes them.
 int ldpc_nbms_phase_clocks(unsigned long long* out) {
   cudaError_t err = cudaMemcpyFromSymbol(out, g_nbms_clk, sizeof(g_nbms_clk));
   if (err) return err;
-  unsigned long long zero[3][kRpCount] = {};
+  unsigned long long zero[kMethods][kRpCount] = {};
   return cudaMemcpyToSymbol(g_nbms_clk, zero, sizeof(zero));
 }
 #endif

@@ -1027,16 +1027,17 @@ def _stream_key(sim, kind: str, engine: StreamEngine,
 # (code, method) pairs with no CUDA kernel yet, and the ROADMAP.md item that
 # ports them: the QSPA kernels run qspa and layered_qspa on the adjacency
 # codes (K5) and qspa and glayered_qspa on the QC code (K6); the max-domain
-# kernel K8 runs ems (Nm = Nc = 2), tmm and layered_tmm on the adjacency
-# codes whose rows are full; no stream kernel runs a max-domain method.
+# kernel K8 runs ems (Nm = Nc = 2), ems_full, tmm and layered_tmm on the
+# adjacency codes whose rows are full; no stream kernel runs a max-domain
+# method.
 NO_KERNEL_ITEM = "Queue 1 item 13 (GF(q) kernels for the other (code, method) pairs)"
 NO_MAXDOMAIN_KERNEL_ITEM = ("Queue 1 item 19 (max-domain kernels beyond K8: "
-                            "ems_full, glayered_tmm, EMS with Nm/Nc other "
-                            "than 2/2, codes K8 does not take)")
+                            "EMS with Nm/Nc other than 2/2, glayered_tmm, "
+                            "codes K8 does not take)")
 NO_MAXDOMAIN_STREAM_ITEM = ("Queue 1 item 20 (a stateful K8 for the stream "
                             "engine)")
-K8_METHODS = {"ems": "decode_ems", "tmm": "decode_tmm",
-              "layered_tmm": "decode_layered_tmm"}
+K8_METHODS = {"ems": "decode_ems", "ems_full": "decode_ems_full",
+              "tmm": "decode_tmm", "layered_tmm": "decode_layered_tmm"}
 
 
 def check_nb_ported(sim: cfg.NBSimConfig):
@@ -1058,12 +1059,13 @@ def _nb_decoder_fn(code: NBCode, dec: cfg.NBDecoderConfig,
     """GF(q) decoder dispatch.  ``auto`` on a CUDA device (and ``cuda``)
     takes K5 (csrc/qspa.cu) for qspa and layered_qspa on the codes it
     supports, K6 (csrc/qspa_qc.cu) for qspa and glayered_qspa on the QC
-    code and K8 (csrc/nbms.cu) for ems (Nm = Nc = 2), tmm and layered_tmm
-    on the codes it supports, and raises for a pair no kernel runs, rather
-    than run the plain version silently; ``auto`` on the CPU and ``torch``
-    anywhere take the plain version; ``cuda`` on the CPU raises.  Unlike
-    the JAX package (sim.py:1143-1187), whose ``auto`` keeps EMS and TMM on
-    jnp, the kernels serve every pair they take."""
+    code and K8 (csrc/nbms.cu) for ems (Nm = Nc = 2), ems_full (which has
+    no Nm/Nc), tmm and layered_tmm on the codes it supports, and raises
+    for a pair no kernel runs, rather than run the plain version silently;
+    ``auto`` on the CPU and ``torch`` anywhere take the plain version;
+    ``cuda`` on the CPU raises.  Unlike the JAX package (sim.py:1143-1187),
+    whose ``auto`` keeps EMS and TMM on jnp, the kernels serve every pair
+    they take."""
     method, want = dec.method, dec.kernel
     if want not in ("auto", "torch", "cuda"):
         raise ValueError(f"unknown kernel {want!r} (expected auto|torch|cuda)")

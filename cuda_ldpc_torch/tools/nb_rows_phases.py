@@ -1,7 +1,7 @@
 """Where the time of the GF(q) QSPA decoder K5 (flooding, layered), of the
-max-domain decoder K8 (EMS, TMM, layered TMM) and of the GF(q) QSPA stream
-step K7 (flooding, layered) goes, phase by phase, on a card, for the serial
-design and the rows at once.
+max-domain decoder K8 (EMS, full EMS, TMM, layered TMM) and of the GF(q)
+QSPA stream step K7 (flooding, layered) goes, phase by phase, on a card,
+for the serial design (K5, K7) and the rows at once.
 
     python -m cuda_ldpc_torch.tools.nb_rows_phases [--batch 4096]
         [--passes 10] [--ebn0 0.0] [--code BDS.576.288.GF.64]
@@ -17,10 +17,13 @@ method or schedule when the block ends.  One call of at most ``passes``
 passes on B = ``batch`` frames of ``code`` (an adjacency code, by default
 BDS.576.288.GF.64) at Eb/N0 ``ebn0`` dB, BPSK (chip_smoke.py's timing point: K5 and K8 decode fresh frames; K7
 starts from fresh slots with max_iters = passes - 1), gives each phase's
-share of the summed cycles, for each design: the serial design
-(``decode_*_serial``, ``stream_step_serial``), the row groups (a warp an
-edge; ``decode_*``, ``stream_step``; K5's ``decode_design(..., 'groups')``)
-and K5's row on one warp (``decode_design(..., 'warp')``).  The call's time
+share of the summed cycles, for each design: the serial design of K5 and
+K7 (``decode_design(..., 'serial')``, ``stream_step_serial``), the row
+groups (a warp an edge; K8's ``decode_*``, ``stream_step``; K5's
+``decode_design(..., 'groups')``) and K5's row on one warp
+(``decode_design(..., 'warp')``).  K8's full EMS counts its
+forward/backward chains under ``search`` and its exclusive convolutions
+under ``merge``.  The call's time
 with the counters and without them (the library the package builds) and
 the blocks an SM holds (CUDA's occupancy calculator) are printed beside it.
 ``--groups`` also times the row groups at each listed number of groups (the
@@ -51,7 +54,7 @@ PHASES = ("setup", "totals", "decide", "edges", "edges_wait", "mins",
 # the instrumented sources and their counter readers: (file, function,
 # counters)
 SOURCES = (("qspa.cu", "ldpc_qspa_phase_clocks", 2),
-           ("nbms.cu", "ldpc_nbms_phase_clocks", 3),
+           ("nbms.cu", "ldpc_nbms_phase_clocks", 4),
            ("qspa_stream.cu", "ldpc_qspa_stream_phase_clocks", 2))
 # kernel -> (counter reader, its row, K8's decoder or K5's / K7's schedule)
 KERNELS = {
@@ -60,6 +63,7 @@ KERNELS = {
     "nbms_ems": ("ldpc_nbms_phase_clocks", 0, "decode_ems"),
     "nbms_tmm": ("ldpc_nbms_phase_clocks", 1, "decode_tmm"),
     "nbms_layered_tmm": ("ldpc_nbms_phase_clocks", 2, "decode_layered_tmm"),
+    "nbms_ems_full": ("ldpc_nbms_phase_clocks", 3, "decode_ems_full"),
     "qspa_stream": ("ldpc_qspa_stream_phase_clocks", 0, "flooding"),
     "qspa_stream_layered": ("ldpc_qspa_stream_phase_clocks", 1, "layered"),
 }
@@ -127,10 +131,8 @@ def _calls(code, L, passes, kernels):
                            for d in designs}
             continue
         if kernel.startswith("nbms"):
-            fns = {"serial": getattr(cuda_nbms, what + "_serial"),
-                   "groups": getattr(cuda_nbms, what)}
-            out[kernel] = {d: (lambda f=f: f(L, code, passes))
-                           for d, f in fns.items()}
+            out[kernel] = {"groups": (lambda f=getattr(cuda_nbms, what):
+                                      f(L, code, passes))}
             continue
         state = [torch.empty_like(L), torch.empty((B, E, code.q), device=dev)]
         state += [torch.empty(B, dtype=torch.int32, device=dev)

@@ -115,10 +115,13 @@ K8_DISPATCH = [
      cuda_nbms.decode_layered_tmm),
     ("LDPC_N576_K480_GF256_exp", "tmm", (3, 3), cuda_nbms.decode_tmm),
     ("BDS.576.288.GF.64", "ems", (3, 2), None),
-    ("BDS.576.288.GF.64", "ems_full", (2, 2), None),
+    ("BDS.576.288.GF.64", "ems_full", (2, 2), cuda_nbms.decode_ems_full),
+    ("LDPC_N576_K480_GF256_exp", "ems_full", (3, 3),
+     cuda_nbms.decode_ems_full),
     ("BDS.576.288.GF.64", "glayered_tmm", (2, 2), None),
     ("Tanner_74_9_Z128_GF16", "ems", (2, 2), None),
     ("Tanner_74_9_Z128_GF16", "layered_tmm", (2, 2), None),
+    ("Tanner_74_9_Z128_GF16", "ems_full", (2, 2), None),
 ]
 
 
@@ -154,7 +157,7 @@ def test_nb_stream_max_domain_refused_on_a_card():
     """No stream kernel runs a max-domain method: auto on a card raises,
     naming ROADMAP.md Queue 1 item 20; an unknown method raises."""
     code, _ = codes("BDS.576.288.GF.64")
-    for method in ("ems", "tmm", "layered_tmm", "glayered_tmm"):
+    for method in ("ems", "ems_full", "tmm", "layered_tmm", "glayered_tmm"):
         conf = _nb_cfg(code="BDS.576.288.GF.64", engine="stream",
                        decoder=cfg.NBDecoderConfig(method=method))
         with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 20"):
