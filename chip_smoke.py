@@ -108,27 +108,39 @@ The stream steps K4 (binary) and K7 (GF(q)) join each phase:
               flooding and layered, the row groups, the serial design and
               the plain version in turns; the refill of one call; the
               stream sweeps' throughput beside the batch sweeps'
-The max-domain decoder K8 (EMS Nm=2/Nc=2, full EMS, TMM, layered TMM)
-joins each phase:
+The max-domain decoder K8 (EMS Nm=2/Nc=2, EMS at other Nm/Nc, full EMS,
+TMM, layered TMM) joins each phase:
   parity      K8 against its plain version, each method on the four
               adjacency codes: BDS.576.288.GF.64 at B=4096 where most
               frames converge and where few do, a ragged 37, B=512 at Eb/N0
               0, 2 and 4 dB (not layered TMM there: its plain version costs
               ~0.6 s a pass), max_iters 0, 1 and 20; full EMS at the same
               points with its batch cut to 1024 on GF(64) and 64 on GF(256)
-              (its plain version holds [B, M, q, q] per convolution); hard,
-              ok and iters exactly equal
+              (its plain version holds [B, M, q, q] per convolution); EMS at
+              other Nm/Nc (the mode ems_nmnc) against the plain EMS at the
+              same Nm/Nc: every branch (conf(q,1) alone, the pairs, the
+              chains, the budgeted chains at Nc = 3 to 10 on
+              LDPC_N576_K480_GF256_exp), ties on
+              LDPC_N576_K288_GF64_d1_exp, zero and random codewords,
+              max_iters 0, 1, 3 and 20, a ragged batch; hard, ok and iters
+              exactly equal
   main        `nb` with no --method (ems) on BDS at Eb/N0 1 and 2 dB, then
               tmm, layered_tmm and ems_full, FER compatible with
               VALIDATION.md:19, 23, 24 and 20 (ems_full: 2048 frames a
-              point); `nb --packed` ems; `nb --engine stream --method ems`
-              and `nb --method ems_full` on Tanner_74_9_Z128_GF16 refused
-              on the card, naming their ROADMAP items; the committed GF(q)
-              workload (ems, maxIT 20, Eb/N0 0:0.5:5, >=50 errors and
-              >=1000 frames) as one packed sweep with a frame cap, each
-              point reported as stopped by the rule or by the cap
+              point); `nb --nm 64 --nc 3` (2048 frames a point, FER
+              compatible with full EMS's VALIDATION.md:20: the same
+              function but for rounding) and `--nm 16 --nc 2`, each with
+              no plain decode; `nb --packed` ems; `nb --engine stream
+              --method ems`, `nb --method ems_full` and `nb --nm 4` on
+              Tanner_74_9_Z128_GF16 refused on the card, naming their
+              ROADMAP items; the committed GF(q) workload (ems, maxIT 20,
+              Eb/N0 0:0.5:5, >=50 errors and >=1000 frames) as one packed
+              sweep with a frame cap, each point reported as stopped by the
+              rule or by the cap
   timing      K8, BDS, B=4096, at most 10 passes at 0 dB from fresh frames,
-              each method's kernel and plain version in turns
+              each method's kernel and plain version in turns (EMS at Nm/Nc
+              16/2 and 64/3; and 8/10, budgeted, on
+              LDPC_N576_K480_GF256_exp at B=64)
 Random codewords (the sources of `--tx random`, models/encoder.py) join
 each phase:
   parity      cases of the tables above whose channel comes from the
@@ -233,9 +245,12 @@ KERNELS = [
      "cuda_ldpc_tpu/ops/pallas_nbms.py:376"),
     ("nbms_layered_tmm", "cuda_ldpc_torch/csrc/nbms.cu",
      "cuda_ldpc_tpu/ops/pallas_nbms.py:376"),
-    # full EMS has no TPU kernel: the JAX package runs it in jnp
+    # full EMS and EMS at other Nm/Nc have no TPU kernel: the JAX package
+    # runs them in jnp
     ("nbms_ems_full", "cuda_ldpc_torch/csrc/nbms.cu",
      "cuda_ldpc_tpu/ops/nb_decode.py:371"),
+    ("nbms_ems_nmnc", "cuda_ldpc_torch/csrc/nbms.cu",
+     "cuda_ldpc_tpu/ops/nb_decode.py:223"),
     # the probes, on the measuring path (phase 6)
     ("probe_bitops", "cuda_ldpc_torch/csrc/probe_bitops.cu",
      "tools/probe_bitops.py:28"),
@@ -418,7 +433,8 @@ def qspa_stream_bound_ms(N: int, E: int, q: int, batch: int, passes: int,
 
 
 def nbms_bound_ms(N: int, M: int, E: int, q: int, batch: int, iters,
-                  max_iters: int, method: str) -> tuple[float, str]:
+                  max_iters: int, method: str, nm: int = 2,
+                  nc: int = 2) -> tuple[float, str]:
     """The least time the card could take for one K8 decode call that gave
     per-frame iteration counts ``iters``: the larger of the bytes it must
     move (chan [B, N, q] f32 read once; hard [B, N] i32, ok [B] and iters
@@ -448,7 +464,33 @@ def nbms_bound_ms(N: int, M: int, E: int, q: int, batch: int, iters,
     inner edges' exclusive values (a prefix with a suffix; the end edges'
     are a suffix and a prefix already), 3 dc - 6 in all (the plain version
     and the kernel do 3 dc - 2, those with the identity too); per edge and
-    symbol, 1 (v2c) and 2 (the output's subtract and multiply)."""
+    symbol, 1 (v2c) and 2 (the output's subtract and multiply).  EMS at
+    (nm, nc) (the mode ems_nmnc), with K = min(nm - 1, q - 1) non-zero
+    offsets an edge may deviate to: EMS's per edge and symbol without its
+    best non-zero offset, 6 + (dc - 2); then the branch the plain version
+    takes (csrc/nbms.cu ems_branch).  But for conf(q,1) alone, the top
+    nm - 1 of q offsets per edge, a tournament's q + (k - 1) ceil(log2 q)
+    compares with k = min(nm - 1, q - nm + 1) (the top ones, or the last
+    ones left out; none when every offset is taken).  The pairs (nc = 2):
+    per row an add for each pair of edges and pair of their offsets,
+    C(dc, 2) K^2, and per edge a max for each of those of the pairs of
+    other edges, C(dc - 1, 2) K^2.  The chains (nc >= dc - 1): per edge
+    and symbol 2 (the message's max with the identity, D's max with the
+    chains); per row 2 (dc - 2) prefixes and suffixes against a message of
+    K + 1 values, 2 q (K + 1) each, and dc - 2 exclusive convolutions of
+    2 q^2.  The budgeted chains (3 <= nc <= dc - 2): per edge and symbol 1
+    (D's max); per row, as for full EMS, no term with the identity (level
+    0, and the states of no message), and no level or term another one
+    equals or dominates: a state of s messages equals its level s above
+    it (F_s[c] = F_s[s] for c > s, by induction), the levels rise (F_s[c]
+    >= F_s[c - 1] elementwise, and a (max,+) convolution keeps the order),
+    so an inner edge d, with d messages before it and dc - 1 - d after,
+    needs only the terms maxconv(F_d[c], Bk_d[nc - c]) with nc - (dc - 1 -
+    d) <= c <= d, those with 0 < c < nc convolutions of 2 q^2 and the
+    rest free, their maxes q each, and a state of s messages only its
+    levels max(1, nc - (dc - 1 - s)) .. min(s, nc), each a max of q and,
+    above level 1, a convolution against K values, 2 q K (an end edge's
+    value is the top level of its chain's last state)."""
     iters = [int(i) for i in iters]
     updates = sum(min(i, max_iters - 1) for i in iters)
     passes = sum(min(i + 1, max_iters) for i in iters)
@@ -458,6 +500,32 @@ def nbms_bound_ms(N: int, M: int, E: int, q: int, batch: int, iters,
                       + E * (dc - 1) * (dc - 2) // 2)
     elif method == "ems_full":
         per_update = M * (3 * dc - 6) * 2 * q * q + E * q * 3
+    elif method == "ems_nmnc":
+        K = min(nm - 1, q - 1)
+        per_update = E * q * (6 + dc - 2)
+        branch = ("conf1" if nc < 2 or nm < 2 or dc < 3 else "pairs"
+                  if nc == 2 else "chains" if nc >= dc - 1 else "budget")
+        k = min(nm - 1, q - nm + 1)
+        if branch != "conf1" and k > 0:
+            per_update += E * (q + (k - 1) * (q - 1).bit_length())
+        if branch == "pairs":
+            per_update += (M * dc * (dc - 1) // 2 * K * K
+                           + E * (dc - 1) * (dc - 2) // 2 * K * K)
+        elif branch == "chains":
+            per_update += (E * q * 2 + M * 2 * (dc - 2) * 2 * q * (K + 1)
+                           + M * (dc - 2) * 2 * q * q)
+        elif branch == "budget":
+            chains = 2 * sum(q + (2 * q * K if c > 1 else 0)
+                             for s in range(1, dc)
+                             for c in range(max(1, nc - (dc - 1 - s)),
+                                            min(s, nc) + 1))
+            excl = 0
+            for d in range(1, dc - 1):
+                lo, hi = max(0, nc - (dc - 1 - d)), min(d, nc)
+                excl += (hi - lo) * q + sum(2 * q * q
+                                            for c in range(lo, hi + 1)
+                                            if 0 < c < nc)
+            per_update += E * q + M * (chains + excl)
     else:
         per_update = (E * q * (11 + (3 if method == "layered_tmm" else 0))
                       + M * (4 * q * (q - 1) // 2 + 3 * q))
@@ -1481,6 +1549,67 @@ def main() -> int:
             del a, b, L, sent
         torch.cuda.empty_cache()
 
+    # K8's mode ems_nmnc against the plain EMS at the same Nm/Nc, every
+    # branch: conf(q,1) alone (Nm = 1, Nc = 1), the pairs (Nc = 2), the
+    # chains (Nc >= dc - 1: BDS and the dc = 4 codes at Nc = 3), the
+    # budgeted chains (LDPC_N576_K480_GF256_exp, dc = 12, Nc = 3 to 10);
+    # the plain pairs cost ~(Nm - 1)^2 dc (dc - 1) / 2 * 6 launches a pass
+    # (~2-3 s a pass at Nm = 64), hence Nm = 64's 3 passes
+    nmnc_cases = [
+        # code, Nm, Nc, Eb/N0, batch, iterations, tx
+        ("BDS.576.288.GF.64", 1, 2, 1.5, 512, 20, "zero"),
+        ("BDS.576.288.GF.64", 3, 1, 1.5, 512, 20, "zero"),
+        ("BDS.576.288.GF.64", 3, 2, 1.5, 512, 20, "random"),
+        ("BDS.576.288.GF.64", 16, 2, 1.5, 256, 20, "zero"),
+        ("BDS.576.288.GF.64", 16, 2, 2.0, 37, 20, "zero"),
+        ("BDS.576.288.GF.64", 64, 2, 2.5, 64, 3, "zero"),
+        ("BDS.576.288.GF.64", 8, 3, 1.0, 1024, 20, "zero"),
+        ("BDS.576.288.GF.64", 64, 3, 1.5, 1024, 20, "zero"),
+        ("BDS.576.288.GF.64", 64, 3, 2.0, 1024, 20, "random"),
+        ("BDS.576.288.GF.64", 64, 3, 1.0, 4096, 1, "zero"),
+        ("BDS.576.288.GF.64", 64, 3, 1.0, 64, 0, "zero"),
+        ("LDPC_N576_K288_GF64_d1_exp", 4, 2, 2.0, 512, 20, "zero"),
+        ("LDPC_N576_K288_GF64_d1_exp", 64, 3, 2.0, 512, 20, "zero"),
+        ("LDPC_N96_K48_GF256_d1_exp", 8, 2, 2.0, 64, 20, "zero"),
+        ("LDPC_N96_K48_GF256_d1_exp", 256, 3, 2.0, 64, 20, "zero"),
+        ("LDPC_N576_K480_GF256_exp", 3, 3, 3.0, 16, 20, "zero"),
+        ("LDPC_N576_K480_GF256_exp", 4, 5, 3.0, 16, 20, "zero"),
+        ("LDPC_N576_K480_GF256_exp", 8, 10, 3.0, 16, 20, "zero"),
+        ("LDPC_N576_K480_GF256_exp", 8, 10, 3.0, 23, 10, "zero"),
+    ]
+    key = "nbms_ems_nmnc"
+    for i, (name, nm, nc, ebn0, B, iters, tx) in enumerate(nmnc_cases):
+        code = nb_code(name)
+        L, sent = nb_chan(code, ebn0, B, seed=900 + i, tx=tx)
+        t0 = time.perf_counter()
+        a = cuda_nbms.decode_ems(L, code, iters, nm=nm, nc=nc)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        b = nb_decode.decode_ems(L, code, iters, nm=nm, nc=nc)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = {"hard": int((a.hard != b.hard).sum()),
+                  "ok": int((a.ok != b.ok).sum()),
+                  "iters": int((a.iters != b.iters).sum())}
+        err = max([int((a.hard - b.hard).abs().max()), counts["ok"] > 0,
+                   int((a.iters - b.iters).abs().max())])
+        max_err[key] = max(max_err[key], float(err))
+        mismatches[key] += sum(counts.values())
+        _emit("parity", kernel=key, tx=tx, code=name, nm=nm, nc=nc,
+              branch=cuda_nbms.ems_branch(nm, nc, code.max_dc), ebn0=ebn0,
+              batch=B, iters=iters, groups=cuda_nbms.groups(
+                  cuda_nbms.make_plan(code), "ems_nmnc"),
+              frames_ok=int(b.ok.sum()),
+              frames_decoded_to_their_codeword=int((b.hard == (
+                  0 if sent is None else sent)).all(1).sum()),
+              avg_iters=float(b.iters.float().mean()), kernel_s=t1 - t0,
+              plain_s=t2 - t1, mismatches=counts, max_abs_err=err)
+        if any(counts.values()):
+            raise AssertionError(f"K8 != plain on {key} {nmnc_cases[i]}: "
+                                 f"{counts}")
+        del a, b, L, sent
+    torch.cuda.empty_cache()
+
     # K4 and K7 against their plain versions over the stream engines' call
     # sequence: k = 1, refill, k = 16, refill, drain (k = max_iters + 1);
     # both on the card, each on its own copy of the state
@@ -1584,17 +1713,32 @@ def main() -> int:
             "avg_iters", "false_frames", "alarm_frames", "info_mbps")
     launches = {}
 
-    def drive(tmp, label, kernel, argv, also=(), never=()):
+    def drive(tmp, label, kernel, argv, also=(), never=(), no_plain=False):
         """One sweep with every launch count at 0 before it; the counts
         are read after it, and the named kernel (and each count named in
-        ``also``) must have launched, and none named in ``never``."""
+        ``also``) must have launched, and none named in ``never``; with
+        ``no_plain``, the plain GF(q) decode (nb_decode.decode) must not
+        have run."""
         for w in wrappers:
             for k in w.LAUNCHES:
                 w.LAUNCHES[k] = 0
+        plain_calls = []
+        plain = nb_decode.decode
+        if no_plain:
+            nb_decode.decode = lambda *a, **kw: (plain_calls.append(1),
+                                                 plain(*a, **kw))[1]
         t0 = time.perf_counter()
-        rows = _sweep(cli, os.path.join(tmp, label), argv)
+        try:
+            rows = _sweep(cli, os.path.join(tmp, label), argv)
+        finally:
+            nb_decode.decode = plain
         seconds = time.perf_counter() - t0
         counts = {k: v for w in wrappers for k, v in w.LAUNCHES.items()}
+        if no_plain:
+            counts["plain_nb_decode"] = len(plain_calls)
+            if plain_calls:
+                raise AssertionError(f"the {label} sweep ran the plain "
+                                     f"decoder {len(plain_calls)} times")
         for k in (kernel, *also):
             if counts[k] <= 0:
                 raise AssertionError(f"the {label} sweep never launched the "
@@ -1954,6 +2098,22 @@ def main() -> int:
         launches["nbms_ems_full"] = n
         for r, ref in zip(got, ((658, 2048), (31, 8704))):
             anchor("bds_ems_full", "BDS.576.288.GF.64", r["snr"], r, ref)
+        # EMS at other Nm/Nc: 64/3 is full EMS's function but for rounding
+        # (Nm - 1 = q - 1 offsets, Nc = dc - 1 edges), so VALIDATION.md:20
+        # again; 16/2 beside it, with no anchor
+        nmnc = (bds12[:bds12.index("--batch")]
+                + ["--batch", "1024", "--least-error-frames", "50",
+                   "--least-test-frames", "1024", "--max-frames", "1024"])
+        launches["nbms_ems_nmnc"] = 0
+        for label, nm, nc, refs in [
+                ("bds_ems_nm64_nc3", 64, 3, ((658, 2048), (31, 8704))),
+                ("bds_ems_nm16_nc2", 16, 2, None)]:
+            got, n = drive(tmp, label, "nbms_ems_nmnc",
+                           nmnc + ["--nm", str(nm), "--nc", str(nc)],
+                           no_plain=True)
+            launches["nbms_ems_nmnc"] += n
+            for r, ref in zip(got, refs or ()):
+                anchor(label, "BDS.576.288.GF.64", r["snr"], r, ref)
         got, _ = drive(tmp, "bds_ems_packed", "nbms_ems", bds12 + ["--packed"])
         for r, ref in zip(got, ((2046, 2048), (1615, 2048))):
             anchor("bds_ems_packed", "BDS.576.288.GF.64", r["snr"], r, ref)
@@ -1976,6 +2136,16 @@ def main() -> int:
             _emit("refused", sweep="tanner ems_full", error=str(e))
         else:
             raise AssertionError("ems_full ran on Tanner_74_9_Z128_GF16 "
+                                 "under kernel auto")
+        try:
+            _sweep(cli, os.path.join(tmp, "refused_tanner_ems_nm4"),
+                   tanner + ["--method", "ems", "--nm", "4"])
+        except ValueError as e:
+            if "ROADMAP.md Queue 1 item 19" not in str(e):
+                raise
+            _emit("refused", sweep="tanner ems --nm 4", error=str(e))
+        else:
+            raise AssertionError("ems --nm 4 ran on Tanner_74_9_Z128_GF16 "
                                  "under kernel auto")
 
         # the GF(q) committed workload (myNBLDPC/include/define.h:23-61),
@@ -2359,6 +2529,43 @@ def main() -> int:
                          for k, v in ms.items()},
               bound_ms=bound, bound_by=bound_by)
         del res
+        torch.cuda.empty_cache()
+    # EMS at other Nm/Nc (the mode ems_nmnc) on the same frames, the plain
+    # version (1.4-7 s a call) timed once; then the budgeted chains on
+    # LDPC_N576_K480_GF256_exp at a batch the plain version holds (64).
+    # The kernels line takes Nm/Nc 64/3, the main path's anchored sweep.
+    k480 = nb_code("LDPC_N576_K480_GF256_exp")
+    for tcode, tB, nm, nc in [(code, B, 16, 2), (code, B, 64, 3),
+                              (k480, 64, 8, 10)]:
+        tchans = (chans if tcode is code
+                  else [nb_chan(tcode, 0.0, tB, seed=57 + i)[0]
+                        for i in range(2)])
+        decoders = {
+            "kernel": functools.partial(cuda_nbms.decode_ems, nm=nm, nc=nc),
+            "plain": functools.partial(nb_decode.decode_ems, nm=nm, nc=nc)}
+
+        def launch(which, i):
+            return decoders[which](tchans[i % 2], tcode, iters)
+
+        runs = time_turns(launch, {"plain": 1, "kernel": 10},
+                          order=("plain", "kernel", "kernel"))
+        ms = {k: statistics.median(v) for k, v in runs.items()}
+        res = launch("kernel", 0)
+        tplan = cuda_nbms.make_plan(tcode)
+        bound, bound_by = nbms_bound_ms(tcode.n_sym, tcode.m_sym, tplan.E,
+                                        tcode.q, tB, res.iters.tolist(),
+                                        iters, "ems_nmnc", nm, nc)
+        if (tcode, nm, nc) == (code, 64, 3):
+            timing["nbms_ems_nmnc"] = (ms, bound, bound_by)
+        _emit("timing", kernel="nbms_ems_nmnc", code=tcode.name, nm=nm,
+              nc=nc, branch=cuda_nbms.ems_branch(nm, nc, tcode.max_dc),
+              batch=tB, ebn0=0.0, max_passes=iters,
+              avg_iters=float(res.iters.float().mean()), card=card,
+              groups=cuda_nbms.groups(tplan, "ems_nmnc"), ms_per_batch=runs,
+              info_mbps={k: tB * tcode.k_sym * tcode.q_bit / (v / 1e3) / 1e6
+                         for k, v in ms.items()},
+              bound_ms=bound, bound_by=bound_by)
+        del res, tchans
         torch.cuda.empty_cache()
     del chans
     encode_timing(dev, card)

@@ -146,15 +146,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "reference's decoder_method 2; no Nm/Nc), tmm, "
                         "layered_tmm, glayered_tmm (max domain) or qspa, "
                         "layered_qspa, glayered_qspa (exact sum-product); "
-                        "on a card, ems at Nm=Nc=2, ems_full, tmm and "
-                        "layered_tmm run the kernel csrc/nbms.cu on the "
-                        "adjacency codes")
+                        "on a card, ems (any --nm/--nc), ems_full, tmm "
+                        "and layered_tmm run the kernel csrc/nbms.cu on "
+                        "the adjacency codes")
     n.add_argument("--nm", type=int, default=nd.decoder.nm,
                    help="EMS: slots per edge in the configuration sets "
-                        "(EMS_NM); the card's kernel runs 2")
+                        "(EMS_NM; Nm - 1 <= q); the card's kernel runs "
+                        "every value the plain version takes")
     n.add_argument("--nc", type=int, default=nd.decoder.nc,
-                   help="EMS: edges that may deviate (EMS_NC); the card's "
-                        "kernel runs 2")
+                   help="EMS: edges that may deviate (EMS_NC, >= 1); the "
+                        "card's kernel runs every value")
     n.add_argument("--max-iters", type=int, default=nd.decoder.max_iters)
     n.add_argument("--n-qam", type=int, default=nd.n_qam,
                    choices=[2, 64, 256])

@@ -171,8 +171,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ldpc_nbms.argtypes = (
         [p] * 14                  # chan C hard ok iters + 5 edge tables +
                                   # gf_log gf_exp + wave_ptr wave_row
-        + [i] * 10                # nwaves groups B N M E q max_dc
-                                  # num_iters method
+        + [i] * 12                # nwaves groups B N M E q max_dc
+                                  # num_iters method nm nc
+        + [p, i]                  # scratch grid
         + [i, p])                 # device stream
     lib.ldpc_nbms.restype = i
     for occupancy in (lib.ldpc_nbms_blocks_per_sm,

@@ -329,7 +329,7 @@ def _ems_cn_core(v2c_cn: torch.Tensor, mask: torch.Tensor,
     conf(Nm,2) adds every pair of other edges at their top-(Nm-1) non-best
     offsets; conf(Nm,Nc>2) is a (max,+) forward/backward DP over the XOR
     group, budgeted by deviation count, or unbudgeted for Nc >= dc-1
-    (``build_core`` refuses Nc < 1)."""
+    (``check_ems`` states what ``build_core`` refuses)."""
     maskq = mask[None, :, :, None]
     U = torch.where(maskq, _to_cn_domain(v2c_cn, h_perm), NEG)
     c0 = U.argmax(dim=-1)                                 # [B, M', dc]
@@ -580,14 +580,27 @@ def _slot_sum(g: _Graph, c2v_cn: torch.Tensor) -> torch.Tensor:
     return s
 
 
+def check_ems(nm: int, nc: int, q: int, dc: int) -> None:
+    """Raise ValueError for an EMS configuration the JAX package refuses:
+    Nc < 1, and Nm - 1 > q where ``_ems_cn_core`` takes each edge's top
+    Nm - 1 offsets (Nc >= 2, Nm >= 2, dc >= 3: ``jax.lax.top_k`` takes no
+    k beyond its axis, cuda_ldpc_tpu/ops/nb_decode.py:261-268), where
+    ``_top_first`` would repeat an offset."""
+    if nc < 1:
+        raise ValueError(f"EMS needs Nc >= 1, got Nc={nc}")
+    if nc >= 2 and nm >= 2 and dc >= 3 and nm - 1 > q:
+        raise ValueError(f"EMS needs Nm - 1 <= q = {q} (the top Nm - 1 "
+                         f"offsets of an edge), got Nm={nm}")
+
+
 def build_core(code: NBCode, method: str, device: torch.device | str = "cpu",
                nm: int = 2, nc: int = 2) -> DecoderCore:
     """Decoder core for ``method`` (one of METHODS) with its graph tensors
     on ``device``; ``nm``/``nc`` are EMS's configuration-set sizes."""
     if method not in METHODS:
         raise ValueError(f"unknown NB decoder method {method!r}")
-    if method == "ems" and nc < 1:
-        raise ValueError(f"EMS needs Nc >= 1, got Nc={nc}")
+    if method == "ems":
+        check_ems(nm, nc, code.q, code.max_dc)
     g = build_graph(code)
     dev = torch.device(device)
     tmm = method in TMM_METHODS

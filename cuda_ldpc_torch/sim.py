@@ -1027,13 +1027,12 @@ def _stream_key(sim, kind: str, engine: StreamEngine,
 # (code, method) pairs with no CUDA kernel yet, and the ROADMAP.md item that
 # ports them: the QSPA kernels run qspa and layered_qspa on the adjacency
 # codes (K5) and qspa and glayered_qspa on the QC code (K6); the max-domain
-# kernel K8 runs ems (Nm = Nc = 2), ems_full, tmm and layered_tmm on the
-# adjacency codes whose rows are full; no stream kernel runs a max-domain
-# method.
+# kernel K8 runs ems (every Nm/Nc the plain version takes), ems_full, tmm
+# and layered_tmm on the adjacency codes whose rows are full; no stream
+# kernel runs a max-domain method.
 NO_KERNEL_ITEM = "Queue 1 item 13 (GF(q) kernels for the other (code, method) pairs)"
 NO_MAXDOMAIN_KERNEL_ITEM = ("Queue 1 item 19 (max-domain kernels beyond K8: "
-                            "EMS with Nm/Nc other than 2/2, glayered_tmm, "
-                            "codes K8 does not take)")
+                            "glayered_tmm, codes K8 does not take)")
 NO_MAXDOMAIN_STREAM_ITEM = ("Queue 1 item 20 (a stateful K8 for the stream "
                             "engine)")
 K8_METHODS = {"ems": "decode_ems", "ems_full": "decode_ems_full",
@@ -1059,9 +1058,10 @@ def _nb_decoder_fn(code: NBCode, dec: cfg.NBDecoderConfig,
     """GF(q) decoder dispatch.  ``auto`` on a CUDA device (and ``cuda``)
     takes K5 (csrc/qspa.cu) for qspa and layered_qspa on the codes it
     supports, K6 (csrc/qspa_qc.cu) for qspa and glayered_qspa on the QC
-    code and K8 (csrc/nbms.cu) for ems (Nm = Nc = 2), ems_full (which has
-    no Nm/Nc), tmm and layered_tmm on the codes it supports, and raises
-    for a pair no kernel runs, rather than run the plain version silently;
+    code and K8 (csrc/nbms.cu) for ems (with its Nm/Nc), ems_full (which
+    has no Nm/Nc), tmm and layered_tmm on the codes it supports, and raises
+    for a pair no kernel runs, rather than run the plain version silently
+    (an EMS Nm/Nc the plain version refuses raises its error first);
     ``auto`` on the CPU and ``torch`` anywhere take the plain version;
     ``cuda`` on the CPU raises.  Unlike the JAX package (sim.py:1143-1187),
     whose ``auto`` keeps EMS and TMM on jnp, the kernels serve every pair
@@ -1081,10 +1081,14 @@ def _nb_decoder_fn(code: NBCode, dec: cfg.NBDecoderConfig,
             if method in names and module.supports(code):
                 return functools.partial(getattr(module, names[method]),
                                          code=code, max_iters=dec.max_iters)
-        nmnc = (dec.nm, dec.nc) if method == "ems" else (2, 2)
-        if method in K8_METHODS and cuda_nbms.supports(code, *nmnc):
+        nmnc = {}
+        if method == "ems":
+            nb_decode.check_ems(dec.nm, dec.nc, code.q, code.max_dc)
+            nmnc = {"nm": dec.nm, "nc": dec.nc}
+        if method in K8_METHODS and cuda_nbms.supports(code, **nmnc):
             return functools.partial(getattr(cuda_nbms, K8_METHODS[method]),
-                                     code=code, max_iters=dec.max_iters)
+                                     code=code, max_iters=dec.max_iters,
+                                     **nmnc)
         item = (NO_KERNEL_ITEM if method in nb_decode.QSPA_METHODS
                 else NO_MAXDOMAIN_KERNEL_ITEM)
         raise ValueError(f"no CUDA kernel decodes {code.name} with "

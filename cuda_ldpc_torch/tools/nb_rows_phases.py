@@ -1,5 +1,6 @@
 """Where the time of the GF(q) QSPA decoder K5 (flooding, layered), of the
-max-domain decoder K8 (EMS, full EMS, TMM, layered TMM) and of the GF(q)
+max-domain decoder K8 (EMS, EMS at other Nm/Nc, full EMS, TMM, layered
+TMM) and of the GF(q)
 QSPA stream step K7 (flooding, layered) goes, phase by phase, on a card,
 for the serial design (K5, K7) and the rows at once.
 
@@ -7,6 +8,7 @@ for the serial design (K5, K7) and the rows at once.
         [--passes 10] [--ebn0 0.0] [--code BDS.576.288.GF.64]
         [--designs serial,groups,warp]
         [--kernels qspa,qspa_layered,...] [--groups 1,2,4] [--warps 2,4,8]
+        [--nm 16 --nc 2]
 
 It builds, into the git-ignored build directory, a copy of the kernels with
 csrc/qspa.cu, csrc/nbms.cu and csrc/qspa_stream.cu compiled under
@@ -23,7 +25,10 @@ groups (a warp an edge; K8's ``decode_*``, ``stream_step``; K5's
 ``decode_design(..., 'groups')``) and K5's row on one warp
 (``decode_design(..., 'warp')``).  K8's full EMS counts its
 forward/backward chains under ``search`` and its exclusive convolutions
-under ``merge``.  The call's time
+under ``merge``; its EMS at ``--nm``/``--nc`` (``nbms_ems_nmnc``, the mode
+``ems_nmnc``) the single deviations and the top Nm - 1 selection under
+``mins``, the pairs or the chains under ``search``, the exclusive
+convolutions under ``merge``.  The call's time
 with the counters and without them (the library the package builds) and
 the blocks an SM holds (CUDA's occupancy calculator) are printed beside it.
 ``--groups`` also times the row groups at each listed number of groups (the
@@ -54,7 +59,7 @@ PHASES = ("setup", "totals", "decide", "edges", "edges_wait", "mins",
 # the instrumented sources and their counter readers: (file, function,
 # counters)
 SOURCES = (("qspa.cu", "ldpc_qspa_phase_clocks", 2),
-           ("nbms.cu", "ldpc_nbms_phase_clocks", 4),
+           ("nbms.cu", "ldpc_nbms_phase_clocks", 5),
            ("qspa_stream.cu", "ldpc_qspa_stream_phase_clocks", 2))
 # kernel -> (counter reader, its row, K8's decoder or K5's / K7's schedule)
 KERNELS = {
@@ -64,6 +69,7 @@ KERNELS = {
     "nbms_tmm": ("ldpc_nbms_phase_clocks", 1, "decode_tmm"),
     "nbms_layered_tmm": ("ldpc_nbms_phase_clocks", 2, "decode_layered_tmm"),
     "nbms_ems_full": ("ldpc_nbms_phase_clocks", 3, "decode_ems_full"),
+    "nbms_ems_nmnc": ("ldpc_nbms_phase_clocks", 4, "decode_ems"),
     "qspa_stream": ("ldpc_qspa_stream_phase_clocks", 0, "flooding"),
     "qspa_stream_layered": ("ldpc_qspa_stream_phase_clocks", 1, "layered"),
 }
@@ -112,9 +118,9 @@ def _instrumented_lib(root: pathlib.Path):
     return lib
 
 
-def _calls(code, L, passes, kernels):
+def _calls(code, L, passes, kernels, nm=16, nc=2):
     """kernel -> {design: call()} for each design the kernel has, each
-    call starting from the same state."""
+    call starting from the same state (EMS at other Nm/Nc at nm, nc)."""
     import torch
 
     from cuda_ldpc_torch.ops import cuda_nbms, cuda_qspa, cuda_qspa_stream
@@ -131,8 +137,9 @@ def _calls(code, L, passes, kernels):
                            for d in designs}
             continue
         if kernel.startswith("nbms"):
-            out[kernel] = {"groups": (lambda f=getattr(cuda_nbms, what):
-                                      f(L, code, passes))}
+            kw = {"nm": nm, "nc": nc} if kernel == "nbms_ems_nmnc" else {}
+            out[kernel] = {"groups": (lambda f=getattr(cuda_nbms, what), kw=kw:
+                                      f(L, code, passes, **kw))}
             continue
         state = [torch.empty_like(L), torch.empty((B, E, code.q), device=dev)]
         state += [torch.empty(B, dtype=torch.int32, device=dev)
@@ -153,7 +160,7 @@ def _calls(code, L, passes, kernels):
 
 def measure(batch: int = 4096, passes: int = 10, ebn0: float = 0.0,
             designs=DESIGNS, groups=(), warps=(), kernels=tuple(KERNELS),
-            code_name="BDS.576.288.GF.64"):
+            code_name="BDS.576.288.GF.64", nm: int = 16, nc: int = 2):
     """Yield one dict per kernel and design (see the module docstring), then
     one per kernel and listed number of groups, then one per K5 schedule
     and listed number of warps."""
@@ -178,7 +185,7 @@ def measure(batch: int = 4096, passes: int = 10, ebn0: float = 0.0,
     L = demod.nb_channel_llr(g, np.zeros(code.bit_length, dtype=np.int64),
                              constellation(2), sigma, batch, code.q,
                              device=dev)
-    calls = _calls(code, L, passes, kernels)
+    calls = _calls(code, L, passes, kernels, nm, nc)
 
     def module(kernel):
         return (cuda_nbms if kernel.startswith("nbms") else cuda_qspa_stream
@@ -188,6 +195,9 @@ def measure(batch: int = 4096, passes: int = 10, ebn0: float = 0.0,
         """The method (K8) or the schedule (K5, K7) the modules take."""
         return (kernel[len("nbms_"):] if kernel.startswith("nbms")
                 else kernel.endswith("layered"))
+
+    def extra(kernel):
+        return {"nm": nm, "nc": nc} if kernel == "nbms_ems_nmnc" else {}
 
     def shape(kernel, design):
         """The design's groups or warps, and the blocks an SM holds."""
@@ -227,8 +237,9 @@ def measure(batch: int = 4096, passes: int = 10, ebn0: float = 0.0,
             mine = [clocks[row * len(PHASES) + i] for i in range(len(PHASES))]
             total = sum(mine)
             width, blocks = shape(kernel, design)
-            yield {"kernel": kernel, "design": design, **width,
-                   "blocks_per_sm": blocks, **point, "ms": ms["plain"],
+            yield {"kernel": kernel, **extra(kernel), "design": design,
+                   **width, "blocks_per_sm": blocks, **point,
+                   "ms": ms["plain"],
                    "ms_with_counters": ms["counted"],
                    "cycles_per_block": total / batch,
                    "share": {PHASES[i]: c / total for i, c in enumerate(mine)
@@ -244,8 +255,8 @@ def measure(batch: int = 4096, passes: int = 10, ebn0: float = 0.0,
                             1024 if G == 1 else cuda_qspa.GROUPED_THREADS):
                     continue
                 width, blocks = shape(kernel, "groups")
-                yield {"kernel": kernel, "design": "groups", **width,
-                       "blocks_per_sm": blocks, **point,
+                yield {"kernel": kernel, **extra(kernel), "design": "groups",
+                       **width, "blocks_per_sm": blocks, **point,
                        "ms": time_ms(call["groups"], dev, reps=5)}
     finally:
         cuda_nbms.groups, cuda_qspa_stream.groups, cuda_qspa.groups = saved
@@ -279,6 +290,10 @@ def main(argv=None) -> int:
     ap.add_argument("--warps", default="",
                     help="comma-separated warps a block of K5's row on one "
                          "warp to time")
+    ap.add_argument("--nm", type=int, default=16,
+                    help="EMS's Nm for nbms_ems_nmnc")
+    ap.add_argument("--nc", type=int, default=2,
+                    help="EMS's Nc for nbms_ems_nmnc")
     args = ap.parse_args(argv)
     designs = tuple(args.designs.split(","))
     if not set(designs) <= set(DESIGNS):
@@ -299,7 +314,7 @@ def main(argv=None) -> int:
     from cuda_ldpc_torch.utils.device import card_info
     card = card_info()
     for row in measure(args.batch, args.passes, args.ebn0, designs, groups,
-                       warps, kernels, args.code):
+                       warps, kernels, args.code, args.nm, args.nc):
         print(json.dumps({"card": card, **row}), flush=True)
     return 0
 

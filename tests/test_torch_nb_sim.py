@@ -114,12 +114,17 @@ K8_DISPATCH = [
     ("LDPC_N576_K480_GF256_exp", "layered_tmm", (2, 2),
      cuda_nbms.decode_layered_tmm),
     ("LDPC_N576_K480_GF256_exp", "tmm", (3, 3), cuda_nbms.decode_tmm),
-    ("BDS.576.288.GF.64", "ems", (3, 2), None),
+    ("BDS.576.288.GF.64", "ems", (3, 2), cuda_nbms.decode_ems),
+    ("BDS.576.288.GF.64", "ems", (64, 3), cuda_nbms.decode_ems),
+    ("LDPC_N576_K288_GF64_d1_exp", "ems", (1, 2), cuda_nbms.decode_ems),
+    ("LDPC_N576_K480_GF256_exp", "ems", (8, 10), cuda_nbms.decode_ems),
+    ("LDPC_N96_K48_GF256_d1_exp", "ems", (257, 3), cuda_nbms.decode_ems),
     ("BDS.576.288.GF.64", "ems_full", (2, 2), cuda_nbms.decode_ems_full),
     ("LDPC_N576_K480_GF256_exp", "ems_full", (3, 3),
      cuda_nbms.decode_ems_full),
     ("BDS.576.288.GF.64", "glayered_tmm", (2, 2), None),
     ("Tanner_74_9_Z128_GF16", "ems", (2, 2), None),
+    ("Tanner_74_9_Z128_GF16", "ems", (4, 2), None),
     ("Tanner_74_9_Z128_GF16", "layered_tmm", (2, 2), None),
     ("Tanner_74_9_Z128_GF16", "ems_full", (2, 2), None),
 ]
@@ -129,10 +134,11 @@ K8_DISPATCH = [
                          ids=[f"{c[0]}-{c[1]}-{c[2][0]}{c[2][1]}"
                               for c in K8_DISPATCH])
 def test_nb_dispatch_max_domain(name, method, nmnc, fn):
-    """The max-domain methods: K8 where it takes the pair (Nm/Nc matter to
-    EMS only), else an error naming ROADMAP.md Queue 1 item 19 under auto
-    and cuda on a card; the plain version, with Nm/Nc, under torch and
-    under auto on the CPU; cuda on the CPU raises."""
+    """The max-domain methods: K8 where it takes the pair, EMS with its
+    Nm/Nc (which matter to EMS only), else an error naming ROADMAP.md
+    Queue 1 item 19 under auto and cuda on a card; the plain version, with
+    Nm/Nc, under torch and under auto on the CPU; cuda on the CPU
+    raises."""
     code = sim.NBCode.from_registry(name)
     cpu = torch.device("cpu")
     for kernel in ("auto", "cuda"):
@@ -141,8 +147,10 @@ def test_nb_dispatch_max_domain(name, method, nmnc, fn):
                 _pick(code, method, kernel, nm=nmnc[0], nc=nmnc[1])
         else:
             f = _pick(code, method, kernel, nm=nmnc[0], nc=nmnc[1])
-            assert f.func is fn and f.keywords == {"code": code,
-                                                   "max_iters": 7}
+            want = {"code": code, "max_iters": 7}
+            if method == "ems":
+                want.update(nm=nmnc[0], nc=nmnc[1])
+            assert f.func is fn and f.keywords == want
     for kernel, device in [("torch", torch.device("cuda", 0)),
                            ("torch", cpu), ("auto", cpu)]:
         f = _pick(code, method, kernel, device, nm=nmnc[0], nc=nmnc[1])
@@ -151,6 +159,21 @@ def test_nb_dispatch_max_domain(name, method, nmnc, fn):
                               "nm": nmnc[0], "nc": nmnc[1]}
     with pytest.raises(ValueError, match="CUDA"):
         _pick(code, method, "cuda", cpu)
+
+
+def test_nb_dispatch_refuses_an_ems_the_plain_version_refuses():
+    """An EMS Nm/Nc the plain version (and the JAX package) refuses raises
+    its own error under every kernel choice, on a card before any kernel
+    is chosen."""
+    bds, _ = codes("BDS.576.288.GF.64")
+    for kernel in ("auto", "cuda"):
+        with pytest.raises(ValueError, match="Nm - 1 <= q"):
+            _pick(bds, "ems", kernel, nm=66, nc=2)
+        with pytest.raises(ValueError, match="Nc >= 1"):
+            _pick(bds, "ems", kernel, nm=2, nc=0)
+    f = _pick(bds, "ems", "torch", torch.device("cpu"), nm=66, nc=2)
+    with pytest.raises(ValueError, match="Nm - 1 <= q"):
+        f(torch.zeros((1, bds.n_sym, bds.q)))
 
 
 def test_nb_stream_max_domain_refused_on_a_card():
