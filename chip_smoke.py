@@ -22,14 +22,14 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               them), J15_L30_Z1280 and PON_LDPC at B=4096, checks zero /
               syndrome / none, early stop on and off, alpha 0.8 with beta
               0.1.  hard, ok and iters exactly equal; every mismatch is
-              counted and printed.  GF(q) FFT-QSPA, flooding and layered: K5 on
-              BDS.576.288.GF.64 at the main path's B=4096 (BPSK, Eb/N0 1 and
-              2 dB, maxIT 20), a ragged batch of 11, early stop off, 0
-              iterations and 64-QAM, and on LDPC_N576_K288_GF64_d1_exp,
-              LDPC_N96_K48_GF256_d1_exp and LDPC_N576_K480_GF256_exp (BPSK
-              and 256-QAM), hard, ok and iters exactly equal on every frame,
-              and against its serial design (one row at a time) and, where
-              the dispatch rule puts a row on one warp, its row groups: the
+              counted and printed.  GF(q) FFT-QSPA, flooding, layered and
+              grouped-layered: K5 on BDS.576.288.GF.64 at the main path's
+              B=4096 (BPSK, Eb/N0 1 and 2 dB, maxIT 20), a ragged batch of
+              11, early stop off, 0 iterations and 64-QAM, and on
+              LDPC_N576_K288_GF64_d1_exp, LDPC_N96_K48_GF256_d1_exp and
+              LDPC_N576_K480_GF256_exp (BPSK and 256-QAM), hard, ok and
+              iters exactly equal on every frame, and, where the dispatch
+              rule puts a row on one warp, against a warp an edge: the
               same; K6 on Tanner_74_9_Z128_GF16 at B=256 in its
               waterfall (Eb/N0 3.3 dB, early stop on and off) and above it
               (4.3 dB), a ragged batch, and on synthetic fully QC codes
@@ -57,10 +57,13 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               both schedules), compatible with VALIDATION.md:21-22,
               layered avg_iters no larger; a 64-QAM qspa sweep at 2 dB;
               Tanner_74_9_Z128_GF16 qspa and glayered_qspa across its
-              waterfall, Eb/N0 3.2:0.2:3.6,
-              B=256, FER not rising, glayered avg_iters no larger;
-              layered_qspa on the Tanner code must be refused, naming the
-              ROADMAP item
+              waterfall, Eb/N0 3.2:0.2:3.6, B=256, FER not rising,
+              glayered avg_iters no larger, and layered_qspa there (K6's
+              block-row schedule: its row groups are its block rows in
+              row order), whose rows must equal glayered_qspa's;
+              glayered_tmm (K8) and glayered_qspa (K5) on BDS at 1 and 2
+              dB, 2048 frames a point, with no plain decode, whose rows
+              must equal the same sweeps' under --kernel torch
   5. timing   J15_L30_Z1280, B=4096, 10 fixed iterations, one batch in
               flight: each binary kernel, its bfloat16 form and both plain
               PyTorch versions in turns (plain, plain bf16, kernel, bf16,
@@ -70,9 +73,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               same for K5 on BDS.576.288.GF.64 at B=4096 and K6 on
               Tanner_74_9_Z128_GF16 at B=256, at most 10 passes, early stop
               off, at an Eb/N0 where most frames run every pass (K5: the
-              kernel, its row groups, its serial design and the plain
-              version in turns; K6: the staged kernel, its global-memory
-              design and the plain version in turns)
+              kernel, a warp an edge where the rule puts a row on one warp
+              and the plain version in turns, grouped-layered also beside
+              the serial-row layered kernel; K6: the staged kernel, its
+              global-memory design and the plain version in turns)
 The stream steps K4 (binary) and K7 (GF(q)) join each phase:
   parity      K4 against its plain version over a call sequence (k = 1,
               refill, k = 16, refill, drain k = max_iters + 1) on
@@ -84,19 +88,19 @@ The stream steps K4 (binary) and K7 (GF(q)) join each phase:
               the global-memory design on the same sequences.  K7
               the same on BDS.576.288.GF.64 at B=4096, a ragged 37 and
               B=512 at Eb/N0 0, 2 and 4 dB, and the other three adjacency
-              codes, flooding and layered: t, done, okf exactly, hard on
-              slots whose check passed, the rest counted; and its row
-              groups against the serial design (one row at a time): every
-              state tensor bit for bit over the calls
+              codes, flooding, layered and grouped-layered: every output
+              and state tensor exactly equal
   main        `binary --engine stream` on J15_L30_Z1280 (flooding min-sum,
               layered min-sum alpha 0.8, flooding bp), FER compatible with
               the batch sweeps at the same points; `binary --packed` on
               PON_LDPC's committed grid (Es/N0 0:0.2:13, maxIT 50, >=50
               errors and >=10k frames, 20k-frame cap), compatible with
               VALIDATION.md:173-174; `binary --packed --engine stream` on
-              J15_L30_Z1280; `nb --engine stream` on BDS qspa and
-              layered_qspa at Eb/N0 1 and 2 dB (1 dB compatible with the
-              batch anchors), `nb --packed` and `nb --packed --engine
+              J15_L30_Z1280; `nb --engine stream` on BDS qspa,
+              layered_qspa and glayered_qspa at Eb/N0 1 and 2 dB (1 dB
+              compatible with the batch sweeps' rows and, but for
+              glayered_qspa, with VALIDATION.md:21-22), `nb --packed` and
+              `nb --packed --engine
               stream`; a binary stream sweep killed and resumed, whose rows
               equal the uninterrupted run's; a pair K7 does not run refused
   timing      K4, J15_L30_Z1280 and PON_LDPC, B=4096, one call of 10
@@ -105,16 +109,18 @@ The stream steps K4 (binary) and K7 (GF(q)) join each phase:
               plain version in turns (J15_L30_Z1280 flooding also on a
               cluster of 4 with chan on chip), flooding bp with its plain
               version; K7, BDS, B=4096, 10 passes at 0 dB from fresh slots,
-              flooding and layered, the row groups, the serial design and
-              the plain version in turns; the refill of one call; the
+              flooding, layered and grouped-layered, the kernel and the
+              plain version in turns; the refill of one call; the
               stream sweeps' throughput beside the batch sweeps'
 The max-domain decoder K8 (EMS Nm=2/Nc=2, EMS at other Nm/Nc, full EMS,
-TMM, layered TMM) joins each phase:
+TMM, layered TMM, grouped-layered TMM) joins each phase:
   parity      K8 against its plain version, each method on the four
               adjacency codes: BDS.576.288.GF.64 at B=4096 where most
               frames converge and where few do, a ragged 37, B=512 at Eb/N0
-              0, 2 and 4 dB (not layered TMM there: its plain version costs
-              ~0.6 s a pass), max_iters 0, 1 and 20; full EMS at the same
+              0, 2 and 4 dB, max_iters 0, 1 and 20 (layered TMM, whose
+              plain version costs ~0.6 s a pass, in one case a code at 8
+              passes, BDS's ragged batch at 20 and the batches of 0 and 1
+              pass); full EMS at the same
               points with its batch cut to 1024 on GF(64) and 64 on GF(256)
               (its plain version holds [B, M, q, q] per convolution); EMS at
               other Nm/Nc (the mode ems_nmnc) against the plain EMS at the
@@ -131,15 +137,17 @@ TMM, layered TMM) joins each phase:
               compatible with full EMS's VALIDATION.md:20: the same
               function but for rounding) and `--nm 16 --nc 2`, each with
               no plain decode; `nb --packed` ems; `nb --engine stream
-              --method ems`, `nb --method ems_full` and `nb --nm 4` on
-              Tanner_74_9_Z128_GF16 refused on the card, naming their
-              ROADMAP items; the committed GF(q) workload (ems, maxIT 20,
-              Eb/N0 0:0.5:5, >=50 errors and >=1000 frames) as one packed
+              --method ems`, `nb --method ems_full`, `nb --nm 4` and `nb
+              --method glayered_tmm` on Tanner_74_9_Z128_GF16 refused on
+              the card, naming their ROADMAP items; the committed GF(q)
+              workload (ems, maxIT 20, Eb/N0 0:0.5:5, >=50 errors and
+              >=1000 frames) as one packed
               sweep with a frame cap, each point reported as stopped by the
               rule or by the cap
   timing      K8, BDS, B=4096, at most 10 passes at 0 dB from fresh frames,
-              each method's kernel and plain version in turns (EMS at Nm/Nc
-              16/2 and 64/3; and 8/10, budgeted, on
+              each method's kernel and plain version in turns
+              (grouped-layered TMM also beside the serial-row layered TMM
+              kernel; EMS at Nm/Nc 16/2 and 64/3; and 8/10, budgeted, on
               LDPC_N576_K480_GF256_exp at B=64)
 Random codewords (the sources of `--tx random`, models/encoder.py) join
 each phase:
@@ -149,7 +157,8 @@ each phase:
               and PON_LDPC at B=4096 with the syndrome check; K5 on BDS
               (BPSK and 64-QAM) at B=4096, K6 on Tanner_74_9_Z128_GF16 at
               B=256, K7 over its call sequence on BDS, K8 (EMS, full EMS,
-              TMM, layered TMM) on BDS; each as exact as on the all-zero
+              TMM, layered and grouped-layered TMM) on BDS; each as exact
+              as on the all-zero
               word.  K4 on PON_LDPC as the stream engine runs it (refills
               of channel and codeword, the drain), against the same engine
               over the plain step, every counter and state tensor after
@@ -189,8 +198,9 @@ with every launch count at 0 before it and read after it:
               time and bound (dot3 beside torch.matmul without TF32, roll2
               beside torch.roll: 11 turns each, the medians, and each
               one's device time a call from a fresh process)
-The last lines are the card line, the kernels' JSON and
-{"ok": true, "device": {...}}.
+Each of phases 3-6 ends with a ``phase_seconds`` line (the measuring path
+and the probes apart).  The last lines are the card line, the kernels'
+JSON and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -251,6 +261,14 @@ KERNELS = [
      "cuda_ldpc_tpu/ops/nb_decode.py:371"),
     ("nbms_ems_nmnc", "cuda_ldpc_torch/csrc/nbms.cu",
      "cuda_ldpc_tpu/ops/nb_decode.py:223"),
+    # the grouped-layered schedule has no TPU kernel: the JAX package runs
+    # its step in jnp
+    ("nbms_glayered_tmm", "cuda_ldpc_torch/csrc/nbms.cu",
+     "cuda_ldpc_tpu/ops/nb_decode.py:603"),
+    ("qspa_glayered", "cuda_ldpc_torch/csrc/qspa.cu",
+     "cuda_ldpc_tpu/ops/nb_decode.py:603"),
+    ("qspa_stream_glayered", "cuda_ldpc_torch/csrc/qspa_stream.cu",
+     "cuda_ldpc_tpu/ops/nb_decode.py:603"),
     # the probes, on the measuring path (phase 6)
     ("probe_bitops", "cuda_ldpc_torch/csrc/probe_bitops.cu",
      "tools/probe_bitops.py:28"),
@@ -371,9 +389,11 @@ def qspa_bound_ms(N: int, E: int, q: int, batch: int, iters, max_iters: int,
     check-node update: 1 (v2c) + 5 (softmax: max, subtract, exp, sum,
     divide) + log2 q (transform) + 3 (forward, backward and exclusive
     products) + log2 q (inverse) + 4 (divide by q, floor, log, minus the
-    value at 0), and 2 more for layered's total update; per pass, 1 compare
-    per VN and symbol for the decision and, for flooding, 1 add per edge
-    and symbol plus 1 per VN and symbol for the totals."""
+    value at 0), and 2 more for layered's total update (``layered``: the
+    serial-row or the grouped-layered schedule, the same rows in another
+    order); per pass, 1 compare per VN and symbol for the decision and, for
+    flooding, 1 add per edge and symbol plus 1 per VN and symbol for the
+    totals."""
     import math
     iters = [int(i) for i in iters]
     updates = sum(min(i, max_iters - 1) for i in iters)
@@ -450,11 +470,13 @@ def nbms_bound_ms(N: int, M: int, E: int, q: int, batch: int, iters,
     per edge a max for each pair of the other edges.  TMM, per edge and
     symbol: 1 (v2c) + 2 (a minimum and its first index) + 1 (dU) + 4
     (min1, min2 and the compare for the column) + 3 (the I/E select, the
-    zero at eta = 0, the 0.8), and 3 more for layered's write-back; per
-    row, the 2-deviation search over its q(q - 1)/2 unordered candidates
-    {j, eta ^ j} (the candidate and its validity are symmetric in the two,
-    so the first j of a pair decides), 4 each (the value compare, the max,
-    the compare with the best so far and its select), and 3 per eta for
+    zero at eta = 0, the 0.8), and 3 more for layered's write-back
+    (grouped-layered TMM is the same work: the same rows, in another
+    order); per row, the 2-deviation search over its q(q - 1)/2 unordered
+    candidates {j, eta ^ j} (the candidate and its validity are symmetric
+    in the two, so the first j of a pair decides), 4 each (the value
+    compare, the max, the compare with the best so far and its select),
+    and 3 per eta for
     the I/E choice.  Per pass, 2 per VN and symbol for the decision and,
     flooding, the totals' dv adds per VN and symbol (E q in all).  Full
     EMS, per row: the (max,+) convolutions out[x] = max_u A[u] + B[u ^ x]
@@ -527,10 +549,11 @@ def nbms_bound_ms(N: int, M: int, E: int, q: int, batch: int, iters,
                                             if 0 < c < nc)
             per_update += E * q + M * (chains + excl)
     else:
-        per_update = (E * q * (11 + (3 if method == "layered_tmm" else 0))
+        layered = method in ("layered_tmm", "glayered_tmm")
+        per_update = (E * q * (11 + (3 if layered else 0))
                       + M * (4 * q * (q - 1) // 2 + 3 * q))
     ops = updates * per_update + passes * 2 * N * q
-    if method != "layered_tmm":
+    if method not in ("layered_tmm", "glayered_tmm"):
         ops += passes * E * q
     nbytes = batch * N * q * 4 + batch * N * 4 + batch * 5
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
@@ -1207,6 +1230,7 @@ def main() -> int:
                  or "spill" in ln or "Compiling entry" in ln])
 
     # ---- 3. kernel vs plain on the card
+    t_phase = time.perf_counter()
     codes = {}
 
     def code_of(name):
@@ -1388,6 +1412,8 @@ def main() -> int:
         "qspa_flooding": (cuda_qspa.decode_flooding, nb_decode.decode_qspa),
         "qspa_layered": (cuda_qspa.decode_layered,
                          nb_decode.decode_layered_qspa),
+        "qspa_glayered": (cuda_qspa.decode_glayered,
+                          nb_decode.decode_glayered_qspa),
         "qspa_qc_flooding": (cuda_qspa_qc.decode_flooding,
                              nb_decode.decode_qspa),
         "qspa_qc_layered": (cuda_qspa_qc.decode_layered,
@@ -1423,12 +1449,16 @@ def main() -> int:
         ("qspa", "BDS.576.288.GF.64", 7.0, 64, 4096, 20, True),
         ("qspa_qc", "Tanner_74_9_Z128_GF16", 3.3, 2, 256, 20, True),
     ]
+    # the grouped-layered K5 last, so that the cases above keep their seeds
     nb_cases = ([(f"qspa_{s}", "zero", *c) for s in ("flooding", "layered")
                  for c in k5_cases]
                 + [(f"qspa_qc_{s}", "zero", *c)
                    for s in ("flooding", "layered") for c in k6_cases]
                 + [(f"{k}_{s}", "random", *c) for k, *c in nb_random
-                   for s in ("flooding", "layered")])
+                   for s in ("flooding", "layered")]
+                + [("qspa_glayered", "zero", *c) for c in k5_cases]
+                + [("qspa_glayered", "random", *c) for k, *c in nb_random
+                   if k == "qspa"])
     for i, (key, tx, name, ebn0, n_qam, B, iters,
             early) in enumerate(nb_cases):
         code = nb_code(name)
@@ -1436,19 +1466,18 @@ def main() -> int:
         kernel, plain = nb_pairs[key]
         a = kernel(L, code, iters, early_stop=early)
         b = plain(L, code, iters, early_stop=early)
-        # K6: the staged kernel against the global design too; K5: against
-        # the serial design and, where the rule picks a row on one warp, the
-        # row groups; every output of every frame
+        # K6: the staged kernel against the global design too; K5, where
+        # the rule picks a row on one warp: against a warp an edge; every
+        # output of every frame
         if key.startswith("qspa_qc"):
             others = {"global": getattr(
                 cuda_qspa_qc, f"decode_{key[len('qspa_qc_'):]}_global")(
                     L, code, iters, early_stop=early)}
         else:
             layout = cuda_qspa.row_layout(cuda_qspa.make_plan(code))
-            others = {d: cuda_qspa.decode_design(
-                L, code, iters, key.endswith("layered"), d, early_stop=early)
-                for d in ("serial", "groups")
-                if d == "serial" or layout == "warp"}
+            others = ({"groups": cuda_qspa.decode_design(
+                L, code, iters, key[len("qspa_"):], "groups",
+                early_stop=early)} if layout == "warp" else {})
         torch.cuda.synchronize()
         hard_diff = a.hard != b.hard
         counts = {"hard": int(hard_diff.sum()),
@@ -1482,6 +1511,42 @@ def main() -> int:
         del a, b, others, L, sent, hard_diff
     torch.cuda.empty_cache()
 
+    # K6's block-row schedule on Tanner_74_9_Z128_GF16, whose row groups
+    # are its block rows in row order, is the serial-row layered QSPA:
+    # against the plain decode_layered_qspa (1152 rows a pass, one at a
+    # time: ~3 s a pass whatever the batch), K6's rule, at a point where
+    # some frames pass within the 6 passes and some do not
+    tanner_code = nb_code("Tanner_74_9_Z128_GF16")
+    if not cuda_qspa_qc.layered_is_block_rows(tanner_code):
+        raise AssertionError("Tanner's row groups are not its block rows")
+    key = "qspa_qc_layered"
+    for i, (ebn0, B, iters, early) in enumerate([(3.5, 256, 6, True)]):
+        L, _ = nb_chan(tanner_code, ebn0, B, seed=390 + i)
+        a = cuda_qspa_qc.decode_layered(L, tanner_code, iters,
+                                        early_stop=early)
+        b = nb_decode.decode_layered_qspa(L, tanner_code, iters,
+                                          early_stop=early)
+        torch.cuda.synchronize()
+        hard_diff = a.hard != b.hard
+        counts = {"hard": int(hard_diff.sum()),
+                  "hard_in_ok_frames": int(hard_diff[b.ok].sum()),
+                  "ok": int((a.ok != b.ok).sum()),
+                  "iters": int((a.iters != b.iters).sum())}
+        err = max(int((a.hard - b.hard).abs().max()), counts["ok"] > 0,
+                  int((a.iters - b.iters).abs().max()))
+        max_err[key] = max(max_err[key], float(err))
+        mismatches[key] += sum(v for k, v in counts.items() if k != "hard")
+        _emit("parity", kernel=key, plain="decode_layered_qspa", tx="zero",
+              code=tanner_code.name, ebn0=ebn0, batch=B, iters=iters,
+              early_stop=early, frames_ok=int(b.ok.sum()),
+              avg_iters=float(b.iters.float().mean()), mismatches=counts,
+              max_abs_err=err)
+        if counts["hard_in_ok_frames"] or counts["ok"] or counts["iters"]:
+            raise AssertionError(f"K6 != the plain serial-row layered QSPA "
+                                 f"on Tanner at {ebn0} dB, B={B}: {counts}")
+        del a, b, L, hard_diff
+    torch.cuda.empty_cache()
+
     # K8 against the plain nb_decode: every output exactly equal
     k8_pairs = {
         "nbms_ems": (cuda_nbms.decode_ems, nb_decode.decode_ems),
@@ -1490,35 +1555,44 @@ def main() -> int:
                              nb_decode.decode_layered_tmm),
         "nbms_ems_full": (cuda_nbms.decode_ems_full,
                           functools.partial(nb_decode.decode_ems, full=True)),
+        "nbms_glayered_tmm": (
+            cuda_nbms.decode_glayered_tmm,
+            lambda L, code, iters: nb_decode.decode(L, code, "glayered_tmm",
+                                                    iters)),
     }
     k8_cases = [
-        # code, Eb/N0, batch, iterations, and whether the plain layered TMM
-        # (about 0.6 s a pass whatever the batch) joins the case
-        ("BDS.576.288.GF.64", 3.0, 4096, 20, True),   # most frames converge
-        ("BDS.576.288.GF.64", 0.5, 1024, 20, True),   # few do
-        ("BDS.576.288.GF.64", 1.0, 4096, 1, True),
-        ("BDS.576.288.GF.64", 2.0, 37, 20, True),
-        ("BDS.576.288.GF.64", 2.0, 64, 0, True),
-        ("BDS.576.288.GF.64", 0.0, 512, 20, False),
-        ("BDS.576.288.GF.64", 2.0, 512, 20, False),
-        ("BDS.576.288.GF.64", 4.0, 512, 20, False),
-        ("LDPC_N576_K288_GF64_d1_exp", 3.0, 4096, 20, True),
-        ("LDPC_N576_K288_GF64_d1_exp", 1.0, 512, 20, True),
+        # code, Eb/N0, batch, iterations, and the passes of the case that
+        # the plain layered TMM (about 0.6 s a pass whatever the batch)
+        # runs, None where it does not join: one case a code at 8 passes,
+        # but BDS's ragged batch at 20, where frames converge late, and
+        # the batches of 0 and 1 pass
+        ("BDS.576.288.GF.64", 3.0, 4096, 20, None),   # most frames converge
+        ("BDS.576.288.GF.64", 0.5, 1024, 20, None),   # few do
+        ("BDS.576.288.GF.64", 1.0, 4096, 1, 1),
+        ("BDS.576.288.GF.64", 2.0, 37, 20, 20),
+        ("BDS.576.288.GF.64", 2.0, 64, 0, 0),
+        ("BDS.576.288.GF.64", 0.0, 512, 20, None),
+        ("BDS.576.288.GF.64", 2.0, 512, 20, None),
+        ("BDS.576.288.GF.64", 4.0, 512, 20, None),
+        ("LDPC_N576_K288_GF64_d1_exp", 3.0, 4096, 20, 8),
+        ("LDPC_N576_K288_GF64_d1_exp", 1.0, 512, 20, None),
         # GF(256): the plain TMM's search over q^2 candidates a row is slow
-        ("LDPC_N96_K48_GF256_d1_exp", 2.0, 64, 20, True),
-        ("LDPC_N576_K480_GF256_exp", 3.0, 16, 20, True),
+        ("LDPC_N96_K48_GF256_d1_exp", 2.0, 64, 20, 8),
+        ("LDPC_N576_K480_GF256_exp", 3.0, 16, 20, 8),
     ]
     k8_random = [   # random codewords, last (the cases above keep seeds)
-        ("BDS.576.288.GF.64", 3.0, 4096, 20, False),
-        ("BDS.576.288.GF.64", 2.5, 1024, 10, True),
+        ("BDS.576.288.GF.64", 3.0, 4096, 20, None),
+        ("BDS.576.288.GF.64", 2.5, 1024, 10, 8),
     ]
     k8_all = ([(*c, "zero") for c in k8_cases]
               + [(*c, "random") for c in k8_random])
     for key in k8_pairs:
-        for i, (name, ebn0, B, iters, layered_plain,
+        for i, (name, ebn0, B, iters, layered_iters,
                 tx) in enumerate(k8_all):
-            if key == "nbms_layered_tmm" and not layered_plain:
-                continue
+            if key == "nbms_layered_tmm":
+                if layered_iters is None:
+                    continue
+                iters = layered_iters
             code = nb_code(name)
             if key == "nbms_ems_full":
                 # the plain full EMS holds [B, M, q, q] a convolution
@@ -1681,25 +1755,19 @@ def main() -> int:
         chans = [nb_chan(code, ebn0, B, seed=700 + 5 * i + j, tx=tx)[0]
                  for j in range(3)]
         E = int(code.cn_mask.sum())
-        for layered in (False, True):
+        for layered in (False, True, "glayered"):
             kw = dict(code=code, max_iters=20, layered=layered)
-            label = (f"{name} {ebn0} {'layered' if layered else 'flooding'}"
+            label = (f"{name} {ebn0} {qspa_stream.schedule(layered)}"
                      + (" random codewords" if tx == "random" else ""))
             total = stream_parity(
-                "qspa_stream",
+                "qspa_stream_glayered" if layered == "glayered"
+                else "qspa_stream",
                 functools.partial(cuda_qspa_stream.stream_step, **kw),
                 functools.partial(qspa_stream.stream_step, **kw),
-                chans, (E, code.q), 20, label,
-                other_step=functools.partial(
-                    cuda_qspa_stream.stream_step_serial, **kw))
-            # as for K5: t, done and okf exactly, hard on passing slots; the
-            # row groups against the serial design: every tensor bit for bit
-            if (total["t"] or total["done"] or total["okf"]
-                    or total["hard_in_ok_slots"]
-                    or any(v for k, v in total.items()
-                           if k.startswith("other_"))):
-                raise AssertionError(f"K7 != plain or the serial design on "
-                                     f"{label}: {total}")
+                chans, (E, code.q), 20, label)
+            # as K5: every output and state tensor bit for bit
+            if any(total.values()):
+                raise AssertionError(f"K7 != plain on {label}: {total}")
         del chans
     torch.cuda.empty_cache()
 
@@ -1708,7 +1776,11 @@ def main() -> int:
     stream_engine_parity(dev, max_err, mismatches)
     encode_parity(dev)
 
+    _emit("phase_seconds", name="parity",
+          seconds=time.perf_counter() - t_phase)
+
     # ---- 4. the main path, through the CLI
+    t_phase = time.perf_counter()
     keep = ("snr", "frames", "error_frames", "error_units", "fer", "ber",
             "avg_iters", "false_frames", "alarm_frames", "info_mbps")
     launches = {}
@@ -1717,29 +1789,30 @@ def main() -> int:
         """One sweep with every launch count at 0 before it; the counts
         are read after it, and the named kernel (and each count named in
         ``also``) must have launched, and none named in ``never``; with
-        ``no_plain``, the plain GF(q) decode (nb_decode.decode) must not
-        have run."""
+        ``no_plain``, no plain GF(q) decoder core (nb_decode.build_core,
+        which the plain decode, the plain stream step and the plain stream
+        engine build) may have been built."""
         for w in wrappers:
             for k in w.LAUNCHES:
                 w.LAUNCHES[k] = 0
         plain_calls = []
-        plain = nb_decode.decode
+        plain = nb_decode.build_core
         if no_plain:
-            nb_decode.decode = lambda *a, **kw: (plain_calls.append(1),
-                                                 plain(*a, **kw))[1]
+            nb_decode.build_core = lambda *a, **kw: (plain_calls.append(1),
+                                                     plain(*a, **kw))[1]
         t0 = time.perf_counter()
         try:
             rows = _sweep(cli, os.path.join(tmp, label), argv)
         finally:
-            nb_decode.decode = plain
+            nb_decode.build_core = plain
         seconds = time.perf_counter() - t0
         counts = {k: v for w in wrappers for k, v in w.LAUNCHES.items()}
         if no_plain:
-            counts["plain_nb_decode"] = len(plain_calls)
+            counts["plain_nb_core"] = len(plain_calls)
             if plain_calls:
                 raise AssertionError(f"the {label} sweep ran the plain "
                                      f"decoder {len(plain_calls)} times")
-        for k in (kernel, *also):
+        for k in (*([kernel] if kernel else []), *also):
             if counts[k] <= 0:
                 raise AssertionError(f"the {label} sweep never launched the "
                                      f"{k} kernel: {counts}")
@@ -1750,7 +1823,17 @@ def main() -> int:
               rows=[{k: r[k] for k in keep} for r in rows])
         if not all(r["frames"] > 0 and 0.0 <= r["fer"] <= 1.0 for r in rows):
             raise AssertionError(f"bad {label} rows: {rows}")
-        return rows, counts[kernel]
+        return rows, counts[kernel] if kernel else 0
+
+    def same_rows(label, got, want):
+        """Two sweeps' rows, counter for counter."""
+        counters = ("snr", "frames", "error_frames", "error_units",
+                    "iter_sum")
+        a = [{k: r[k] for k in counters} for r in got]
+        b = [{k: r[k] for k in counters} for r in want]
+        _emit("same_rows", sweep=label, same=a == b, rows=a, other=b)
+        if a != b:
+            raise AssertionError(f"{label}: the rows differ")
 
     slower = []
 
@@ -1946,17 +2029,32 @@ def main() -> int:
                 raise AssertionError(f"{label}: FER rises across the "
                                      f"waterfall: {fers}")
         no_slower("tanner glayered qspa", lay, flood)
-        # the pair with no kernel is refused on the card, naming the item
-        try:
-            _sweep(cli, os.path.join(tmp, "refused"),
-                   tanner + ["--method", "layered_qspa"])
-        except ValueError as e:
-            if "ROADMAP.md Queue 1 item 13" not in str(e):
-                raise
-            _emit("refused", sweep="tanner layered_qspa", error=str(e))
-        else:
-            raise AssertionError("layered_qspa on Tanner_74_9_Z128_GF16 ran "
-                                 "under kernel auto")
+        # layered_qspa on Tanner is K6's block-row schedule (its row groups
+        # are its block rows in row order): the same launch on the same
+        # noise as glayered_qspa, so the same rows
+        serial, n = drive(tmp, "tanner_layered_qspa", "qspa_qc_layered",
+                          tanner + ["--method", "layered_qspa"],
+                          no_plain=True)
+        launches["qspa_qc_layered"] += n
+        same_rows("tanner layered_qspa vs glayered_qspa", serial, lay)
+
+        # the grouped-layered schedule on BDS (VALIDATION.md has no row for
+        # it): K8 and K5 against the same sweep under --kernel torch, the
+        # same seed, row for row; 2048 frames a point (the batch that meets
+        # the 1024-frame cap and the one in flight)
+        bds2k = (bds_k5[:bds_k5.index("--batch")]
+                 + ["--batch", "1024", "--least-error-frames", "50",
+                    "--least-test-frames", "1024", "--max-frames", "1024"])
+        for method, kernel in (("glayered_tmm", "nbms_glayered_tmm"),
+                               ("glayered_qspa", "qspa_glayered")):
+            got, launches[kernel] = drive(
+                tmp, f"bds_{method}", kernel, bds2k + ["--method", method],
+                no_plain=True)
+            want, _ = drive(tmp, f"bds_{method}_torch", None,
+                            bds2k + ["--method", method, "--kernel",
+                                     "torch"])
+            same_rows(f"bds {method} vs --kernel torch", got, want)
+            bds_batch[method] = got[:1]
 
         # ---- the stream and packed engines: K4 and K7 on the main path
         launches["minsum_stream"] = launches["qspa_stream"] = 0
@@ -2009,15 +2107,25 @@ def main() -> int:
                  "--snr-type", "ebn0", "--max-iters", "20", "--batch", "4096",
                  "--least-error-frames", "50", "--least-test-frames", "8192",
                  "--max-frames", "8192"]
+        # qspa and layered_qspa against VALIDATION.md:21-22 at 1 dB;
+        # grouped-layered (no VALIDATION.md row, and the kernel engine's
+        # per-call refill draws other noise than the plain engine's) against
+        # the batch engine's rows, which equal --kernel torch's
+        launches["qspa_stream_glayered"] = 0
         for method, ref in (("qspa", (598, 2304)),
-                            ("layered_qspa", (872, 4096))):
-            kernel = ("qspa_stream_layered" if method == "layered_qspa"
-                      else "qspa_stream_flooding")
+                            ("layered_qspa", (872, 4096)),
+                            ("glayered_qspa", None)):
+            kernel = "qspa_stream_" + {"qspa": "flooding",
+                                       "layered_qspa": "layered",
+                                       "glayered_qspa": "glayered"}[method]
             got, n = drive(tmp, f"bds_stream_{method}", kernel,
-                           bds12 + stream + ["--method", method])
-            launches["qspa_stream"] += n
-            anchor(f"bds_stream_{method}", "BDS.576.288.GF.64", 1.0, got[0],
-                   ref)
+                           bds12 + stream + ["--method", method],
+                           no_plain=True)
+            launches["qspa_stream_glayered" if method == "glayered_qspa"
+                     else "qspa_stream"] += n
+            if ref:
+                anchor(f"bds_stream_{method}", "BDS.576.288.GF.64", 1.0,
+                       got[0], ref)
             same_fer(f"bds_stream_{method}", got[:1], bds_batch[method])
             engine_rows.append((f"bds_stream_{method}", got[:1],
                                 bds_batch[method]))
@@ -2138,6 +2246,16 @@ def main() -> int:
             raise AssertionError("ems_full ran on Tanner_74_9_Z128_GF16 "
                                  "under kernel auto")
         try:
+            _sweep(cli, os.path.join(tmp, "refused_tanner_glayered_tmm"),
+                   tanner + ["--method", "glayered_tmm"])
+        except ValueError as e:
+            if "ROADMAP.md Queue 1 item 19" not in str(e):
+                raise
+            _emit("refused", sweep="tanner glayered_tmm", error=str(e))
+        else:
+            raise AssertionError("glayered_tmm ran on Tanner_74_9_Z128_GF16 "
+                                 "under kernel auto")
+        try:
             _sweep(cli, os.path.join(tmp, "refused_tanner_ems_nm4"),
                    tanner + ["--method", "ems", "--nm", "4"])
         except ValueError as e:
@@ -2232,7 +2350,10 @@ def main() -> int:
                      for a, b in zip(got, batch_rows)])
             for label, got, batch_rows in engine_rows])
 
+    _emit("phase_seconds", name="main", seconds=time.perf_counter() - t_phase)
+
     # ---- 5. timing: 10 fixed iterations, one batch in flight
+    t_phase = time.perf_counter()
     B, iters = 4096, 10
     timing = {}
     # the binary kernels on J15_L30_Z1280, each beside its bfloat16 form
@@ -2301,6 +2422,7 @@ def main() -> int:
         # kernel, code, Eb/N0, batch, plain reps
         ("qspa_flooding", "BDS.576.288.GF.64", 0.0, 4096, 3),
         ("qspa_layered", "BDS.576.288.GF.64", 0.0, 4096, 3),
+        ("qspa_glayered", "BDS.576.288.GF.64", 0.0, 4096, 3),
         ("qspa_qc_flooding", "Tanner_74_9_Z128_GF16", 3.0, 256, 3),
         ("qspa_qc_layered", "Tanner_74_9_Z128_GF16", 3.0, 256, 3),
     ]
@@ -2317,22 +2439,27 @@ def main() -> int:
             reps["global"] = 20
             order = ("plain", "kernel", "global", "global", "kernel", "plain")
         else:
-            # K5: against its serial design and, where the rule puts a row
-            # on one warp, its row groups, in turns
+            # K5: where the rule puts a row on one warp, against a warp an
+            # edge; grouped-layered also against the serial-row layered
+            # kernel; in turns
             lay, plan = name.endswith("layered"), cuda_qspa.make_plan(code)
-            yards = ["serial"]
+            schedule = name[len("qspa_"):]
+            yards = []
             if cuda_qspa.row_layout(plan) == "warp":
-                yards.insert(0, "groups")
-            for d in yards:
-                decoders[d] = functools.partial(cuda_qspa.decode_design,
-                                                layered=lay, design=d)
-                reps[d] = 20
+                yards.append("groups")
+                decoders["groups"] = functools.partial(
+                    cuda_qspa.decode_design, schedule=schedule,
+                    design="groups")
+            if schedule == "glayered":
+                yards.append("layered")
+                decoders["layered"] = cuda_qspa.decode_layered
+            reps.update({d: 20 for d in yards})
             order = ("plain", "kernel", *yards, *yards[::-1], "kernel",
                      "plain")
             shapes = {d: {"shape": cuda_qspa.launch_shape(plan, lay, d),
                           "blocks_per_sm": cuda_qspa.blocks_per_sm(
                               plan, lay, d, dev)}
-                      for d in ("warp", "groups", "serial")
+                      for d in ("warp", "groups")
                       if d != "warp" or "groups" in yards}
 
         def launch(which, i):
@@ -2456,14 +2583,12 @@ def main() -> int:
     # K7: BDS.576.288.GF.64, B=4096, at most 10 passes from fresh slots at
     # 0 dB (max_iters 9: 10 decides and 9 updates for a slot that never
     # passes, as K5's 10 iterations), each call resetting its state; the
-    # row groups, the serial design and the plain version in turns
+    # kernel and the plain version in turns, each schedule
     code = nb_code("BDS.576.288.GF.64")
     E = int(code.cn_mask.sum())
     chan0 = nb_chan(code, 0.0, B, seed=37)[0]
-    turns = ("plain", "serial", "kernel", "kernel", "serial", "plain")
-    for layered in (False, True):
+    for layered in (False, True, "glayered"):
         steps = {"kernel": cuda_qspa_stream.stream_step,
-                 "serial": cuda_qspa_stream.stream_step_serial,
                  "plain": qspa_stream.stream_step}
         states = {w: [chan0.clone(), torch.zeros((B, E, code.q), device=dev),
                       zeros(), zeros(), zeros()] for w in steps}
@@ -2475,22 +2600,23 @@ def main() -> int:
                 x.zero_()
             return steps[which](*st, code, 10, 9, layered=layered)
 
-        runs = time_turns(launch, {"kernel": 20, "serial": 20, "plain": 3},
-                          order=turns)
+        runs = time_turns(launch, {"kernel": 20, "plain": 3})
         ms = {w: statistics.median(v) for w, v in runs.items()}
         launch("kernel", 0)
         st = states["kernel"]
         updates, finished = int(st[2].sum()), int(st[3].sum())
         bound, bound_by = qspa_stream_bound_ms(code.n_sym, E, code.q, B,
                                                updates + finished, updates,
-                                               layered)
-        if not layered:
-            timing["qspa_stream"] = (ms, bound, bound_by)
-        _emit("timing", kernel="qspa_stream" + (" layered" if layered
-                                                 else ""),
+                                               bool(layered))
+        schedule = qspa_stream.schedule(layered)
+        if schedule != "layered":
+            timing["qspa_stream" + ("_glayered" if layered else "")] = (
+                ms, bound, bound_by)
+        _emit("timing", kernel="qspa_stream" + ("" if schedule == "flooding"
+                                                 else f" {schedule}"),
               code=code.name, batch=B, ebn0=0.0, max_passes=10, card=card,
               groups=cuda_qspa_stream.groups(cuda_qspa.make_plan(code),
-                                            layered),
+                                            bool(layered)),
               ms_per_call=runs, slot_passes=updates + finished,
               slot_updates=updates,
               info_mbps={w: B * code.k_sym * code.q_bit / (v / 1e3) / 1e6
@@ -2508,13 +2634,20 @@ def main() -> int:
     plan = cuda_nbms.make_plan(code)
     for key, (kernel, plain) in k8_pairs.items():
         decoders = {"kernel": kernel, "plain": plain}
+        reps = {"plain": 1 if key in ("nbms_layered_tmm", "nbms_ems_full")
+                else 3, "kernel": 20}
+        order = ("plain", "kernel", "kernel", "plain")
+        if key == "nbms_glayered_tmm":
+            # against the serial-row layered TMM kernel, in turns
+            decoders["layered"] = cuda_nbms.decode_layered_tmm
+            reps["layered"] = 20
+            order = ("plain", "kernel", "layered", "layered", "kernel",
+                     "plain")
 
         def launch(which, i):
             return decoders[which](chans[i % 2], code, iters)
 
-        runs = time_turns(launch, {
-            "plain": 1 if key in ("nbms_layered_tmm", "nbms_ems_full") else 3,
-            "kernel": 20})
+        runs = time_turns(launch, reps, order=order)
         ms = {k: statistics.median(v) for k, v in runs.items()}
         res = launch("kernel", 0)
         bound, bound_by = nbms_bound_ms(code.n_sym, code.m_sym, plan.E,
@@ -2570,13 +2703,23 @@ def main() -> int:
     del chans
     encode_timing(dev, card)
 
+    _emit("phase_seconds", name="timing",
+          seconds=time.perf_counter() - t_phase)
+
     # ---- 6. the measuring path and the probes
+    t_phase = time.perf_counter()
     measuring_path(card, wrappers)
+    _emit("phase_seconds", name="measuring_path",
+          seconds=time.perf_counter() - t_phase)
+    t_phase = time.perf_counter()
     for key, got in probes(card, lib_path).items():
         launches[key] = got["launches"]
         max_err[key] = got["max_abs_err"]
         mismatches[key] = got["mismatches"]
         timing[key] = got["timing"]
+
+    _emit("phase_seconds", name="probes",
+          seconds=time.perf_counter() - t_phase)
 
     # ---- the kernels, the card, and the result
     if slower:

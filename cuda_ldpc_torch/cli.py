@@ -146,9 +146,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "reference's decoder_method 2; no Nm/Nc), tmm, "
                         "layered_tmm, glayered_tmm (max domain) or qspa, "
                         "layered_qspa, glayered_qspa (exact sum-product); "
-                        "on a card, ems (any --nm/--nc), ems_full, tmm "
-                        "and layered_tmm run the kernel csrc/nbms.cu on "
-                        "the adjacency codes")
+                        "on a card, the QSPA methods run csrc/qspa.cu "
+                        "(batch) and csrc/qspa_stream.cu (--engine "
+                        "stream) on the adjacency codes and csrc/qspa_qc.cu "
+                        "on Tanner_74_9_Z128_GF16 (batch only); ems (any "
+                        "--nm/--nc), ems_full, tmm, layered_tmm and "
+                        "glayered_tmm run csrc/nbms.cu on the adjacency "
+                        "codes (batch only)")
     n.add_argument("--nm", type=int, default=nd.decoder.nm,
                    help="EMS: slots per edge in the configuration sets "
                         "(EMS_NM; Nm - 1 <= q); the card's kernel runs "

@@ -1,24 +1,25 @@
 // GF(q) max-domain decoders for codes given by their adjacency: flooding
 // EMS (Nm = 2, Nc = 2, /1.2), flooding EMS at any other (Nm, Nc), flooding
 // full EMS (every configuration, /1.2), flooding TMM (x0.8, accumulating
-// totals) and row-layered TMM, CUDA C++ for sm_90a.
+// totals), row-layered TMM and grouped-layered TMM, CUDA C++ for sm_90a.
 //
 // Replaces the TPU kernel cuda_ldpc_tpu/ops/pallas_nbms.py `_kernel`
 // (:376), which compiles EMS 2/2, TMM and layered TMM; full EMS (the
-// reference's decoder_method 2) and EMS at other (Nm, Nc) have no TPU
-// kernel: the JAX package runs them in jnp (cuda_ldpc_tpu/ops/nb_decode.py
-// :371 `_ems_full_cn_core`, :223 `_ems_cn_core`).  It computes what
+// reference's decoder_method 2), EMS at other (Nm, Nc) and grouped-layered
+// TMM have no TPU kernel: the JAX package runs them in jnp
+// (cuda_ldpc_tpu/ops/nb_decode.py :371 `_ems_full_cn_core`, :223
+// `_ems_cn_core`, :603 the grouped-layered step).  It computes what
 // ops/nb_decode.py's plain `decode` computes for 'ems' (any nm, nc the
-// plain version takes), 'ems_full', 'tmm' and 'layered_tmm', operation for
-// operation (the order is fixed there): per pass, the totals (EMS, full
-// EMS: L + the c2v summed over the VN's edges in slot order; TMM: the
-// state plus that sum; layered: the state as it stands), the decisions
-// (argmax for EMS, argmin for TMM, the smallest symbol on ties), the true
-// GF syndrome, then, if the frame goes on, every check row.  A frame whose
-// syndrome passes at the entry of pass t reports t iterations; one that
-// never passes reports num_iters with the decisions of the last pass.  TMM
-// takes its channel already in the min domain (the wrapper applies
-// nb_decode.to_min_domain).
+// plain version takes), 'ems_full', 'tmm', 'layered_tmm' and
+// 'glayered_tmm', operation for operation (the order is fixed there): per
+// pass, the totals (EMS, full EMS: L + the c2v summed over the VN's edges
+// in slot order; TMM: the state plus that sum; layered: the state as it
+// stands), the decisions (argmax for EMS, argmin for TMM, the smallest
+// symbol on ties), the true GF syndrome, then, if the frame goes on, every
+// check row.  A frame whose syndrome passes at the entry of pass t reports
+// t iterations; one that never passes reports num_iters with the decisions
+// of the last pass.  TMM takes its channel already in the min domain (the
+// wrapper applies nb_decode.to_min_domain).
 //
 // Design for the card, not a copy of the TPU tiles.  The TPU kernel runs
 // each GF permutation and each per-frame XOR shift as [q, q] one-hot
@@ -64,12 +65,16 @@
 // before the rows); layered TMM runs its dependency levels, the rows of a
 // level over the groups and a block barrier between levels, so that every
 // pair of rows that share a VN keeps its serial order and the result is
-// the serial schedule's bit for bit.  Measured on BDS.576.288.GF.64
+// the serial schedule's bit for bit; grouped-layered TMM is the same
+// layered mode on the greedy row groups of nb_decode.row_groups (4 waves
+// on BDS against 8 levels), whose rows share no VN, so the result is the
+// plain grouped-layered step's bit for bit.  Measured on BDS.576.288.GF.64
 // (NVIDIA H100, PERF.md), against one group running one row at a time:
 // the row groups take EMS from 8.1 to 6.1 ms, TMM only from 11.0 to 10.7
 // (its search keeps the SM's issue slots busy, whatever the rows in
 // flight), and ran layered TMM slower, so the wrapper runs layered TMM on
-// one group, in level order.
+// one group, in level order, and grouped-layered TMM too (9.80 ms on
+// one group against 10.32 on 2 and 10.31 on 4).
 // The totals T [N, q] live in shared memory, the c2v messages C [E, q] in
 // the caller's device buffer [B, E, q]: with C beside T in shared memory a
 // BDS.576.288.GF.64 block took 79 KB in the serial design, which left room
@@ -1024,9 +1029,10 @@ extern "C" {
 // 32 edges per row) for at most `num_iters` >= 1 passes on `stream` of CUDA
 // device `device`, with `method` 0 = EMS (nm = nc = 2), 3 = full EMS, 4 =
 // EMS at (nm, nc) (positive-domain LLRs), 1 = TMM, 2 = layered TMM
-// (min-domain LLRs), on `groups` row groups (1 to 7; one group at most 1024
-// threads, more at most 512) walking the rows of the wave plan wave_ptr
-// [nwaves + 1], wave_row [M] (ops/cuda_qspa.row_waves), with `grid` blocks
+// (min-domain LLRs; serial-row or grouped, by the wave plan), on `groups`
+// row groups (1 to 7; one group at most 1024 threads, more at most 512)
+// walking the rows of the wave plan wave_ptr [nwaves + 1], wave_row [M]
+// (ops/cuda_qspa.row_waves), with `grid` blocks
 // (1 to B), block i decoding frames i, i + grid, ....  C [B, E, q] is the
 // caller's scratch; hard [B, N], ok [B] and iters [B] the outputs; method
 // 4 takes nc >= 1 and, where its rows take the top nm - 1 offsets of an

@@ -1,12 +1,15 @@
 // GF(q) FFT-QSPA decoder for codes given by their adjacency (the GF(64) and
-// GF(256) files), flooding and serial-row layered, CUDA C++ for sm_90a.
+// GF(256) files), flooding, serial-row layered and grouped-layered, CUDA
+// C++ for sm_90a.
 //
-// Replaces the TPU kernel cuda_ldpc_tpu/ops/pallas_qspa.py `_kernel` (:302).
-// It computes what ops/nb_decode.py's plain `decode_qspa` and
-// `decode_layered_qspa` compute, operation for operation (the order is
-// fixed there): per pass, decide (argmax of the totals, the smallest symbol
-// on ties), check the true GF syndrome, stop the frame if it passes, else
-// update every check row.  A frame whose syndrome passes at the entry of
+// Replaces the TPU kernel cuda_ldpc_tpu/ops/pallas_qspa.py `_kernel` (:302)
+// (grouped-layered has no TPU kernel: the JAX package runs it in jnp,
+// cuda_ldpc_tpu/ops/nb_decode.py:603).  It computes what ops/nb_decode.py's
+// plain `decode_qspa`, `decode_layered_qspa` and `decode_glayered_qspa`
+// compute, operation for operation (the order is fixed there): per pass,
+// decide (argmax of the totals, the smallest symbol on ties), check the
+// true GF syndrome, stop the frame if it passes, else update every check
+// row.  A frame whose syndrome passes at the entry of
 // pass t reports t iterations; a frame that never passes reports num_iters,
 // with the decisions of the last pass.
 //
@@ -34,7 +37,10 @@
 // built before the rows and no row reads what another writes), layered the
 // dependency levels (the rows of a level touch disjoint VNs, so T + (new -
 // old) needs no atomics, and every pair of rows that share a VN keeps its
-// serial order), so the result is the serial schedule's bit for bit.  A
+// serial order), so the result is the serial schedule's bit for bit;
+// grouped-layered is the layered kernel on the greedy row groups of
+// nb_decode.row_groups, whose rows share no VN, so each group is a wave
+// and the result is the plain grouped-layered step's bit for bit.  A
 // block barrier closes each wave.  The host picks one of two layouts of a
 // row (ops/cuda_qspa.row_layout):
 //   * a row on one warp (`qspa_warp_kernel`) where dc' q <= 256, dc' the
@@ -53,15 +59,11 @@
 //     waited on it (45% of the cycles).  Layered, with no totals phase,
 //     keeps C in device memory and 8 frames an SM.  The other two pairings
 //     lost (PERF.md) and are not built.  See the launch bounds below.
-//   * a warp an edge on row groups (`qspa_kernel`, K7's cn_row and
-//     walk_waves), elsewhere (the GF(256) codes, on one group: G > 1
-//     spills there): G groups of max_dc warps a block, each with its own
-//     spectra scratch and named barrier (G from cuda_qspa.groups).  On BDS
-//     the row groups (4 flooding, 2 layered) are the yardstick the row on
-//     one warp beat, kept for chip_smoke.py's turns.
-// The serial design (one group, a wave a row: the first port's schedule)
-// is `qspa_kernel` under the serial plan, kept as the yardstick
-// (cuda_qspa.decode_flooding_serial / decode_layered_serial).
+//   * a warp an edge on one row group (`qspa_kernel`, K7's cn_row and
+//     walk_waves), elsewhere (the GF(256) codes): max_dc warps a block,
+//     one row at a time.  More groups a block spilled there and ran slower
+//     (PERF.md), so only the one-group kernel is built.  On BDS it is the
+//     yardstick of the row on one warp in chip_smoke.py's parity and turns.
 //
 // Bound: on BDS.576.288.GF.64 at B=4096 the function's fp32 operations
 // (about 40 per edge, symbol and pass, an expf and a logf among them, 2
@@ -150,11 +152,10 @@ static __device__ __forceinline__ void run_frame(
   }
 }
 
-// ---- A warp an edge, on row groups (and the serial design).
+// ---- A warp an edge, on one row group.
 
-template <int R, bool kLayered, int kGroups>
-static __global__ void __launch_bounds__(
-    kGroups == 1 ? 1024 : kGroupedThreads, kGroups == 1 ? 1 : kGroupedBlocks)
+template <int R, bool kLayered>
+static __global__ void __launch_bounds__(1024, 1)
     qspa_kernel(const float* __restrict__ chan, float* __restrict__ C,
                 int* __restrict__ hard, unsigned char* __restrict__ ok,
                 int* __restrict__ iters, const int* __restrict__ row_ptr,
@@ -169,7 +170,7 @@ static __global__ void __launch_bounds__(
                 int N, int M, int E, int max_dc, int num_iters) {
   constexpr int Q = 32 * R;
   extern __shared__ float smem[];
-  const RowGroup<kGroups> grp = row_group<kGroups>(groups);
+  const RowGroup<1> grp = row_group<1>(groups);
   float* T = smem;
   float* S = T + N * Q + (grp.id ? grp.id - 1 : 0) * max_dc * Q;
   int* lg = reinterpret_cast<int*>(T + N * Q + groups * max_dc * Q);
@@ -181,9 +182,9 @@ static __global__ void __launch_bounds__(
       chan, Cb, hard, ok, iters, row_ptr, edge_vn, edge_h, col_ptr, col_edge,
       gf_log, gf_exp, T, lg, ex, hs, N, M, E, num_iters, pc, [&] {
         walk_waves(groups, wave_ptr, wave_row, nwaves, pc, [&](int m) {
-          cn_row<R, kLayered, kGroups>(grp, pc, T, S, Cb, lg, ex, row_ptr[m],
-                                       row_ptr[m + 1] - row_ptr[m], edge_vn,
-                                       edge_h);
+          cn_row<R, kLayered, 1>(grp, pc, T, S, Cb, lg, ex, row_ptr[m],
+                                 row_ptr[m + 1] - row_ptr[m], edge_vn,
+                                 edge_h);
         });
       });
 }
@@ -314,36 +315,29 @@ using Kernel = void (*)(const float*, float*, int*, unsigned char*, int*,
                         const int*, const int*, const int*, const int*,
                         const int*, int, int, int, int, int, int, int);
 
-// A warp an edge: the serial instantiation (no named barrier) for one
-// group, else kMaxGroups'.
+// A warp an edge on one row group (no named barrier).
 template <int R>
-static Kernel groups_kernel(bool layered, int groups) {
-  const bool one = groups == 1;
-  return layered ? (one ? qspa_kernel<R, true, 1>
-                        : qspa_kernel<R, true, kMaxGroups>)
-                 : (one ? qspa_kernel<R, false, 1>
-                        : qspa_kernel<R, false, kMaxGroups>);
+static Kernel groups_kernel(bool layered) {
+  return layered ? qspa_kernel<R, true> : qspa_kernel<R, false>;
 }
 
-// The kernel of a layout (0: a warp an edge on `width` row groups; 1: a row
-// a warp, `width` warps a block) for q, dc' (max_dc rounded up to a power
-// of two) and the schedule, its threads a block and its shared memory; null
-// when it does not take them.
+// The kernel of a layout (0: a warp an edge on one row group, `width` 1;
+// 1: a row a warp, `width` warps a block) for q, dc' (max_dc rounded up to
+// a power of two) and the schedule, its threads a block and its shared
+// memory; null when it does not take them.
 static Kernel kernel_for(int layout, int width, int q, int N, int E,
                          int max_dc, bool layered, int* threads,
                          size_t* smem) {
   if (max_dc < 1 || max_dc > 32 || width < 1) return nullptr;
   if (layout == 0) {
-    if (width > kMaxGroups ||
-        32 * max_dc * width > (width == 1 ? 1024 : kGroupedThreads))
-      return nullptr;
-    *threads = 32 * max_dc * width;
-    *smem = smem_bytes(N, q, max_dc, width);
+    if (width != 1) return nullptr;
+    *threads = 32 * max_dc;
+    *smem = smem_bytes(N, q, max_dc, 1);
     switch (q) {
-      case 32: return groups_kernel<1>(layered, width);
-      case 64: return groups_kernel<2>(layered, width);
-      case 128: return groups_kernel<4>(layered, width);
-      case 256: return groups_kernel<8>(layered, width);
+      case 32: return groups_kernel<1>(layered);
+      case 64: return groups_kernel<2>(layered);
+      case 128: return groups_kernel<4>(layered);
+      case 256: return groups_kernel<8>(layered);
       default: return nullptr;
     }
   }
@@ -361,10 +355,10 @@ extern "C" {
 
 // Decodes the batch chan [B, N, q] (q in 32, 64, 128, 256; 1 <= max_dc <=
 // 32 edges per row) for at most `num_iters` >= 1 passes on `stream` of CUDA
-// device `device`: flooding, or serial-row layered when `layered`, walking
-// the wave plan wave_ptr [nwaves + 1], wave_row [M] (ops/cuda_qspa
-// .row_waves).  `layout` 0: a warp an edge on `width` row groups (1 to 7;
-// one group at most 1024 threads, more at most 512); 1: a row on one warp,
+// device `device`: flooding, or layered when `layered` (serial-row or
+// grouped, by the plan), walking the wave plan wave_ptr [nwaves + 1],
+// wave_row [M] (ops/cuda_qspa.row_waves).  `layout` 0: a warp an edge on
+// one row group (`width` 1); 1: a row on one warp,
 // `width` >= 2 warps a block (q = 64, 3 or 4 edges a row; flooding keeps
 // each frame's C in shared memory).  C [B, E, q] is the caller's scratch
 // (flooding's layout 1 leaves it untouched); hard [B, N], ok [B] and iters

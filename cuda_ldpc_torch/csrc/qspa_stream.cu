@@ -1,9 +1,10 @@
 // Stateful step of the GF(q) continuous-batching (stream) engine on the
-// adjacency codes, FFT-QSPA flooding or serial-row layered, CUDA C++ for
-// sm_90a.
+// adjacency codes, FFT-QSPA flooding, serial-row layered or grouped-layered,
+// CUDA C++ for sm_90a.
 //
 // Replaces the TPU kernel cuda_ldpc_tpu/ops/pallas_qspa_stream.py
-// `_stream_kernel` (:136).  It computes what ops/qspa_stream.py's plain
+// `_stream_kernel` (:136); grouped-layered has no TPU kernel (the JAX
+// package runs it in jnp).  It computes what ops/qspa_stream.py's plain
 // `stream_step` computes, operation for operation: up to k passes over
 // persistent per-slot state, each pass
 //   decide   flooding: totals L + (c2v summed in slot order); layered: the
@@ -32,9 +33,9 @@
 // before the rows and no row reads what another writes), layered by
 // dependency level (the rows of a level touch disjoint VNs, and every pair
 // of rows that share a VN keeps its serial order), so the result is the
-// serial schedule's bit for bit.  The serial design (one group, a wave a
-// row: K5's schedule) is the same kernel under the serial plan
-// (cuda_qspa_stream.stream_step_serial), kept as the yardstick.  C stays
+// serial schedule's bit for bit; grouped-layered is the layered kernel on
+// the greedy row groups of nb_decode.row_groups, each a wave of rows that
+// share no VN, so the result is the plain grouped-layered step's.  C stays
 // in device memory: in shared memory for the call (49 KB a slot on
 // BDS.576.288.GF.64) a block left 2-3 blocks an SM and the step ran slower
 // at 1, 2 and 4 groups (PERF.md).  A
@@ -132,7 +133,7 @@ static __global__ void __launch_bounds__(
   ROWS_PHASE_FLUSH(pc, g_qspa_stream_clk[kLayered])
 }
 
-// The kernel for R, the schedule and the number of groups: the serial
+// The kernel for R, the schedule and the number of groups: the one-group
 // instantiation (no named barrier) for one group, else kMaxGroups'.
 template <int R>
 static auto kernel_for(bool layered, int groups) {
@@ -183,10 +184,11 @@ extern "C" {
 
 // Runs up to `k` passes of the stream step on the slots of chan [B, N, q]
 // (q in 32, 64, 128, 256; 1 <= max_dc <= 32 edges per row) on `stream` of
-// CUDA device `device`: flooding, or serial-row layered when `layered`, in
-// which case chan carries the running totals; on `groups` row groups (1 to
-// 7; one group at most 1024 threads, more at most 512) walking the wave
-// plan wave_ptr [nwaves + 1], wave_row [M] (ops/cuda_qspa.row_waves).
+// CUDA device `device`: flooding, or layered when `layered` (serial-row or
+// grouped, by the plan), in which case chan carries the running totals; on
+// `groups` row groups (1 to 7; one group at most 1024 threads, more at
+// most 512) walking the wave plan wave_ptr [nwaves + 1], wave_row [M]
+// (ops/cuda_qspa.row_waves).
 // chan (layered), C [B, E, q], t, done and okf [B] are updated in place;
 // hard [B, N] is written.  The tables are K5's (ldpc_qspa).  Returns 0 or
 // the CUDA error of the launch.

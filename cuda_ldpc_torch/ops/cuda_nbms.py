@@ -1,10 +1,11 @@
 """Wrapper of the CUDA GF(q) max-domain decoder csrc/nbms.cu (K8): flooding
 EMS at the reference's committed Nm = 2, Nc = 2 (myNBLDPC/include/
 define.h:37-39) and at any other (Nm, Nc), flooding full EMS (the
-reference's decoder_method 2), flooding TMM and row-layered TMM
-(counterpart of cuda_ldpc_tpu/ops/pallas_nbms.py:517-543, which compiles
-EMS 2/2, TMM and layered TMM; the JAX package runs full EMS and EMS at
-other (Nm, Nc) in jnp, cuda_ldpc_tpu/ops/nb_decode.py:371 and :223).
+reference's decoder_method 2), flooding TMM, row-layered TMM and
+grouped-layered TMM (counterpart of cuda_ldpc_tpu/ops/pallas_nbms.py:
+517-543, which compiles EMS 2/2, TMM and layered TMM; the JAX package runs
+full EMS, EMS at other (Nm, Nc) and grouped-layered TMM in jnp,
+cuda_ldpc_tpu/ops/nb_decode.py:371, :223 and :603).
 
 It replaces the TPU kernel ``pallas_nbms._kernel`` on the adjacency codes
 whose rows all have the same degree: BDS.576.288.GF.64,
@@ -15,8 +16,8 @@ scratch in a block's shared memory (full EMS and EMS at (Nm, Nc) keep their
 per-edge vectors and, but for the budgeted chains, their (max,+) chains
 [dc, q] in the same scratch, so the rule is one for every method), and for
 EMS every (Nm, Nc) that ``nb_decode.check_ems`` accepts.  Left to the plain
-version (and refused under ``auto`` on a card): grouped-layered TMM, rows
-of unequal degree (the Tanner code, q = 16).
+version (and refused under ``auto`` on a card): rows of unequal degree
+(the Tanner code, q = 16).
 
 EMS at (Nm, Nc) other than (2, 2) is K8's fifth mode (``ems_nmnc``): each
 row takes the branch of ``nb_decode._ems_cn_core`` that (Nm, Nc, dc)
@@ -34,20 +35,22 @@ One frame's totals [N, q] live in a block's shared memory, its c2v
 messages [E, q] in device memory (a scratch [B, E, q]).  The block runs
 the check rows of a pass on ``groups(plan, method)`` row groups at once
 (csrc/qspa_common.cuh): flooding EMS, full EMS and TMM every row of a pass
-at once, layered TMM by dependency level (``cuda_qspa.row_waves``), so the
-outputs are the serial schedule's bit for bit.  With the messages in
-shared memory too (they fit on the GF(64) codes), BDS.576.288.GF.64 at
-B=4096 ran 1.8-2x slower on the H100 with one row at a time (a 79 KB
-block left room for 2 blocks an SM instead of 7), and slower at 1, 2 and
-4 row groups too (PERF.md).
+at once, layered TMM by dependency level, grouped-layered TMM (the layered
+mode) by the greedy row groups of ``nb_decode.row_groups``
+(``cuda_qspa.row_waves``), so the outputs are the plain schedule's bit for
+bit.  With the messages in shared memory too (they fit on the GF(64)
+codes), BDS.576.288.GF.64 at B=4096 ran 1.8-2x slower on the H100 with
+one row at a time (a 79 KB block left room for 2 blocks an SM instead of
+7), and slower at 1, 2 and 4 row groups too (PERF.md).
 
 Semantics are ops/nb_decode.decode's for 'ems' (any Nm, Nc), 'ems_full',
-'tmm' and 'layered_tmm', bit for bit: every frame decides, checks and stops on its
-own (a block per frame; the TPU kernel stops per 8-frame tile, which gives
-the same outputs since stopped frames are frozen), so ``early_stop``
-changes nothing in the outputs.  The TMM methods convert the channel to
-the min domain here, with ``nb_decode.to_min_domain``.  The call enqueues
-the conversion and one launch and returns without waiting.
+'tmm', 'layered_tmm' and 'glayered_tmm', bit for bit: every frame
+decides, checks and stops on its own (a block per frame; the TPU kernel
+stops per 8-frame tile, which gives the same outputs since stopped frames
+are frozen), so ``early_stop`` changes nothing in the outputs.  The TMM
+methods convert the channel to the min domain here, with
+``nb_decode.to_min_domain``.  The call enqueues the conversion and one
+launch and returns without waiting.
 
 A CPU tensor goes to the plain version in ops/nb_decode.py.  A CUDA tensor
 goes to the kernel, or the call raises.
@@ -68,10 +71,14 @@ from cuda_ldpc_torch.ops.nb_decode import NBDecodeResult
 # Calls that launched the kernel, by method; read and reset by
 # chip_smoke.py to show that the main path went through it.
 LAUNCHES = {"nbms_ems": 0, "nbms_tmm": 0, "nbms_layered_tmm": 0,
-            "nbms_ems_full": 0, "nbms_ems_nmnc": 0}
+            "nbms_ems_full": 0, "nbms_ems_nmnc": 0, "nbms_glayered_tmm": 0}
 
+# The kernel's mode of each method: grouped-layered TMM is the layered-TMM
+# mode on other waves (``SCHEDULES``).
 METHOD_IDS = {"ems": 0, "tmm": 1, "layered_tmm": 2, "ems_full": 3,
-              "ems_nmnc": 4}
+              "ems_nmnc": 4, "glayered_tmm": 2}
+# The wave plan (``cuda_qspa.row_waves``) of each method; flooding else.
+SCHEDULES = {"layered_tmm": "layered", "glayered_tmm": "glayered"}
 
 
 def ems_branch(nm: int, nc: int, dc: int) -> str:
@@ -103,12 +110,15 @@ def smem_bytes(plan: Plan, groups: int = 1) -> int:
 
 def groups(plan: Plan, method: str) -> int:
     """Row groups of the kernel's block (``cuda_qspa.pick_groups``), one
-    for layered TMM: on BDS.576.288.GF.64 its row groups ran slower than
-    one group (10.35 ms with 2, 10.65 with 4, against 9.87; NVIDIA H100,
-    PERF.md), since the 2-deviation search, which holds the SM busy,
-    does not gain from more rows at once, and the levels' barriers and
-    fewer frames an SM cost more than the overlap gives."""
-    if method == "layered_tmm":
+    for the layered TMM schedules: on BDS.576.288.GF.64 (B=4096, 10
+    passes, 0 dB; NVIDIA H100, ``python -m
+    cuda_ldpc_torch.tools.nb_rows_phases --groups 1,2,4``, PERF.md) layered
+    TMM took 9.80 ms on one group, 10.35 on 2, 10.65 on 4, and
+    grouped-layered TMM, whose 4 waves hold 3-17 rows against layered's 8
+    levels, 9.80 / 10.32 / 10.31: the 2-deviation search, which holds the
+    SM busy, does not gain from more rows at once, and the waves' barriers
+    and fewer frames an SM cost more than the overlap gives."""
+    if method in ("layered_tmm", "glayered_tmm"):
         return 1
     return cuda_qspa.pick_groups(plan, lambda g: smem_bytes(plan, g))
 
@@ -165,8 +175,8 @@ def _decode(L_ch: torch.Tensor, code: NBCode, max_iters: int, method: str,
             else L_ch)
     lib = _build.load()
     tables = cuda_qspa._device_tables(plan, cuda_qspa.code_key(code), dev)
-    schedule = "layered" if method == "layered_tmm" else "flooding"
-    wave_ptr, wave_row, nwaves = cuda_qspa.device_waves(code, schedule, dev)
+    wave_ptr, wave_row, nwaves = cuda_qspa.device_waves(
+        code, SCHEDULES.get(method, "flooding"), dev)
     C = torch.empty((B, plan.E, plan.q), dtype=torch.float32, device=dev)
     res = NBDecodeResult(torch.empty((B, plan.N), dtype=torch.int32,
                                      device=dev),
@@ -226,3 +236,11 @@ def decode_layered_tmm(L_ch: torch.Tensor, code: NBCode, max_iters: int,
     """Row-layered TMM of positive-domain L_ch [B, N, q] float32; drop-in
     for ops/nb_decode.decode_layered_tmm."""
     return _decode(L_ch, code, max_iters, "layered_tmm", early_stop)
+
+
+def decode_glayered_tmm(L_ch: torch.Tensor, code: NBCode, max_iters: int,
+                        early_stop: bool = True) -> NBDecodeResult:
+    """Grouped-layered TMM of positive-domain L_ch [B, N, q] float32 (the
+    layered-TMM mode on the ``row_groups`` waves); drop-in for
+    ops/nb_decode.decode(..., 'glayered_tmm')."""
+    return _decode(L_ch, code, max_iters, "glayered_tmm", early_stop)

@@ -1,6 +1,7 @@
-"""Wrapper of the CUDA GF(q) FFT-QSPA decoder csrc/qspa.cu (K5), flooding
-and serial-row layered (counterpart of cuda_ldpc_tpu/ops/pallas_qspa.py:
-105-213 and 423-441).
+"""Wrapper of the CUDA GF(q) FFT-QSPA decoder csrc/qspa.cu (K5), flooding,
+serial-row layered and grouped-layered (counterpart of
+cuda_ldpc_tpu/ops/pallas_qspa.py:105-213 and 423-441; the JAX package runs
+grouped-layered QSPA in jnp, cuda_ldpc_tpu/ops/nb_decode.py:603).
 
 It replaces the TPU kernel ``pallas_qspa._kernel`` on the adjacency codes
 (BDS.576.288.GF.64, LDPC_N576_K288_GF64_d1_exp, LDPC_N96_K48_GF256_d1_exp,
@@ -8,20 +9,19 @@ LDPC_N576_K480_GF256_exp): q from 32 to 256, at most 32 edges per row, and
 one frame's totals [N, q] in a block's shared memory.  The TPU kernel's
 edge-count cap (E <= 640, statically unrolled rows) does not apply here.
 
-Semantics are ops/nb_decode.decode_qspa's and decode_layered_qspa's, bit
-for bit: every frame decides, checks and stops on its own, so ``early_stop``
-changes nothing in the outputs (the plain version runs its batch until
-every frame has stopped, with the stopped frames frozen).  The call
-enqueues one launch and returns without waiting.
+Semantics are ops/nb_decode.decode_qspa's, decode_layered_qspa's and
+decode_glayered_qspa's, bit for bit: every frame decides, checks and stops
+on its own, so ``early_stop`` changes nothing in the outputs (the plain
+version runs its batch until every frame has stopped, with the stopped
+frames frozen).  The call enqueues one launch and returns without waiting.
 
 The kernel runs the check rows of a pass at once on the wave plan
 ``row_waves`` (flooding one wave of every row, layered the dependency
-levels), bit for bit the serial schedule, in the layout ``row_layout``
-picks: a whole row on one warp (``warps`` a block) where it fits, else a
-warp an edge on ``groups`` row groups.  The serial design (one row at a
-time) stays callable as ``decode_flooding_serial`` / ``decode_layered_serial``
-and every design as ``decode_design``, for chip_smoke.py, the phase tool
-and the card tests only.
+levels, grouped-layered the greedy row groups), bit for bit the plain
+schedule, in the layout ``row_layout`` picks: a whole row on one warp
+(``warps`` a block) where it fits, else a warp an edge on one row group.
+Both layouts stay callable by name as ``decode_design``, for chip_smoke.py,
+the phase tool and the card tests only.
 
 A CPU tensor goes to the plain version in ops/nb_decode.py.  A CUDA tensor
 goes to the kernel, or the call raises.
@@ -46,13 +46,14 @@ from cuda_ldpc_torch.ops.nb_decode import NBDecodeResult
 from cuda_ldpc_torch.utils import gf as gflib
 
 # Calls that launched the kernel, by schedule: through decode_flooding /
-# decode_layered under qspa_<schedule> and also under
+# decode_layered / decode_glayered under qspa_<schedule> and also under
 # qspa_<design>_<schedule> for the design ``row_layout`` picks, through
 # decode_design under qspa_<design>_<schedule> only; read and reset by
 # chip_smoke.py to show that the main path went through it, in which layout.
-DESIGNS = ("serial", "groups", "warp")
+DESIGNS = ("groups", "warp")
+SCHEDULES = tuple(nb_decode.QSPA_BY_SCHEDULE)
 LAUNCHES = {f"qspa_{d}{s}": 0 for d in ("",) + tuple(x + "_" for x in DESIGNS)
-            for s in ("flooding", "layered")}
+            for s in SCHEDULES}
 
 # Dynamic shared memory a block of an H100 may use (cudaDevAttr-
 # MaxSharedMemoryPerBlockOptin).
@@ -126,14 +127,18 @@ def make_plan(code: NBCode) -> Plan:
 
 
 class Waves(NamedTuple):
-    """A schedule's check rows for the row-group kernels (K7, K8): wave w
-    is rows wave_row[wave_ptr[w]:wave_ptr[w + 1]], in ascending order; the
-    rows of one wave may run at once (csrc/qspa_common.cuh)."""
+    """A schedule's check rows for the row-group kernels (K5, K7, K8): wave
+    w is rows wave_row[wave_ptr[w]:wave_ptr[w + 1]], in ascending order;
+    the rows of one wave touch disjoint VNs and run at once
+    (csrc/qspa_common.cuh), a wave after the one before it.  Running the
+    waves so equals running their rows one at a time in wave order, bit for
+    bit: no two rows of a wave read or write one VN's totals, and a row
+    reads what every earlier wave wrote."""
     wave_ptr: np.ndarray    # [W+1] int32
     wave_row: np.ndarray    # [M] int32
 
 
-WAVE_SCHEDULES = ("flooding", "layered", "serial")
+WAVE_SCHEDULES = ("flooding", "layered", "glayered")
 
 _WAVES: dict[tuple, Waves] = {}
 
@@ -158,16 +163,27 @@ def dependency_levels(plan: Plan) -> np.ndarray:
 def row_waves(code: NBCode, schedule: str) -> Waves:
     """The rows of one pass as waves, cached per code: 'flooding' one wave
     of every row (a flooding pass's rows are independent); 'layered' the
-    dependency levels (``dependency_levels``); 'serial' one wave a row, the
-    serial design."""
+    dependency levels (``dependency_levels``), never the greedy colouring,
+    which breaks the serial order; 'glayered' one wave per group of
+    ``nb_decode.row_groups``, in group order.  The plain grouped-layered
+    step updates a group's rows at once; they share no VN (the colouring
+    is conflict-free) and each group is in ascending row order, so the
+    groups are waves, and walking them is that step bit for bit."""
     if schedule not in WAVE_SCHEDULES:
         raise ValueError(f"unknown wave schedule {schedule!r}")
     key = (code_key(code), schedule)
     if key not in _WAVES:
         plan = make_plan(code)
-        level = {"flooding": np.zeros(plan.M, dtype=np.int64),
-                 "layered": dependency_levels(plan),
-                 "serial": np.arange(plan.M)}[schedule]
+        if schedule == "glayered":
+            g = nb_decode.build_graph(code)
+            level = np.empty(plan.M, dtype=np.int64)
+            for c, rows in enumerate(nb_decode.row_groups(g.cn_links,
+                                                          g.cn_mask)):
+                level[rows] = c
+        elif schedule == "layered":
+            level = dependency_levels(plan)
+        else:
+            level = np.zeros(plan.M, dtype=np.int64)
         order = np.argsort(level, kind="stable")
         ptr = np.concatenate([[0], np.cumsum(np.bincount(level,
                                                          minlength=1))])
@@ -264,8 +280,8 @@ def warp_fits(plan: Plan) -> bool:
 
 def row_layout(plan: Plan) -> str:
     """The layout the kernel runs a check row in: 'warp' (a row on one
-    warp) where ``warp_fits``, else 'groups' (a warp an edge on row
-    groups).  Where a row fits a warp, the warp layout was the faster on
+    warp) where ``warp_fits``, else 'groups' (a warp an edge on one row
+    group).  Where a row fits a warp, the warp layout was the faster on
     BDS.576.288.GF.64 at B=4096, 10 passes, 0 dB, flooding and layered
     (PERF.md: chip_smoke.py's K5 turns and
     ``python -m cuda_ldpc_torch.tools.nb_rows_phases``)."""
@@ -274,8 +290,9 @@ def row_layout(plan: Plan) -> str:
 
 def c_on_chip(layered: bool) -> bool:
     """Whether the row-a-warp layout keeps each frame's C [E, q] in shared
-    memory: flooding does, layered does not (csrc/qspa.cu ties it to the
-    schedule, and does not build the other two pairings).  On
+    memory: flooding does, the layered schedules (serial-row and grouped)
+    do not (csrc/qspa.cu ties it to the schedule, and does not build the
+    other two pairings).  On
     BDS.576.288.GF.64 (B=4096, 10 passes, 0 dB; the phase tool
     ``python -m cuda_ldpc_torch.tools.nb_rows_phases`` while it still built
     both places of C, PERF.md) flooding took 3.20 ms with C on chip
@@ -293,28 +310,15 @@ def warps(layered: bool) -> int:
     return 4 if layered else 12
 
 
-def groups(plan: Plan, layered: bool) -> int:
-    """Row groups of the warp-an-edge layout: ``pick_groups`` with K5's
-    shared memory (BDS: 4 flooding, 2 layered) for q <= 64, one group for
-    q >= 128.  A block of more than one group keeps to 40 registers a
-    thread, and there ptxas spills for q >= 128 (56-180 bytes, -Xptxas
-    -v); on LDPC_N96_K48_GF256_d1_exp (B=4096, 10 passes, 0 dB; ``python
-    -m cuda_ldpc_torch.tools.nb_rows_phases --code LDPC_N96_K48_GF256_d1_exp
-    --groups 1,2,4``, PERF.md) G = 4 / 2 took 2.80 / 3.52 ms
-    against one group's 2.07 / 2.09, flooding / layered."""
-    if plan.q >= 128:
-        return 1
-    return pick_groups(plan, lambda g: smem_bytes(plan, g), layered)
-
-
 def launch_shape(plan: Plan, layered: bool, design: str) -> tuple[int, int]:
-    """(layout, width) as csrc/qspa.cu's ldpc_qspa takes them: 'serial' a
-    warp an edge on one group, 'groups' on ``groups`` row groups (layout
-    0), 'warp' a row on one warp, ``warps`` warps a block (layout 1)."""
-    if design == "serial":
-        return 0, 1
+    """(layout, width) as csrc/qspa.cu's ldpc_qspa takes them: 'groups' a
+    warp an edge on one row group (layout 0; the kernel is built for one
+    group: with more, it spills for q >= 128, and on LDPC_N96_K48_GF256_d1_exp
+    at B=4096, 10 passes, 0 dB, 4 / 2 groups took 2.80 / 3.52 ms against one
+    group's 2.07 / 2.09, flooding / layered, PERF.md), 'warp' a row on one
+    warp, ``warps`` warps a block (layout 1)."""
     if design == "groups":
-        return 0, groups(plan, layered)
+        return 0, 1
     if design == "warp":
         if not warp_fits(plan):
             raise ValueError(f"a row of {plan.max_dc} edges over GF({plan.q})"
@@ -372,12 +376,14 @@ def empty_result(B: int, N: int, device: torch.device) -> NBDecodeResult:
                           torch.zeros(B, dtype=torch.int32, device=device))
 
 
-def _decode(L_ch: torch.Tensor, code: NBCode, max_iters: int, layered: bool,
+def _decode(L_ch: torch.Tensor, code: NBCode, max_iters: int, schedule: str,
             early_stop: bool, design: str | None = None) -> NBDecodeResult:
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r}")
     if L_ch.device.type == "cpu":
-        plain = (nb_decode.decode_layered_qspa if layered
-                 else nb_decode.decode_qspa)
-        return plain(L_ch, code, max_iters, early_stop=early_stop)
+        return nb_decode.decode(L_ch, code,
+                                nb_decode.QSPA_BY_SCHEDULE[schedule],
+                                max_iters, early_stop=early_stop)
     if L_ch.device.type != "cuda":
         raise ValueError(f"unsupported device {L_ch.device}")
     if not supports(code):
@@ -388,14 +394,13 @@ def _decode(L_ch: torch.Tensor, code: NBCode, max_iters: int, layered: bool,
     B, dev = L_ch.shape[0], L_ch.device
     main = design is None
     design = design or row_layout(plan)
+    layered = schedule != "flooding"
     layout, width = launch_shape(plan, layered, design)
     if B == 0 or max_iters <= 0:
         return empty_result(B, plan.N, dev)
     lib = _build.load()
     tables = _device_tables(plan, code_key(code), dev)
-    schedule = "layered" if layered else "flooding"
-    wave_ptr, wave_row, nwaves = device_waves(
-        code, "serial" if design == "serial" else schedule, dev)
+    wave_ptr, wave_row, nwaves = device_waves(code, schedule, dev)
     # a row on one warp keeps a flooding frame's C on chip: no buffer
     C = torch.empty((0,) if layout == 1 and c_on_chip(layered)
                     else (B, plan.E, plan.q), dtype=torch.float32, device=dev)
@@ -423,36 +428,31 @@ def decode_flooding(L_ch: torch.Tensor, code: NBCode, max_iters: int,
                     early_stop: bool = True) -> NBDecodeResult:
     """Flooding FFT-QSPA of L_ch [B, N, q] float32 symbol LLRs; drop-in for
     ops/nb_decode.decode_qspa."""
-    return _decode(L_ch, code, max_iters, False, early_stop)
+    return _decode(L_ch, code, max_iters, "flooding", early_stop)
 
 
 def decode_layered(L_ch: torch.Tensor, code: NBCode, max_iters: int,
                    early_stop: bool = True) -> NBDecodeResult:
     """Serial-row layered FFT-QSPA of L_ch [B, N, q] float32; drop-in for
     ops/nb_decode.decode_layered_qspa."""
-    return _decode(L_ch, code, max_iters, True, early_stop)
+    return _decode(L_ch, code, max_iters, "layered", early_stop)
+
+
+def decode_glayered(L_ch: torch.Tensor, code: NBCode, max_iters: int,
+                    early_stop: bool = True) -> NBDecodeResult:
+    """Grouped-layered FFT-QSPA of L_ch [B, N, q] float32 (the layered
+    kernel on the ``row_groups`` waves); drop-in for
+    ops/nb_decode.decode_glayered_qspa."""
+    return _decode(L_ch, code, max_iters, "glayered", early_stop)
 
 
 def decode_design(L_ch: torch.Tensor, code: NBCode, max_iters: int,
-                  layered: bool, design: str,
+                  schedule: str, design: str,
                   early_stop: bool = True) -> NBDecodeResult:
-    """``decode_flooding`` / ``decode_layered`` in the named design of
-    ``DESIGNS`` ('serial': one row at a time; 'groups': a warp an edge on
-    row groups; 'warp': a row on one warp), whatever ``row_layout`` picks:
-    the yardsticks, called only by chip_smoke.py, the phase tool and the
-    card tests."""
-    return _decode(L_ch, code, max_iters, layered, early_stop, design)
-
-
-def decode_flooding_serial(L_ch: torch.Tensor, code: NBCode, max_iters: int,
-                           early_stop: bool = True) -> NBDecodeResult:
-    """``decode_flooding`` in the serial design (one row at a time): the
-    yardstick of the rows at once."""
-    return decode_design(L_ch, code, max_iters, False, "serial", early_stop)
-
-
-def decode_layered_serial(L_ch: torch.Tensor, code: NBCode, max_iters: int,
-                          early_stop: bool = True) -> NBDecodeResult:
-    """``decode_layered`` in the serial design (one row at a time): the
-    yardstick of the rows at once."""
-    return decode_design(L_ch, code, max_iters, True, "serial", early_stop)
+    """``decode_flooding`` / ``decode_layered`` / ``decode_glayered`` (by
+    ``schedule``, one of ``SCHEDULES``) in the named design of ``DESIGNS``
+    ('groups': a warp an edge on one row group; 'warp': a row on one
+    warp), whatever ``row_layout`` picks: the yardstick of the other
+    layout, called only by chip_smoke.py, the phase tool and the card
+    tests."""
+    return _decode(L_ch, code, max_iters, schedule, early_stop, design)

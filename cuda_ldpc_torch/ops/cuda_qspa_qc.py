@@ -14,7 +14,12 @@ and VN sums take the plain version's order.
 Semantics: ``decode_flooding`` is ops/nb_decode.decode_qspa,
 ``decode_layered`` is the grouped-layered ``decode_glayered_qspa``, whose
 conflict-free row groups on a QC code are its block rows in order; bit for
-bit, with per-frame stopping as in ops/cuda_qspa.py.
+bit, with per-frame stopping as in ops/cuda_qspa.py.  Where those groups
+are the block rows in row order (``layered_is_block_rows``; on
+Tanner_74_9_Z128_GF16, its 9 block rows of 128 rows), the serial-row
+``decode_layered_qspa`` is the same function (a block row's rows share no
+VN), so ``decode_layered`` serves it too; on any other QC code the serial
+order has no kernel (ROADMAP item 13).
 
 Two designs compute it.  ``decode_flooding``/``decode_layered`` run the
 staged kernel (``qspa_qc_kernel``): a block of THREADS threads takes a
@@ -126,6 +131,21 @@ def _slots_follow_blocks(code: NBCode) -> bool:
                    for i in range(links.shape[0]))
     return (ascending(code.cn_links, code.cn_weight)
             and ascending(code.vn_links, code.vn_weight))
+
+
+def layered_is_block_rows(code: NBCode) -> bool:
+    """True when ``nb_decode.row_groups`` of the code, concatenated, are
+    its rows in order and each group is one of the QC plan's block rows:
+    then the serial-row layered QSPA equals the grouped-layered one, the
+    block-row schedule of ``decode_layered``."""
+    plan = make_plan(code)
+    if plan is None:
+        return False
+    g = nb_decode.build_graph(code)
+    groups = nb_decode.row_groups(g.cn_links, g.cn_mask)
+    return len(groups) == plan.MB and all(
+        np.array_equal(rows, np.arange(bj * plan.Z, (bj + 1) * plan.Z))
+        for bj, rows in enumerate(groups))
 
 
 def _round16(n: int) -> int:
@@ -319,7 +339,8 @@ def decode_layered(L_ch: torch.Tensor, code: NBCode, max_iters: int,
                    early_stop: bool = True) -> NBDecodeResult:
     """Block-row layered FFT-QSPA: the block rows in order, the Z check rows
     of each at once; drop-in for ops/nb_decode.decode_glayered_qspa on a
-    supported code."""
+    supported code, and for decode_layered_qspa where
+    ``layered_is_block_rows``."""
     return _decode(L_ch, code, max_iters, True, early_stop)
 
 

@@ -71,6 +71,9 @@ TMM_SCALE = float(np.float32(0.8))
 METHODS = ("ems", "ems_full", "qspa", "layered_qspa", "glayered_qspa",
            "tmm", "layered_tmm", "glayered_tmm")
 QSPA_METHODS = ("qspa", "layered_qspa", "glayered_qspa")
+# the QSPA method of each schedule (the kernels' name for it)
+QSPA_BY_SCHEDULE = {"flooding": "qspa", "layered": "layered_qspa",
+                    "glayered": "glayered_qspa"}
 TMM_METHODS = ("tmm", "layered_tmm", "glayered_tmm")
 
 

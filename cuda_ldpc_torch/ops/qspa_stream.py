@@ -3,10 +3,10 @@
 kernel K7, without its TPU work-arounds: no ``pack_chan`` lane padding, no
 discrete-log lane order, no one-hot hard).
 
-It runs up to ``k`` passes of ``nb_decode.build_core`` ('qspa' or
-'layered_qspa') over persistent per-slot state.  A pass decides, checks the
-GF syndrome and accounts, then runs the check rows for the slots that go
-on:
+It runs up to ``k`` passes of ``nb_decode.build_core`` ('qspa',
+'layered_qspa' or 'glayered_qspa', by ``layered``) over persistent
+per-slot state.  A pass decides, checks the GF syndrome and accounts, then
+runs the check rows for the slots that go on:
 
 * ``hard`` takes the pass's decisions on the slots that were running at its
   start (a slot finished on entry keeps zeros);
@@ -15,11 +15,12 @@ on:
 * a slot that goes on counts one more iteration in ``t``;
 * the call ends after ``k`` passes, or earlier once no slot goes on.
 
-Layered returns its running totals in ``chan``.  A finished slot leaves with
-its c2v messages zeroed.  The messages are kept as C [B, E, q] over the
-real edges in the order of ops/cuda_qspa.make_plan (row by row, slot order),
-which is the kernel's buffer; the plain core's [B, M, max_dc, q] is made
-from it on entry and folded back on exit (the padded slots hold zeros).
+The layered schedules (serial-row and grouped) return their running totals
+in ``chan``.  A finished slot leaves with its c2v messages zeroed.  The
+messages are kept as C [B, E, q] over the real edges in the order of
+ops/cuda_qspa.make_plan (row by row, slot order), which is the kernel's
+buffer; the plain core's [B, M, max_dc, q] is made from it on entry and
+folded back on exit (the padded slots hold zeros).
 
 This is the reference that ops/cuda_qspa_stream.py's kernel (K7) equals on
 the card, and it is held against the JAX kernel in interpret mode on the
@@ -33,6 +34,18 @@ import torch
 
 from cuda_ldpc_torch.models.nb_code import NBCode
 from cuda_ldpc_torch.ops import nb_decode
+
+
+def schedule(layered: bool | str) -> str:
+    """The schedule a stream step's ``layered`` names: False 'flooding',
+    True 'layered' (serial-row), 'glayered' (grouped-layered: a layered
+    schedule too, truthy, with its running totals in ``chan``)."""
+    if isinstance(layered, str):
+        if layered != "glayered":
+            raise ValueError(f"layered must be False, True or 'glayered', "
+                             f"got {layered!r}")
+        return layered
+    return "layered" if layered else "flooding"
 
 
 def real_edges(code: NBCode) -> np.ndarray:
@@ -61,13 +74,15 @@ def check_state(chan: torch.Tensor, C: torch.Tensor, t: torch.Tensor,
 
 def stream_step(chan: torch.Tensor, C: torch.Tensor, t: torch.Tensor,
                 done: torch.Tensor, okf: torch.Tensor, code: NBCode, k: int,
-                max_iters: int, layered: bool = False):
+                max_iters: int, layered: bool | str = False):
     """Up to ``k`` passes over the slots' state: chan [B, N, q] float32
     (flooding: the channel LLRs; layered: the running totals), C [B, E, q]
-    float32, t / done / okf [B] int32.  The state is updated in place;
-    returns (chan, C, hard [B, N] int32, t, done, okf)."""
+    float32, t / done / okf [B] int32; ``layered`` False (flooding), True
+    (serial-row layered) or 'glayered' (grouped-layered).  The state is
+    updated in place; returns (chan, C, hard [B, N] int32, t, done, okf)."""
     check_state(chan, C, t, done, okf, code, k)
-    core = nb_decode.build_core(code, "layered_qspa" if layered else "qspa",
+    core = nb_decode.build_core(code,
+                                nb_decode.QSPA_BY_SCHEDULE[schedule(layered)],
                                 chan.device)
     g = core.g
     B = chan.shape[0]

@@ -1025,18 +1025,27 @@ def _stream_key(sim, kind: str, engine: StreamEngine,
 # --------------------------------------------------------------------------
 
 # (code, method) pairs with no CUDA kernel yet, and the ROADMAP.md item that
-# ports them: the QSPA kernels run qspa and layered_qspa on the adjacency
-# codes (K5) and qspa and glayered_qspa on the QC code (K6); the max-domain
-# kernel K8 runs ems (every Nm/Nc the plain version takes), ems_full, tmm
-# and layered_tmm on the adjacency codes whose rows are full; no stream
-# kernel runs a max-domain method.
-NO_KERNEL_ITEM = "Queue 1 item 13 (GF(q) kernels for the other (code, method) pairs)"
-NO_MAXDOMAIN_KERNEL_ITEM = ("Queue 1 item 19 (max-domain kernels beyond K8: "
-                            "glayered_tmm, codes K8 does not take)")
+# ports them: the QSPA kernels run every QSPA method on the adjacency codes
+# (K5, and K7 on the stream engine) and every QSPA method on the QC code
+# (K6: layered_qspa where its row groups are its block rows in order, as on
+# Tanner_74_9_Z128_GF16), but no stream kernel runs the QC code; the
+# max-domain kernel K8 runs ems (every Nm/Nc the plain version takes),
+# ems_full, tmm, layered_tmm and glayered_tmm on the adjacency codes whose
+# rows are full; no stream kernel runs a max-domain method.
+NO_KERNEL_ITEM = ("Queue 1 item 13 (GF(q) QSPA kernels for the pairs "
+                  "without one: the QC Tanner code on the stream engine)")
+NO_MAXDOMAIN_KERNEL_ITEM = ("Queue 1 item 19 (max-domain kernels for the "
+                            "codes K8 does not take: rows of unequal degree, "
+                            "q < 32)")
 NO_MAXDOMAIN_STREAM_ITEM = ("Queue 1 item 20 (a stateful K8 for the stream "
                             "engine)")
+K5_METHODS = {"qspa": "decode_flooding", "layered_qspa": "decode_layered",
+              "glayered_qspa": "decode_glayered"}
+K6_METHODS = {"qspa": "decode_flooding", "glayered_qspa": "decode_layered",
+              "layered_qspa": "decode_layered"}
 K8_METHODS = {"ems": "decode_ems", "ems_full": "decode_ems_full",
-              "tmm": "decode_tmm", "layered_tmm": "decode_layered_tmm"}
+              "tmm": "decode_tmm", "layered_tmm": "decode_layered_tmm",
+              "glayered_tmm": "decode_glayered_tmm"}
 
 
 def check_nb_ported(sim: cfg.NBSimConfig):
@@ -1056,12 +1065,14 @@ def check_nb_ported(sim: cfg.NBSimConfig):
 def _nb_decoder_fn(code: NBCode, dec: cfg.NBDecoderConfig,
                    device: torch.device) -> Callable:
     """GF(q) decoder dispatch.  ``auto`` on a CUDA device (and ``cuda``)
-    takes K5 (csrc/qspa.cu) for qspa and layered_qspa on the codes it
-    supports, K6 (csrc/qspa_qc.cu) for qspa and glayered_qspa on the QC
-    code and K8 (csrc/nbms.cu) for ems (with its Nm/Nc), ems_full (which
-    has no Nm/Nc), tmm and layered_tmm on the codes it supports, and raises
-    for a pair no kernel runs, rather than run the plain version silently
-    (an EMS Nm/Nc the plain version refuses raises its error first);
+    takes K5 (csrc/qspa.cu) for qspa, layered_qspa and glayered_qspa on the
+    codes it supports, K6 (csrc/qspa_qc.cu) for qspa and glayered_qspa on
+    the QC code, and for layered_qspa where that equals glayered_qspa
+    (``cuda_qspa_qc.layered_is_block_rows``), and K8 (csrc/nbms.cu) for
+    ems (with its Nm/Nc), ems_full (which has no Nm/Nc), tmm, layered_tmm
+    and glayered_tmm on the codes it supports, and raises for a pair no
+    kernel runs, rather than run the plain version silently (an EMS Nm/Nc
+    the plain version refuses raises its error first);
     ``auto`` on the CPU and ``torch`` anywhere take the plain version;
     ``cuda`` on the CPU raises.  Unlike the JAX package (sim.py:1143-1187),
     whose ``auto`` keeps EMS and TMM on jnp, the kernels serve every pair
@@ -1073,12 +1084,14 @@ def _nb_decoder_fn(code: NBCode, dec: cfg.NBDecoderConfig,
         if device.type != "cuda":
             raise ValueError("kernel='cuda' needs a CUDA device, got "
                              f"{device}")
-        kernels = [(cuda_qspa, {"qspa": "decode_flooding",
-                                "layered_qspa": "decode_layered"}),
-                   (cuda_qspa_qc, {"qspa": "decode_flooding",
-                                   "glayered_qspa": "decode_layered"})]
-        for module, names in kernels:
-            if method in names and module.supports(code):
+        k6 = (method in K6_METHODS and cuda_qspa_qc.supports(code) and (
+            method != "layered_qspa"
+            or cuda_qspa_qc.layered_is_block_rows(code)))
+        for module, names, takes in [
+                (cuda_qspa, K5_METHODS, method in K5_METHODS
+                 and cuda_qspa.supports(code)),
+                (cuda_qspa_qc, K6_METHODS, k6)]:
+            if takes:
                 return functools.partial(getattr(module, names[method]),
                                          code=code, max_iters=dec.max_iters)
         nmnc = {}
@@ -1302,15 +1315,16 @@ def make_nb_stream_engine(code: NBCode, sim: cfg.NBSimConfig,
                           device: torch.device,
                           n_points: int = 1) -> StreamEngine:
     """The GF(q) continuous-batching engine: K7 (csrc/qspa_stream.cu) with
-    per-call refill under ``auto`` on a card and ``cuda``, for qspa and
-    layered_qspa on the codes K7 takes, raising for any other pair (no
-    stream kernel runs a max-domain method yet); the plain per-iteration
-    engine over nb_decode.build_core (any method, any code) under ``torch``
-    and on the CPU."""
+    per-call refill under ``auto`` on a card and ``cuda``, for qspa,
+    layered_qspa and glayered_qspa on the codes K7 takes, raising for any
+    other pair (no stream kernel runs the QC code or a max-domain method
+    yet); the plain per-iteration engine over nb_decode.build_core (any
+    method, any code) under ``torch`` and on the CPU."""
     check_nb_ported(sim)
     dec = sim.decoder
     use_kernel = _stream_uses_kernel(dec.kernel, device)
-    layered = {"qspa": False, "layered_qspa": True}.get(dec.method)
+    layered = {"qspa": False, "layered_qspa": True,
+               "glayered_qspa": "glayered"}.get(dec.method)
     if use_kernel and (layered is None or not cuda_qspa_stream.supports(code)):
         item = (NO_KERNEL_ITEM if dec.method in nb_decode.QSPA_METHODS
                 else NO_MAXDOMAIN_STREAM_ITEM)

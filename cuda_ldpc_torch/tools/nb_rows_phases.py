@@ -1,12 +1,12 @@
-"""Where the time of the GF(q) QSPA decoder K5 (flooding, layered), of the
-max-domain decoder K8 (EMS, EMS at other Nm/Nc, full EMS, TMM, layered
-TMM) and of the GF(q)
-QSPA stream step K7 (flooding, layered) goes, phase by phase, on a card,
-for the serial design (K5, K7) and the rows at once.
+"""Where the time of the GF(q) QSPA decoder K5 (flooding, layered,
+grouped-layered), of the max-domain decoder K8 (EMS, EMS at other Nm/Nc,
+full EMS, TMM, layered TMM, grouped-layered TMM) and of the GF(q) QSPA
+stream step K7 (flooding, layered, grouped-layered) goes, phase by phase,
+on a card.
 
     python -m cuda_ldpc_torch.tools.nb_rows_phases [--batch 4096]
         [--passes 10] [--ebn0 0.0] [--code BDS.576.288.GF.64]
-        [--designs serial,groups,warp]
+        [--designs groups,warp]
         [--kernels qspa,qspa_layered,...] [--groups 1,2,4] [--warps 2,4,8]
         [--nm 16 --nc 2]
 
@@ -15,27 +15,27 @@ csrc/qspa.cu, csrc/nbms.cu and csrc/qspa_stream.cu compiled under
 ``NB_ROWS_PHASES``: thread 0 of every block reads clock64() at the phase
 boundaries of csrc/qspa_common.cuh's ``RowsPhase`` and adds the cycles since
 its previous stamp to a per-block counter, flushed to a device counter per
-method or schedule when the block ends.  One call of at most ``passes``
-passes on B = ``batch`` frames of ``code`` (an adjacency code, by default
-BDS.576.288.GF.64) at Eb/N0 ``ebn0`` dB, BPSK (chip_smoke.py's timing point: K5 and K8 decode fresh frames; K7
-starts from fresh slots with max_iters = passes - 1), gives each phase's
-share of the summed cycles, for each design: the serial design of K5 and
-K7 (``decode_design(..., 'serial')``, ``stream_step_serial``), the row
-groups (a warp an edge; K8's ``decode_*``, ``stream_step``; K5's
-``decode_design(..., 'groups')``) and K5's row on one warp
-(``decode_design(..., 'warp')``).  K8's full EMS counts its
-forward/backward chains under ``search`` and its exclusive convolutions
-under ``merge``; its EMS at ``--nm``/``--nc`` (``nbms_ems_nmnc``, the mode
-``ems_nmnc``) the single deviations and the top Nm - 1 selection under
-``mins``, the pairs or the chains under ``search``, the exclusive
-convolutions under ``merge``.  The call's time
+method or schedule when the block ends (the grouped-layered schedules share
+the layered counters: they run the layered code).  One call of at most
+``passes`` passes on B = ``batch`` frames of ``code`` (an adjacency code, by
+default BDS.576.288.GF.64) at Eb/N0 ``ebn0`` dB, BPSK (chip_smoke.py's
+timing point: K5 and K8 decode fresh frames; K7 starts from fresh slots
+with max_iters = passes - 1), gives each phase's share of the summed
+cycles, for each design: the row groups (a warp an edge; K8's
+``decode_*``, K7's ``stream_step``; K5's ``decode_design(..., 'groups')``,
+one group) and K5's row on one warp (``decode_design(..., 'warp')``).
+K8's full EMS counts its forward/backward chains under ``search`` and its
+exclusive convolutions under ``merge``; its EMS at ``--nm``/``--nc``
+(``nbms_ems_nmnc``, the mode ``ems_nmnc``) the single deviations and the
+top Nm - 1 selection under ``mins``, the pairs or the chains under
+``search``, the exclusive convolutions under ``merge``.  The call's time
 with the counters and without them (the library the package builds) and
 the blocks an SM holds (CUDA's occupancy calculator) are printed beside it.
-``--groups`` also times the row groups at each listed number of groups (the
-package picks its own: ``cuda_qspa.groups``, ``cuda_nbms.groups``,
-``cuda_qspa_stream.groups``), ``--warps`` K5's row on one warp at each
-listed number of warps a block within the schedule's launch bound (the
-package's: ``cuda_qspa.warps``).
+``--groups`` also times K7's and K8's row groups at each listed number of
+groups (the package picks its own: ``cuda_nbms.groups``,
+``cuda_qspa_stream.groups``; K5 is built for one group), ``--warps`` K5's
+row on one warp at each listed number of warps a block within the
+schedule's launch bound (the package's: ``cuda_qspa.warps``).
 Thread 0's view: it is in group 0 (warp 0), so a row phase is group 0's
 work and a wait its barrier's.
 
@@ -65,15 +65,20 @@ SOURCES = (("qspa.cu", "ldpc_qspa_phase_clocks", 2),
 KERNELS = {
     "qspa": ("ldpc_qspa_phase_clocks", 0, "flooding"),
     "qspa_layered": ("ldpc_qspa_phase_clocks", 1, "layered"),
+    "qspa_glayered": ("ldpc_qspa_phase_clocks", 1, "glayered"),
     "nbms_ems": ("ldpc_nbms_phase_clocks", 0, "decode_ems"),
     "nbms_tmm": ("ldpc_nbms_phase_clocks", 1, "decode_tmm"),
     "nbms_layered_tmm": ("ldpc_nbms_phase_clocks", 2, "decode_layered_tmm"),
+    "nbms_glayered_tmm": ("ldpc_nbms_phase_clocks", 2,
+                          "decode_glayered_tmm"),
     "nbms_ems_full": ("ldpc_nbms_phase_clocks", 3, "decode_ems_full"),
     "nbms_ems_nmnc": ("ldpc_nbms_phase_clocks", 4, "decode_ems"),
     "qspa_stream": ("ldpc_qspa_stream_phase_clocks", 0, "flooding"),
     "qspa_stream_layered": ("ldpc_qspa_stream_phase_clocks", 1, "layered"),
+    "qspa_stream_glayered": ("ldpc_qspa_stream_phase_clocks", 1,
+                             "glayered"),
 }
-DESIGNS = ("serial", "groups", "warp")
+DESIGNS = ("groups", "warp")
 
 
 def phase_names(src: str) -> tuple:
@@ -132,8 +137,8 @@ def _calls(code, L, passes, kernels, nm=16, nc=2):
         if kernel.startswith("qspa") and not kernel.startswith("qspa_stream"):
             designs = [d for d in DESIGNS if d != "warp"
                        or cuda_qspa.warp_fits(cuda_qspa.make_plan(code))]
-            out[kernel] = {d: (lambda d=d, lay=what == "layered":
-                               cuda_qspa.decode_design(L, code, passes, lay, d))
+            out[kernel] = {d: (lambda d=d, s=what:
+                               cuda_qspa.decode_design(L, code, passes, s, d))
                            for d in designs}
             continue
         if kernel.startswith("nbms"):
@@ -144,17 +149,16 @@ def _calls(code, L, passes, kernels, nm=16, nc=2):
         state = [torch.empty_like(L), torch.empty((B, E, code.q), device=dev)]
         state += [torch.empty(B, dtype=torch.int32, device=dev)
                   for _ in range(3)]
-        fns = {"serial": cuda_qspa_stream.stream_step_serial,
-               "groups": cuda_qspa_stream.stream_step}
+        layered = {"flooding": False, "layered": True}.get(what, what)
 
-        def step(f, layered=what == "layered", state=state):
+        def step(layered=layered, state=state):
             state[0].copy_(L)
             for x in state[1:]:
                 x.zero_()
-            return f(*state, code, passes, passes - 1, layered=layered)
+            return cuda_qspa_stream.stream_step(*state, code, passes,
+                                                passes - 1, layered=layered)
 
-        out[kernel] = {d: (lambda f=f, step=step: step(f))
-                       for d, f in fns.items()}
+        out[kernel] = {"groups": step}
     return out
 
 
@@ -192,7 +196,8 @@ def measure(batch: int = 4096, passes: int = 10, ebn0: float = 0.0,
                 if kernel.startswith("qspa_stream") else cuda_qspa)
 
     def arg(kernel):
-        """The method (K8) or the schedule (K5, K7) the modules take."""
+        """The method (K8) or whether the schedule is layered (K5, K7), as
+        the modules take them."""
         return (kernel[len("nbms_"):] if kernel.startswith("nbms")
                 else kernel.endswith("layered"))
 
@@ -207,8 +212,7 @@ def measure(batch: int = 4096, passes: int = 10, ebn0: float = 0.0,
             got = ({"warps": width, "c_on_chip": cuda_qspa.c_on_chip(lay)}
                    if design == "warp" else {"groups": width})
             return got, cuda_qspa.blocks_per_sm(plan, lay, design, dev)
-        G = 1 if design == "serial" else module(kernel).groups(plan,
-                                                               arg(kernel))
+        G = module(kernel).groups(plan, arg(kernel))
         return {"groups": G}, module(kernel).blocks_per_sm(plan, arg(kernel),
                                                            G, dev)
 
@@ -244,13 +248,14 @@ def measure(batch: int = 4096, passes: int = 10, ebn0: float = 0.0,
                    "cycles_per_block": total / batch,
                    "share": {PHASES[i]: c / total for i, c in enumerate(mine)
                              if c}}
-    saved = cuda_nbms.groups, cuda_qspa_stream.groups, cuda_qspa.groups
+    saved = cuda_nbms.groups, cuda_qspa_stream.groups
     try:
         for G in groups:
-            for mod in (cuda_nbms, cuda_qspa_stream, cuda_qspa):
+            for mod in (cuda_nbms, cuda_qspa_stream):
                 mod.groups = lambda plan, method, G=G: G
             for kernel, call in calls.items():
-                if module(kernel).smem_bytes(plan, G) > cuda_qspa.SMEM_LIMIT \
+                if module(kernel) is cuda_qspa or module(kernel).smem_bytes(
+                        plan, G) > cuda_qspa.SMEM_LIMIT \
                         or 32 * plan.max_dc * G > (
                             1024 if G == 1 else cuda_qspa.GROUPED_THREADS):
                     continue
@@ -259,7 +264,7 @@ def measure(batch: int = 4096, passes: int = 10, ebn0: float = 0.0,
                        **width, "blocks_per_sm": blocks, **point,
                        "ms": time_ms(call["groups"], dev, reps=5)}
     finally:
-        cuda_nbms.groups, cuda_qspa_stream.groups, cuda_qspa.groups = saved
+        cuda_nbms.groups, cuda_qspa_stream.groups = saved
     k5 = [k for k in calls if "warp" in calls[k]]
     saved = cuda_qspa.warps
     try:

@@ -1,5 +1,6 @@
 """The CUDA GF(q) max-domain decoder (cuda_ldpc_torch.ops.cuda_nbms, K8:
-EMS Nm=2/Nc=2, EMS at other Nm/Nc, full EMS, TMM, layered TMM) against its
+EMS Nm=2/Nc=2, EMS at other Nm/Nc, full EMS, TMM, layered TMM,
+grouped-layered TMM) against its
 plain PyTorch version.  Tolerance: none — the kernel does the plain version's fp32
 operations in its order (ops/nb_decode.py's docstring fixes them; max, min
 and the GF tables are exact), so hard, ok and iters must be exactly equal.
@@ -35,6 +36,10 @@ METHODS = {"ems": (cuda_nbms.decode_ems, nb_decode.decode_ems, "nbms_ems"),
            "tmm": (cuda_nbms.decode_tmm, nb_decode.decode_tmm, "nbms_tmm"),
            "layered_tmm": (cuda_nbms.decode_layered_tmm,
                            nb_decode.decode_layered_tmm, "nbms_layered_tmm"),
+           "glayered_tmm": (cuda_nbms.decode_glayered_tmm,
+                            lambda L, code, iters: nb_decode.decode(
+                                L, code, "glayered_tmm", iters),
+                            "nbms_glayered_tmm"),
            # conf(q,1) only; the pairs; the chains (unbudgeted on dc = 4,
            # budgeted on LDPC_N576_K480_GF256_exp's dc = 12)
            "ems_nm1_nc2": _ems(1, 2), "ems_nm3_nc2": _ems(3, 2),
@@ -95,8 +100,8 @@ def test_what_the_kernel_takes():
     in device memory.  On BDS flooding blocks (EMS at any Nm/Nc, full EMS,
     TMM) hold 4 row groups of 4 warps: 3 blocks an SM by registers, 12
     groups an SM, as many as 2 or 3 groups give; layered TMM runs one
-    group.  The budgeted chains [2, dc, Nc + 1, q] of a row group live in
-    device memory."""
+    group, and so does grouped-layered TMM.  The budgeted chains [2, dc,
+    Nc + 1, q] of a row group live in device memory."""
     for name in ("BDS.576.288.GF.64", "LDPC_N576_K288_GF64_d1_exp",
                  "LDPC_N96_K48_GF256_d1_exp", "LDPC_N576_K480_GF256_exp"):
         assert cuda_nbms.supports(NBCode.from_registry(name))
@@ -106,6 +111,7 @@ def test_what_the_kernel_takes():
     assert cuda_nbms.groups(plan, "ems_full") == 4
     assert cuda_nbms.groups(plan, "ems_nmnc") == 4
     assert cuda_nbms.groups(plan, "layered_tmm") == 1
+    assert cuda_nbms.groups(plan, "glayered_tmm") == 1
     assert cuda_nbms.smem_bytes(plan, 4) == 4 * (
         96 * 64 + 4 * (2 * 4 * 64 + 7 * 64 + 96) + 64 + 126 + 96)
     assert cuda_nbms.smem_bytes(plan) == 4 * (

@@ -1,6 +1,7 @@
-"""The CUDA GF(q) FFT-QSPA decoders (cuda_ldpc_torch.ops.cuda_qspa, K5, in
-each of its designs, and .cuda_qspa_qc, K6, whose staged kernel is also held
-to its global-memory design) against their plain PyTorch versions.  Tolerance: none —
+"""The CUDA GF(q) FFT-QSPA decoders (cuda_ldpc_torch.ops.cuda_qspa, K5,
+flooding, layered and grouped-layered, in each of its designs, and
+.cuda_qspa_qc, K6, whose staged kernel is also held to its global-memory
+design) against their plain PyTorch versions.  Tolerance: none —
 the kernels do the plain version's fp32 operations in its order (its
 docstring fixes them), and the card's expf/logf equal torch.exp/torch.log
 there, so hard, ok and iters must be exactly equal.
@@ -98,32 +99,36 @@ K5_CASES = [
 ]
 
 
+KERNELS = {"flooding": (cuda_qspa.decode_flooding, nb_decode.decode_qspa),
+           "layered": (cuda_qspa.decode_layered,
+                       nb_decode.decode_layered_qspa),
+           "glayered": (cuda_qspa.decode_glayered,
+                        nb_decode.decode_glayered_qspa)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("layered", [False, True])
+@pytest.mark.parametrize("schedule", list(KERNELS))
 @pytest.mark.parametrize("name,ebn0,batch,iters,n_qam", K5_CASES,
                          ids=[f"{c[0]}-{c[4]}qam-it{c[3]}-B{c[2]}"
                               for c in K5_CASES])
-def test_k5_matches_plain_on_card(cuda, layered, name, ebn0, batch, iters,
+def test_k5_matches_plain_on_card(cuda, schedule, name, ebn0, batch, iters,
                                   n_qam):
     """The kernel in the layout the dispatch rule picks, and every design
-    the code takes (the serial design, a warp an edge on row groups, a row
-    on one warp where it fits), against the plain version: hard, ok and
-    iters of every frame.  The main path's call is counted under its
-    schedule and under the design the rule picks."""
+    the code takes (a warp an edge on one row group, a row on one warp
+    where it fits), against the plain version: hard, ok and iters of every
+    frame.  The main path's call is counted under its schedule and under
+    the design the rule picks."""
     code = NBCode.from_registry(name)
     plan = cuda_qspa.make_plan(code)
     L = _llr(code, ebn0, batch, batch + iters, cuda, n_qam)
-    schedule = "layered" if layered else "flooding"
     before = dict(cuda_qspa.LAUNCHES)
-    kernel = cuda_qspa.decode_layered if layered else cuda_qspa.decode_flooding
-    plain = (nb_decode.decode_layered_qspa if layered
-             else nb_decode.decode_qspa)
+    kernel, plain = KERNELS[schedule]
     designs = [d for d in cuda_qspa.DESIGNS
                if d != "warp" or cuda_qspa.warp_fits(plan)]
     assert ("warp" in designs) == (name in ("BDS.576.288.GF.64",
                                             "LDPC_N576_K288_GF64_d1_exp"))
     a, b = kernel(L, code, iters), plain(L, code, iters)
-    each = {d: cuda_qspa.decode_design(L, code, iters, layered, d)
+    each = {d: cuda_qspa.decode_design(L, code, iters, schedule, d)
             for d in designs}
     torch.cuda.synchronize()
     _assert_same(a, b)
@@ -139,18 +144,17 @@ def test_k5_matches_plain_on_card(cuda, layered, name, ebn0, batch, iters,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layered", [False, True])
+@pytest.mark.parametrize("schedule", list(KERNELS))
 @pytest.mark.parametrize("name,batch", [("BDS.576.288.GF.64", 512),
                                         ("LDPC_N576_K288_GF64_d1_exp", 37)])
-def test_k5_row_on_a_warp_at_a_larger_batch(cuda, name, batch, layered):
-    """A row on one warp (flooding with each frame's C on chip, layered
-    with it in device memory) at a batch of many blocks an SM, against
-    the plain version, every frame."""
+def test_k5_row_on_a_warp_at_a_larger_batch(cuda, name, batch, schedule):
+    """A row on one warp (flooding with each frame's C on chip, the layered
+    schedules with it in device memory) at a batch of many blocks an SM,
+    against the plain version, every frame."""
     code = NBCode.from_registry(name)
     L = _llr(code, 1.5, batch, 3, cuda)
-    got = cuda_qspa.decode_design(L, code, 20, layered, "warp")
-    want = (nb_decode.decode_layered_qspa if layered
-            else nb_decode.decode_qspa)(L, code, 20)
+    got = cuda_qspa.decode_design(L, code, 20, schedule, "warp")
+    want = KERNELS[schedule][1](L, code, 20)
     torch.cuda.synchronize()
     _assert_same(got, want)
 
@@ -230,6 +234,23 @@ def test_k6_matches_plain_on_card(cuda, layered, name, ebn0, batch, early):
     assert cuda_qspa_qc.LAUNCHES[key] == before[key] + 1
     assert cuda_qspa_qc.LAUNCHES[key + "_global"] == (
         before[key + "_global"] + 1)
+
+
+@pytest.mark.cuda
+def test_k6_runs_serial_row_layered_on_tanner(cuda):
+    """On Tanner_74_9_Z128_GF16 the row groups are the block rows in row
+    order, so K6's block-row schedule is the serial-row layered QSPA: ok
+    and iters of every frame exactly, hard on the frames whose check
+    passed (K6's rule)."""
+    code = NBCode.from_registry("Tanner_74_9_Z128_GF16")
+    assert cuda_qspa_qc.layered_is_block_rows(code)
+    L = _llr(code, 4.3, 32, 5, cuda)
+    a = cuda_qspa_qc.decode_layered(L, code, 10)
+    b = nb_decode.decode_layered_qspa(L, code, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(a.ok, b.ok) and torch.equal(a.iters, b.iters)
+    assert torch.equal(a.hard[b.ok], b.hard[b.ok])
+    assert 0 < int(b.ok.sum())
 
 
 @pytest.mark.cuda

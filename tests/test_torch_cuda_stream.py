@@ -15,9 +15,9 @@ lives: the cluster size and the shared-memory layout, shared with the batch
 kernels K1 and K2) is checked on the CPU.  K7
 follows the plain version's order of the softmax, the transforms and the
 products (as K5 does), so t, done, okf, hard, C and the layered totals
-must be exactly equal too, and its row groups (the rows of a pass at once,
-layered by dependency level) must equal its serial design (one row at a
-time, ``stream_step_serial``) in every state tensor.
+must be exactly equal too, in each schedule: flooding, serial-row layered
+and grouped-layered (its row groups run the rows of a pass at once,
+layered by dependency level, grouped-layered by the greedy row groups).
 
 The kernel cases need a card and skip without one.  The file imports only
 the port, so on a machine with a card and no JAX it runs on its own:
@@ -120,9 +120,12 @@ def test_cpu_tensors_take_the_plain_versions():
     L = _nb_chan(nb, 0.9, 3, gen)
     E = int(nb.cn_mask.sum())
     before = dict(cuda_qspa_stream.LAUNCHES)
-    a = cuda_qspa_stream.stream_step(*_state(L.clone(), (E, nb.q)), nb, 2, 6)
-    b = qspa_stream.stream_step(*_state(L.clone(), (E, nb.q)), nb, 2, 6)
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for layered in (False, "glayered"):
+        a = cuda_qspa_stream.stream_step(*_state(L.clone(), (E, nb.q)), nb,
+                                         2, 6, layered=layered)
+        b = qspa_stream.stream_step(*_state(L.clone(), (E, nb.q)), nb, 2, 6,
+                                    layered=layered)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert cuda_qspa_stream.LAUNCHES == before
 
 
@@ -415,8 +418,9 @@ def test_k4_takes_a_state_the_plain_version_built(cuda, name, B, layered):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layered", [False, True])
+@pytest.mark.parametrize("layered", [False, True, "glayered"])
 @pytest.mark.parametrize("name,sigma", [("BDS.576.288.GF.64", 0.95),
+                                        ("LDPC_N576_K288_GF64_d1_exp", 0.8),
                                         ("LDPC_N96_K48_GF256_d1_exp", 0.6),
                                         ("LDPC_N576_K480_GF256_exp", 0.45)])
 def test_k7_equals_plain_over_calls(cuda, name, sigma, layered):
@@ -435,35 +439,3 @@ def test_k7_equals_plain_over_calls(cuda, name, sigma, layered):
 
     _run_both(kernel, plain, _state(chans[0], (E, code.q)),
               [(1, chans[1]), (3, chans[2]), (max_it + 1, None)], cuda)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("layered", [False, True])
-@pytest.mark.parametrize("name,sigma", [("BDS.576.288.GF.64", 0.95),
-                                        ("LDPC_N576_K288_GF64_d1_exp", 0.8),
-                                        ("LDPC_N96_K48_GF256_d1_exp", 0.6),
-                                        ("LDPC_N576_K480_GF256_exp", 0.45)])
-def test_k7_row_groups_equal_the_serial_design_over_calls(cuda, name, sigma,
-                                                          layered):
-    """K7's row groups (flooding: every row of a pass at once; layered: by
-    dependency level) against the serial design, one row at a time, over a
-    call sequence with refills: every state tensor bit for bit."""
-    code = NBCode.from_registry(name)
-    gen = torch.Generator().manual_seed(11)
-    B, max_it = 37, 8
-    chans = [_nb_chan(code, sigma, B, gen) for _ in range(3)]
-    E = int(code.cn_mask.sum())
-    kw = dict(code=code, max_iters=max_it, layered=layered)
-    key = f"qspa_stream_serial_{'layered' if layered else 'flooding'}"
-    before = cuda_qspa_stream.LAUNCHES[key]
-
-    def kernel(*s, k):
-        return cuda_qspa_stream.stream_step(*s, k=k, **kw)
-
-    def serial(*s, k):
-        return cuda_qspa_stream.stream_step_serial(*s, k=k, **kw)
-
-    _run_both(kernel, serial, _state(chans[0], (E, code.q)),
-              [(1, chans[1]), (3, chans[2]), (max_it + 1, None)], cuda)
-    assert cuda_qspa_stream.LAUNCHES[key] == before + 3
-

@@ -3,17 +3,19 @@
 (cuda_ldpc_torch.ops.cuda_qspa.row_waves, .pick_groups), and their phase
 tool (cuda_ldpc_torch.tools.nb_rows_phases), on the CPU.
 
-The plan is right when running its waves in order, the rows of a wave at
-once, gives the serial schedule bit for bit: every row appears once, the
-rows of a wave touch disjoint VNs, and every pair of rows that share a VN
-keeps its serial order.  The greedy colouring ``nb_decode.row_groups`` of
-grouped-layered decoding does not keep that order, so it must not be the
-plan.  A plain emulation holds the plan to the serial plain decoders:
-``nb_decode``'s grouped-layered step, run with the waves as its groups,
-equals its serial-row layered step, state for state (tolerance: none); with
-the greedy groups it does not.  No JAX here: the plain decoders are held to
-the JAX package by tests/test_torch_nb_decode.py and
-tests/test_torch_nb_maxdomain*.py.
+The layered plan is right when running its waves in order, the rows of a
+wave at once, gives the serial schedule bit for bit: every row appears
+once, the rows of a wave touch disjoint VNs, and every pair of rows that
+share a VN keeps its serial order.  The greedy colouring
+``nb_decode.row_groups`` of grouped-layered decoding does not keep that
+order, so it must not be the layered plan; it is the grouped-layered plan
+('glayered'), one wave a group.  A plain emulation holds the plans to the
+plain decoders: ``nb_decode``'s grouped-layered step, run with the layered
+waves as its groups, equals its serial-row layered step, state for state
+(tolerance: none), and with the greedy groups it does not; run with the
+'glayered' waves, it equals itself with ``row_groups``.  No JAX here: the
+plain decoders are held to the JAX package by
+tests/test_torch_nb_decode.py and tests/test_torch_nb_maxdomain*.py.
 """
 
 import re
@@ -81,19 +83,46 @@ def test_layered_waves_keep_the_serial_order(name):
 
 @pytest.mark.parametrize("name", list(CODES))
 def test_flooding_and_serial_plans(name):
-    """Flooding: one wave of every row in order; serial: a wave a row."""
+    """Flooding: one wave of every row in order.  The serial plan (a wave
+    a row, the serial designs' yardstick) is gone with those designs."""
     code = NBCode.from_registry(name)
     M = code.m_sym
     flood = cuda_qspa.row_waves(code, "flooding")
     assert flood.wave_ptr.tolist() == [0, M]
     assert flood.wave_row.tolist() == list(range(M))
-    serial = cuda_qspa.row_waves(code, "serial")
-    assert serial.wave_ptr.tolist() == list(range(M + 1))
-    assert serial.wave_row.tolist() == list(range(M))
-    for w in (flood, serial):
-        assert w.wave_ptr.dtype == w.wave_row.dtype == np.int32
-    with pytest.raises(ValueError, match="unknown wave schedule"):
-        cuda_qspa.row_waves(code, "grouped")
+    assert flood.wave_ptr.dtype == flood.wave_row.dtype == np.int32
+    for unknown in ("serial", "grouped"):
+        with pytest.raises(ValueError, match="unknown wave schedule"):
+            cuda_qspa.row_waves(code, unknown)
+
+
+# code -> the sizes of its greedy row groups
+GROUPS = {"BDS.576.288.GF.64": [17, 15, 13, 3],
+          "LDPC_N576_K288_GF64_d1_exp": [16, 16, 12, 4],
+          "LDPC_N576_K480_GF256_exp": [3, 3, 3, 3],
+          "LDPC_N96_K48_GF256_d1_exp": [2, 2, 2]}
+
+
+@pytest.mark.parametrize("name", list(GROUPS))
+def test_glayered_waves_are_the_row_groups(name):
+    """'glayered': one wave per group of ``nb_decode.row_groups``, in group
+    order, each ascending, its rows on disjoint VNs."""
+    code = NBCode.from_registry(name)
+    plan = cuda_qspa.make_plan(code)
+    g = nb_decode.build_graph(code)
+    groups = nb_decode.row_groups(g.cn_links, g.cn_mask)
+    w = cuda_qspa.row_waves(code, "glayered")
+    assert w.wave_ptr.dtype == w.wave_row.dtype == np.int32
+    waves = _waves(w)
+    assert [len(x) for x in waves] == GROUPS[name]
+    vns = _row_vns(plan)
+    for wave, rows in zip(waves, groups):
+        assert wave.tolist() == rows.tolist()
+        assert (np.diff(wave) > 0).all()
+        seen = set()
+        for m in wave:
+            assert not seen & vns[m]
+            seen |= vns[m]
 
 
 def test_the_plan_is_not_the_greedy_colouring(monkeypatch):
@@ -132,14 +161,25 @@ def _step_states(code, method, L, passes):
     return states
 
 
-@pytest.mark.parametrize("method", ["layered_tmm", "layered_qspa"])
+@pytest.mark.parametrize("method", ["layered_tmm", "layered_qspa",
+                                    "glayered_tmm", "glayered_qspa"])
 def test_waves_emulate_the_serial_schedule(monkeypatch, method):
-    """nb_decode's grouped-layered step with the waves as its groups (the
-    rows of a wave at once) equals the serial-row step bit for bit, totals
-    and messages, over two passes on BDS; with the greedy colouring's
-    groups it does not; and the decode's hard, ok and iters agree too."""
+    """nb_decode's grouped-layered step with the layered waves as its
+    groups (the rows of a wave at once) equals the serial-row step bit for
+    bit, totals and messages, over two passes on BDS; with the greedy
+    colouring's groups it does not; and the decode's hard, ok and iters
+    agree too.  With the 'glayered' waves as its groups it equals itself
+    with ``row_groups``."""
     code = NBCode.from_registry("BDS.576.288.GF.64")
     L = torch.from_numpy(channel_llr(code, 4, 2.0, seed=9))
+    if method.startswith("g"):
+        want = _step_states(code, method, L, 2)
+        waves = _waves(cuda_qspa.row_waves(code, "glayered"))
+        monkeypatch.setattr(nb_decode, "row_groups", lambda *a: waves)
+        for got, ref in zip(_step_states(code, method, L, 2), want):
+            for a, b in zip(got, ref):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        return
     grouped = "g" + method
     serial = _step_states(code, method, L, 2)
     greedy = _step_states(code, grouped, L, 1)
@@ -162,7 +202,7 @@ def test_row_groups_fit_a_block(name):
     code = NBCode.from_registry(name)
     plan = cuda_qspa.make_plan(code)
     picks = [(cuda_nbms, cuda_nbms.groups(plan, m))
-             for m in ("ems", "tmm", "layered_tmm")]
+             for m in ("ems", "tmm", "layered_tmm", "glayered_tmm")]
     picks += [(cuda_qspa_stream, cuda_qspa_stream.groups(plan, lay))
               for lay in (False, True)]
     for mod, g in picks:

@@ -20,6 +20,7 @@ from cuda_ldpc_torch.ops import (cuda_nbms, cuda_qspa, cuda_qspa_qc, demod,
 from cuda_ldpc_torch.utils import registry
 
 from test_torch_nb_decode import codes
+from test_torch_nb_maxdomain_codes import rows_in_order
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -73,24 +74,31 @@ def _pick(code, method, kernel="auto", device=torch.device("cuda", 0),
 
 
 def test_nb_dispatch():
-    """auto on a card: K5 for qspa and layered_qspa on the adjacency codes,
-    K6 for qspa and glayered_qspa on the QC code, an error for the pairs
-    with no kernel; torch: the plain version; cuda on the CPU: an error."""
+    """auto on a card: K5 for qspa, layered_qspa and glayered_qspa on the
+    adjacency codes, K6 for qspa and glayered_qspa on the QC code and for
+    layered_qspa where its row groups are its block rows in order (the
+    same function there), an error for the pairs with no kernel (a GF(16)
+    code whose rows are not in QC order); torch: the plain version; cuda
+    on the CPU: an error."""
     bds, _ = codes("BDS.576.288.GF.64")
     tanner = sim.NBCode.from_registry("Tanner_74_9_Z128_GF16")
+    shuffled = rows_in_order(tanner, np.random.default_rng(0).permutation(
+        tanner.m_sym))
     card, cpu = torch.device("cuda", 0), torch.device("cpu")
     pick = _pick
 
     for code, method, fn in [
             (bds, "qspa", cuda_qspa.decode_flooding),
             (bds, "layered_qspa", cuda_qspa.decode_layered),
+            (bds, "glayered_qspa", cuda_qspa.decode_glayered),
             (tanner, "qspa", cuda_qspa_qc.decode_flooding),
-            (tanner, "glayered_qspa", cuda_qspa_qc.decode_layered)]:
+            (tanner, "glayered_qspa", cuda_qspa_qc.decode_layered),
+            (tanner, "layered_qspa", cuda_qspa_qc.decode_layered)]:
         for kernel in ("auto", "cuda"):
             f = pick(code, method, kernel)
             assert f.func is fn and f.keywords == {"code": code,
                                                    "max_iters": 7}
-    for code, method in [(tanner, "layered_qspa"), (bds, "glayered_qspa")]:
+    for code, method in [(shuffled, "qspa"), (shuffled, "layered_qspa")]:
         for kernel in ("auto", "cuda"):
             with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 13"):
                 pick(code, method, kernel)
@@ -122,7 +130,11 @@ K8_DISPATCH = [
     ("BDS.576.288.GF.64", "ems_full", (2, 2), cuda_nbms.decode_ems_full),
     ("LDPC_N576_K480_GF256_exp", "ems_full", (3, 3),
      cuda_nbms.decode_ems_full),
-    ("BDS.576.288.GF.64", "glayered_tmm", (2, 2), None),
+    ("BDS.576.288.GF.64", "glayered_tmm", (2, 2),
+     cuda_nbms.decode_glayered_tmm),
+    ("LDPC_N576_K480_GF256_exp", "glayered_tmm", (2, 2),
+     cuda_nbms.decode_glayered_tmm),
+    ("Tanner_74_9_Z128_GF16", "glayered_tmm", (2, 2), None),
     ("Tanner_74_9_Z128_GF16", "ems", (2, 2), None),
     ("Tanner_74_9_Z128_GF16", "ems", (4, 2), None),
     ("Tanner_74_9_Z128_GF16", "layered_tmm", (2, 2), None),

@@ -34,15 +34,16 @@ LAYOUTS = {"BDS.576.288.GF.64": ("warp", 4),
 @pytest.mark.parametrize("name", list(LAYOUTS))
 def test_the_dispatch_rule_picks_the_layout(name):
     """A row on one warp where dc' q <= 256 (8 lanes an edge, 8 symbols a
-    lane on GF(64)); row groups elsewhere, one group for q >= 128."""
+    lane on GF(64)); a warp an edge on one row group elsewhere (the only
+    group count the kernel is built for)."""
     plan = cuda_qspa.make_plan(NBCode.from_registry(name))
     layout, dcp = LAYOUTS[name]
     assert cuda_qspa.padded_degree(plan) == dcp
     assert cuda_qspa.row_layout(plan) == layout
     assert cuda_qspa.warp_fits(plan) == (layout == "warp")
     assert (dcp * plan.q <= 256) == (layout == "warp")
-    if plan.q >= 128:
-        assert cuda_qspa.groups(plan, False) == cuda_qspa.groups(plan, True) == 1
+    for layered in (False, True):
+        assert cuda_qspa.launch_shape(plan, layered, "groups") == (0, 1)
     with pytest.raises(ValueError, match="design"):
         cuda_qspa.launch_shape(plan, False, "rows")
     if layout == "groups":
@@ -53,17 +54,18 @@ def test_the_dispatch_rule_picks_the_layout(name):
 @pytest.mark.parametrize("layered", [False, True])
 @pytest.mark.parametrize("name", list(LAYOUTS))
 def test_launch_shapes_fit_a_block(name, layered):
-    """Every design's block: a warp an edge at most 7 groups (named
-    barriers 1-7), 1024 threads for one group and 512 for more; a row on
-    one warp at least 2 warps (each is a row group of walk_waves) and at
-    most the kernel's launch bound for the schedule; shared memory within
-    227 KB, and the row-a-warp block without the row scratch, with the
-    frame's C for flooding."""
+    """Every design's block: a warp an edge on one row group, at most 1024
+    threads (the serial design, one row at a time, is gone); a row on one
+    warp at least 2 warps (each is a row group of walk_waves) and at most
+    the kernel's launch bound for the schedule; shared memory within 227
+    KB, and the row-a-warp block without the row scratch, with the frame's
+    C for flooding."""
     plan = cuda_qspa.make_plan(NBCode.from_registry(name))
-    assert cuda_qspa.launch_shape(plan, layered, "serial") == (0, 1)
+    with pytest.raises(ValueError, match="design"):
+        cuda_qspa.launch_shape(plan, layered, "serial")
     layout, G = cuda_qspa.launch_shape(plan, layered, "groups")
-    assert layout == 0 and 1 <= G <= min(7, plan.M)
-    assert 32 * plan.max_dc * G <= (1024 if G == 1 else 512)
+    assert (layout, G) == (0, 1)
+    assert 32 * plan.max_dc <= 1024
     assert cuda_qspa.smem_bytes(plan, G) <= cuda_qspa.SMEM_LIMIT
     if cuda_qspa.warp_fits(plan):
         layout, nw = cuda_qspa.launch_shape(plan, layered, "warp")

@@ -27,6 +27,7 @@ from cuda_ldpc_tpu import sim as jax_sim
 from cuda_ldpc_tpu.models.qc_binary import QCBinaryCode as JaxCode
 from cuda_ldpc_torch import NBCode, QCBinaryCode, cli, sim
 from cuda_ldpc_torch import config as cfg
+from cuda_ldpc_torch.ops import cuda_qspa_stream
 from cuda_ldpc_torch.utils import stats
 
 CPU = torch.device("cpu")
@@ -336,11 +337,12 @@ def test_packed_batch_kill_and_resume(tmp_path, monkeypatch):
     assert _counters(resumed.rows) == _counters(full.rows)
 
 
-def test_stream_dispatch_on_a_card():
-    """auto on a card (and cuda) takes the kernel engines; a GF(q) pair
-    that K7 does not run raises, naming the ROADMAP item, before anything
-    is allocated; cuda on the CPU raises; torch and the CPU take the plain
-    engines."""
+def test_stream_dispatch_on_a_card(monkeypatch):
+    """auto on a card (and cuda) takes the kernel engines: K7 for qspa,
+    layered_qspa and glayered_qspa on the adjacency codes; a GF(q) pair
+    that K7 does not run (the Tanner code) raises, naming the ROADMAP item,
+    before anything is allocated; cuda on the CPU raises; torch and the CPU
+    take the plain engines."""
     card = torch.device("cuda", 0)                 # nothing runs
     assert sim._stream_uses_kernel("auto", card)
     assert sim._stream_uses_kernel("cuda", card)
@@ -352,12 +354,23 @@ def test_stream_dispatch_on_a_card():
         sim._stream_uses_kernel("pallas", CPU)
     tanner = NBCode.from_registry("Tanner_74_9_Z128_GF16")
     bds = NBCode.from_registry("BDS.576.288.GF.64")
-    for code, method in [(tanner, "qspa"), (tanner, "glayered_qspa"),
-                         (bds, "glayered_qspa")]:
-        scfg = _nb_cfg(code=code.name, decoder=cfg.NBDecoderConfig(
+    for method in ("qspa", "layered_qspa", "glayered_qspa"):
+        scfg = _nb_cfg(code=tanner.name, decoder=cfg.NBDecoderConfig(
             method=method))
         with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 13"):
-            sim.make_nb_stream_engine(code, scfg, card)
+            sim.make_nb_stream_engine(tanner, scfg, card)
+    # the kernel engine's step on BDS, built on the CPU with the kernel
+    # engine forced (a card's source would allocate on the card)
+    monkeypatch.setattr(sim, "_stream_uses_kernel", lambda kernel, d: True)
+    monkeypatch.setattr(sim, "_kernel_stream", lambda kstep, *a: kstep)
+    for method, layered in [("qspa", False), ("layered_qspa", True),
+                            ("glayered_qspa", "glayered")]:
+        kstep = sim.make_nb_stream_engine(bds, _nb_cfg(
+            decoder=cfg.NBDecoderConfig(method=method)), CPU)
+        assert kstep.func is cuda_qspa_stream.stream_step
+        assert kstep.keywords == {"code": bds, "max_iters": 20,
+                                  "layered": layered}
+    monkeypatch.undo()
     with pytest.raises(ValueError, match="per-frame check"):
         sim.make_binary_stream_engine(
             QCBinaryCode.from_registry("J4_L24_Z96"),
