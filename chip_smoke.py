@@ -126,10 +126,13 @@ TMM, layered TMM, grouped-layered TMM) joins each phase:
               other Nm/Nc (the mode ems_nmnc) against the plain EMS at the
               same Nm/Nc: every branch (conf(q,1) alone, the pairs, the
               chains, the budgeted chains at Nc = 3 to 10 on
-              LDPC_N576_K480_GF256_exp), ties on
+              LDPC_N576_K480_GF256_exp, listed and dense messages, the
+              most levels at Nc = 6), ties on
               LDPC_N576_K288_GF64_d1_exp, zero and random codewords,
               max_iters 0, 1, 3 and 20, a ragged batch; hard, ok and iters
-              exactly equal
+              exactly equal; full EMS's and EMS at Nm/Nc's earlier designs
+              (the yardstick, ``decode_ems_full_dense`` and
+              ``decode_ems_nmnc_dense``) against the same plain results
   main        `nb` with no --method (ems) on BDS at Eb/N0 1 and 2 dB, then
               tmm, layered_tmm and ems_full, FER compatible with
               VALIDATION.md:19, 23, 24 and 20 (ems_full: 2048 frames a
@@ -148,7 +151,8 @@ TMM, layered TMM, grouped-layered TMM) joins each phase:
               each method's kernel and plain version in turns
               (grouped-layered TMM also beside the serial-row layered TMM
               kernel; EMS at Nm/Nc 16/2 and 64/3; and 8/10, budgeted, on
-              LDPC_N576_K480_GF256_exp at B=64)
+              LDPC_N576_K480_GF256_exp at B=64; full EMS and EMS at Nm/Nc
+              also beside their earlier designs, the yardstick, in turns)
 Random codewords (the sources of `--tx random`, models/encoder.py) join
 each phase:
   parity      cases of the tables above whose channel comes from the
@@ -278,6 +282,10 @@ KERNELS = [
      "tools/probe_oprate.py:122"),
 ]
 BINARY = KERNELS[:4]
+# The earlier designs of two K8 modes, timed and held to the plain version
+# beside them; no path of the port launches them.
+YARDSTICKS = {"nbms_ems_full": "nbms_ems_full_dense",
+              "nbms_ems_nmnc": "nbms_ems_nmnc_dense"}
 # The K11 chains of the kernels line: every op class, n_par 1, this many
 # steps (the rate table itself takes K = 50,000 and 250,000)
 K11_LINE_STEPS = 1000
@@ -1344,6 +1352,8 @@ def main() -> int:
                 for c in table for s in ("flooding", "layered")])
     max_err = {name: 0.0 for name, _, _ in KERNELS}
     mismatches = {name: 0 for name, _, _ in KERNELS}
+    for name in YARDSTICKS.values():
+        max_err[name], mismatches[name] = 0.0, 0
     for i, (schedule, rule, tx, dtype, name, st, snr, B, iters, check, early,
             alpha, beta) in enumerate(cases):
         code = code_of(name)
@@ -1599,28 +1609,34 @@ def main() -> int:
                 B = min(B, 1024 if code.q <= 64 else 64)
             L, sent = nb_chan(code, ebn0, B, seed=800 + i, tx=tx)
             kernel, plain = k8_pairs[key]
-            a, b = kernel(L, code, iters), plain(L, code, iters)
-            torch.cuda.synchronize()
-            counts = {"hard": int((a.hard != b.hard).sum()),
-                      "ok": int((a.ok != b.ok).sum()),
-                      "iters": int((a.iters != b.iters).sum())}
-            err = max([int((a.hard - b.hard).abs().max()) if B else 0,
-                       counts["ok"] > 0,
-                       int((a.iters - b.iters).abs().max()) if B else 0])
-            max_err[key] = max(max_err[key], float(err))
-            mismatches[key] += sum(counts.values())
-            _emit("parity", kernel=key, tx=tx, code=name, ebn0=ebn0,
-                  batch=B, iters=iters, groups=cuda_nbms.groups(
-                      cuda_nbms.make_plan(code), key[len("nbms_"):]),
-                  frames_ok=int(b.ok.sum()),
-                  frames_decoded_to_their_codeword=int((b.hard == (
-                      0 if sent is None else sent)).all(1).sum()),
-                  avg_iters=float(b.iters.float().mean()),
-                  mismatches=counts, max_abs_err=err)
-            if any(counts.values()):
-                raise AssertionError(f"K8 != plain on {key} {k8_all[i]}: "
-                                     f"{counts}")
-            del a, b, L, sent
+            b = plain(L, code, iters)
+            runs = [(key, kernel)]
+            if key == "nbms_ems_full":
+                runs.append((YARDSTICKS[key], cuda_nbms.decode_ems_full_dense))
+            for name_, kernel_ in runs:
+                a = kernel_(L, code, iters)
+                torch.cuda.synchronize()
+                counts = {"hard": int((a.hard != b.hard).sum()),
+                          "ok": int((a.ok != b.ok).sum()),
+                          "iters": int((a.iters != b.iters).sum())}
+                err = max([int((a.hard - b.hard).abs().max()) if B else 0,
+                           counts["ok"] > 0,
+                           int((a.iters - b.iters).abs().max()) if B else 0])
+                max_err[name_] = max(max_err[name_], float(err))
+                mismatches[name_] += sum(counts.values())
+                _emit("parity", kernel=name_, tx=tx, code=name, ebn0=ebn0,
+                      batch=B, iters=iters, groups=cuda_nbms.groups(
+                          cuda_nbms.make_plan(code), name_[len("nbms_"):]),
+                      frames_ok=int(b.ok.sum()),
+                      frames_decoded_to_their_codeword=int((b.hard == (
+                          0 if sent is None else sent)).all(1).sum()),
+                      avg_iters=float(b.iters.float().mean()),
+                      mismatches=counts, max_abs_err=err)
+                if any(counts.values()):
+                    raise AssertionError(f"K8 != plain on {name_} "
+                                         f"{k8_all[i]}: {counts}")
+                del a
+            del b, L, sent
         torch.cuda.empty_cache()
 
     # K8's mode ems_nmnc against the plain EMS at the same Nm/Nc, every
@@ -1650,38 +1666,50 @@ def main() -> int:
         ("LDPC_N576_K480_GF256_exp", 4, 5, 3.0, 16, 20, "zero"),
         ("LDPC_N576_K480_GF256_exp", 8, 10, 3.0, 16, 20, "zero"),
         ("LDPC_N576_K480_GF256_exp", 8, 10, 3.0, 23, 10, "zero"),
+        # the most budget levels (Nc = 6), listed and dense messages; the
+        # unbudgeted chains at dc = 12
+        ("LDPC_N576_K480_GF256_exp", 8, 6, 3.0, 16, 20, "zero"),
+        ("LDPC_N576_K480_GF256_exp", 100, 6, 3.0, 16, 20, "zero"),
+        ("LDPC_N576_K480_GF256_exp", 8, 11, 3.0, 16, 20, "zero"),
     ]
     key = "nbms_ems_nmnc"
     for i, (name, nm, nc, ebn0, B, iters, tx) in enumerate(nmnc_cases):
         code = nb_code(name)
         L, sent = nb_chan(code, ebn0, B, seed=900 + i, tx=tx)
         t0 = time.perf_counter()
-        a = cuda_nbms.decode_ems(L, code, iters, nm=nm, nc=nc)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
         b = nb_decode.decode_ems(L, code, iters, nm=nm, nc=nc)
         torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        counts = {"hard": int((a.hard != b.hard).sum()),
-                  "ok": int((a.ok != b.ok).sum()),
-                  "iters": int((a.iters != b.iters).sum())}
-        err = max([int((a.hard - b.hard).abs().max()), counts["ok"] > 0,
-                   int((a.iters - b.iters).abs().max())])
-        max_err[key] = max(max_err[key], float(err))
-        mismatches[key] += sum(counts.values())
-        _emit("parity", kernel=key, tx=tx, code=name, nm=nm, nc=nc,
-              branch=cuda_nbms.ems_branch(nm, nc, code.max_dc), ebn0=ebn0,
-              batch=B, iters=iters, groups=cuda_nbms.groups(
-                  cuda_nbms.make_plan(code), "ems_nmnc"),
-              frames_ok=int(b.ok.sum()),
-              frames_decoded_to_their_codeword=int((b.hard == (
-                  0 if sent is None else sent)).all(1).sum()),
-              avg_iters=float(b.iters.float().mean()), kernel_s=t1 - t0,
-              plain_s=t2 - t1, mismatches=counts, max_abs_err=err)
-        if any(counts.values()):
-            raise AssertionError(f"K8 != plain on {key} {nmnc_cases[i]}: "
-                                 f"{counts}")
-        del a, b, L, sent
+        plain_s = time.perf_counter() - t0
+        for name_, kernel_ in (
+                (key, cuda_nbms.decode_ems),
+                (YARDSTICKS[key], cuda_nbms.decode_ems_nmnc_dense)):
+            t0 = time.perf_counter()
+            a = kernel_(L, code, iters, nm=nm, nc=nc)
+            torch.cuda.synchronize()
+            kernel_s = time.perf_counter() - t0
+            counts = {"hard": int((a.hard != b.hard).sum()),
+                      "ok": int((a.ok != b.ok).sum()),
+                      "iters": int((a.iters != b.iters).sum())}
+            err = max([int((a.hard - b.hard).abs().max()), counts["ok"] > 0,
+                       int((a.iters - b.iters).abs().max())])
+            max_err[name_] = max(max_err[name_], float(err))
+            mismatches[name_] += sum(counts.values())
+            _emit("parity", kernel=name_, tx=tx, code=name, nm=nm, nc=nc,
+                  branch=cuda_nbms.ems_branch(nm, nc, code.max_dc),
+                  ebn0=ebn0, batch=B, iters=iters, groups=cuda_nbms.groups(
+                      cuda_nbms.make_plan(code), name_[len("nbms_"):], nm,
+                      nc),
+                  frames_ok=int(b.ok.sum()),
+                  frames_decoded_to_their_codeword=int((b.hard == (
+                      0 if sent is None else sent)).all(1).sum()),
+                  avg_iters=float(b.iters.float().mean()),
+                  kernel_s=kernel_s, plain_s=plain_s, mismatches=counts,
+                  max_abs_err=err)
+            if any(counts.values()):
+                raise AssertionError(f"K8 != plain on {name_} "
+                                     f"{nmnc_cases[i]}: {counts}")
+            del a
+        del b, L, sent
     torch.cuda.empty_cache()
 
     # K4 and K7 against their plain versions over the stream engines' call
@@ -2643,6 +2671,12 @@ def main() -> int:
             reps["layered"] = 20
             order = ("plain", "kernel", "layered", "layered", "kernel",
                      "plain")
+        if key in YARDSTICKS:
+            # against its earlier design, in turns
+            decoders["yardstick"] = cuda_nbms.decode_ems_full_dense
+            reps["yardstick"] = 20
+            order = ("plain", "kernel", "yardstick", "yardstick", "kernel",
+                     "plain")
 
         def launch(which, i):
             return decoders[which](chans[i % 2], code, iters)
@@ -2675,13 +2709,16 @@ def main() -> int:
                         for i in range(2)])
         decoders = {
             "kernel": functools.partial(cuda_nbms.decode_ems, nm=nm, nc=nc),
+            "yardstick": functools.partial(cuda_nbms.decode_ems_nmnc_dense,
+                                           nm=nm, nc=nc),
             "plain": functools.partial(nb_decode.decode_ems, nm=nm, nc=nc)}
 
         def launch(which, i):
             return decoders[which](tchans[i % 2], tcode, iters)
 
-        runs = time_turns(launch, {"plain": 1, "kernel": 10},
-                          order=("plain", "kernel", "kernel"))
+        runs = time_turns(launch, {"plain": 1, "kernel": 10, "yardstick": 10},
+                          order=("plain", "kernel", "yardstick", "yardstick",
+                                 "kernel"))
         ms = {k: statistics.median(v) for k, v in runs.items()}
         res = launch("kernel", 0)
         tplan = cuda_nbms.make_plan(tcode)
@@ -2694,7 +2731,8 @@ def main() -> int:
               nc=nc, branch=cuda_nbms.ems_branch(nm, nc, tcode.max_dc),
               batch=tB, ebn0=0.0, max_passes=iters,
               avg_iters=float(res.iters.float().mean()), card=card,
-              groups=cuda_nbms.groups(tplan, "ems_nmnc"), ms_per_batch=runs,
+              groups=cuda_nbms.groups(tplan, "ems_nmnc", nm, nc),
+              ms_per_batch=runs,
               info_mbps={k: tB * tcode.k_sym * tcode.q_bit / (v / 1e3) / 1e6
                          for k, v in ms.items()},
               bound_ms=bound, bound_by=bound_by)

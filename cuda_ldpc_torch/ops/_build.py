@@ -176,10 +176,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [p, i]                  # scratch grid
         + [i, p])                 # device stream
     lib.ldpc_nbms.restype = i
-    for occupancy in (lib.ldpc_nbms_blocks_per_sm,
-                      lib.ldpc_qspa_stream_blocks_per_sm):
-        occupancy.argtypes = [i] * 6  # q method|layered groups N max_dc
-        occupancy.restype = i         # device
+    lib.ldpc_nbms_blocks_per_sm.argtypes = [i] * 8  # q method groups N
+    lib.ldpc_nbms_blocks_per_sm.restype = i         # max_dc nm nc device
+    lib.ldpc_qspa_stream_blocks_per_sm.argtypes = [i] * 6  # q layered
+    lib.ldpc_qspa_stream_blocks_per_sm.restype = i  # groups N max_dc device
     lib.ldpc_probe_bitops.argtypes = (
         [p] * 2                   # x out
         + [i] * 4                 # rows cols fn device

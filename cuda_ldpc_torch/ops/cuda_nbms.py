@@ -14,8 +14,10 @@ GF(256) codes.  ``supports`` states the rule: q = 2^m from 32 to 256, 2 to
 32 edges per row, every row full, one frame's totals [N, q] and the row
 scratch in a block's shared memory (full EMS and EMS at (Nm, Nc) keep their
 per-edge vectors and, but for the budgeted chains, their (max,+) chains
-[dc, q] in the same scratch, so the rule is one for every method), and for
-EMS every (Nm, Nc) that ``nb_decode.check_ems`` accepts.  Left to the plain
+[dc, q] in the same scratch, so the rule is one for every method; the
+budgeted chains' kept levels, ``budget_floats``, join the block, which
+LDPC_N576_K480_GF256_exp holds at every Nc it budgets), and for EMS every
+(Nm, Nc) that ``nb_decode.check_ems`` accepts.  Left to the plain
 version (and refused under ``auto`` on a card): rows of unequal degree
 (the Tanner code, q = 16).
 
@@ -24,12 +26,21 @@ row takes the branch of ``nb_decode._ems_cn_core`` that (Nm, Nc, dc)
 selects (``ems_branch``): conf(q,1) only; the pairs conf(Nm, 2); the
 unbudgeted (max,+) chains (Nc >= dc - 1); or the chains budgeted by
 deviation count (3 <= Nc <= dc - 2, on the four codes only
-LDPC_N576_K480_GF256_exp, dc = 12), whose states [2, dc, Nc + 1, q] a row
-group keeps in device memory, one set per resident block: that launch has
-as many blocks as the card holds at once, each decoding every grid-th
-frame.  The set of an edge's top Nm - 1 offsets, by ``jax.lax.top_k``'s
-rule for ties, is found in min(Nm - 1, q - Nm + 1) warp reductions: as
-first maxima, or, past q / 2, as all but the last offsets.
+LDPC_N576_K480_GF256_exp, dc = 12), whose states a row group keeps in
+shared memory at only the levels the function reads (``budget_floats``).
+The set of an edge's top Nm - 1 offsets, by ``jax.lax.top_k``'s rule for
+ties, is found in min(Nm - 1, q - Nm + 1) rounds of two warp reductions:
+as first maxima, or, past q / 2, as all but the last offsets.  The chains
+and full EMS convolve nothing with the identity, and a chain's step
+against a message of few entries runs over those entries only
+(csrc/nbms.cu's header).
+
+The earlier design of both modes (every convolution, every budget level
+and term, the budget states in device memory with a grid of the blocks
+the card holds) stays as a yardstick: ``decode_ems_full_dense`` and
+``decode_ems_nmnc_dense`` (modes ``ems_full_dense``, ``ems_nmnc_dense``),
+called by chip_smoke.py's timing and parity and the card tests, never by
+the decode path.
 
 One frame's totals [N, q] live in a block's shared memory, its c2v
 messages [E, q] in device memory (a scratch [B, E, q]).  The block runs
@@ -71,12 +82,18 @@ from cuda_ldpc_torch.ops.nb_decode import NBDecodeResult
 # Calls that launched the kernel, by method; read and reset by
 # chip_smoke.py to show that the main path went through it.
 LAUNCHES = {"nbms_ems": 0, "nbms_tmm": 0, "nbms_layered_tmm": 0,
-            "nbms_ems_full": 0, "nbms_ems_nmnc": 0, "nbms_glayered_tmm": 0}
+            "nbms_ems_full": 0, "nbms_ems_nmnc": 0, "nbms_glayered_tmm": 0,
+            "nbms_ems_full_dense": 0, "nbms_ems_nmnc_dense": 0}
 
 # The kernel's mode of each method: grouped-layered TMM is the layered-TMM
-# mode on other waves (``SCHEDULES``).
+# mode on other waves (``SCHEDULES``); the two ``_dense`` modes are the
+# yardstick.
 METHOD_IDS = {"ems": 0, "tmm": 1, "layered_tmm": 2, "ems_full": 3,
-              "ems_nmnc": 4, "glayered_tmm": 2}
+              "ems_nmnc": 4, "glayered_tmm": 2, "ems_full_dense": 5,
+              "ems_nmnc_dense": 6}
+# Each method's plain version (``nb_decode.decode``'s method).
+PLAIN = {"ems_nmnc": "ems", "ems_nmnc_dense": "ems",
+         "ems_full_dense": "ems_full"}
 # The wave plan (``cuda_qspa.row_waves``) of each method; flooding else.
 SCHEDULES = {"layered_tmm": "layered", "glayered_tmm": "glayered"}
 
@@ -92,23 +109,51 @@ def ems_branch(nm: int, nc: int, dc: int) -> str:
     return "chains" if nc >= dc - 1 else "budget"
 
 
+def budget_levels(dc: int, nc: int) -> int:
+    """Vectors [q] of one budgeted chain (csrc/nbms.cu ``level_base(dc)``):
+    a state of s = 1 .. dc - 1 messages keeps its levels max(1, nc - (dc -
+    1 - s)) .. min(s, nc), the only ones the function reads (a state
+    equals its level s above it, level 0 is the identity, and no later
+    step or exclusive term reads a lower level)."""
+    return sum(min(s, nc) - max(1, nc - (dc - 1 - s)) + 1
+               for s in range(1, dc))
+
+
 def budget_floats(plan: Plan, nc: int) -> int:
-    """Floats of one row group's budget states (csrc/nbms.cu
-    ``budget_floats``): the forward and backward chains [dc, nc + 1, q]."""
+    """Floats of one row group's budget region in shared memory (csrc/
+    nbms.cu ``budget_floats``): the identity and both chains' kept
+    levels."""
+    return (1 + 2 * budget_levels(plan.max_dc, nc)) * plan.q
+
+
+def dense_budget_floats(plan: Plan, nc: int) -> int:
+    """Floats of one row group's budget states in device memory for the
+    yardstick ``ems_nmnc_dense`` (csrc/nbms.cu ``dense_budget_floats``):
+    the forward and backward chains [dc, nc + 1, q]."""
     return 2 * plan.max_dc * (nc + 1) * plan.q
 
 
-def smem_bytes(plan: Plan, groups: int = 1) -> int:
+def group_budget(plan: Plan, method: str, nm: int = 2, nc: int = 2) -> int:
+    """Floats of each row group's budget region: ``budget_floats`` for
+    ``ems_nmnc`` where its rows take the budgeted chains, else 0."""
+    if method == "ems_nmnc" and ems_branch(nm, nc, plan.max_dc) == "budget":
+        return budget_floats(plan, nc)
+    return 0
+
+
+def smem_bytes(plan: Plan, groups: int = 1, budget: int = 0) -> int:
     """The kernel's dynamic shared memory per block (csrc/nbms.cu
     smem_bytes): T [N, q] and, for each row group, two row scratches
-    [max_dc, q] and one [max(max_dc, 7), q] and 96 per-edge scalars, in
-    f32; the GF tables and the decisions in int32."""
+    [max_dc, q] and one [max(max_dc, 7), q], 96 per-edge scalars and
+    ``budget`` floats (``group_budget``), in f32; the GF tables and the
+    decisions in int32."""
     q, dc = plan.q, plan.max_dc
-    return 4 * (plan.N * q + groups * (2 * dc * q + max(dc, 7) * q + 96)
+    return 4 * (plan.N * q + groups * (2 * dc * q + max(dc, 7) * q + 96
+                                       + budget)
                 + q + 2 * (q - 1) + plan.N)
 
 
-def groups(plan: Plan, method: str) -> int:
+def groups(plan: Plan, method: str, nm: int = 2, nc: int = 2) -> int:
     """Row groups of the kernel's block (``cuda_qspa.pick_groups``), one
     for the layered TMM schedules: on BDS.576.288.GF.64 (B=4096, 10
     passes, 0 dB; NVIDIA H100, ``python -m
@@ -117,24 +162,31 @@ def groups(plan: Plan, method: str) -> int:
     grouped-layered TMM, whose 4 waves hold 3-17 rows against layered's 8
     levels, 9.80 / 10.32 / 10.31: the 2-deviation search, which holds the
     SM busy, does not gain from more rows at once, and the waves' barriers
-    and fewer frames an SM cost more than the overlap gives."""
-    if method in ("layered_tmm", "glayered_tmm"):
+    and fewer frames an SM cost more than the overlap gives.  One too for
+    EMS at (nm, nc) with budgeted chains: csrc/nbms.cu compiles them into
+    one-group blocks only, where their code costs the other branches
+    nothing (PERF.md, PR 19)."""
+    if method in ("layered_tmm", "glayered_tmm") or group_budget(
+            plan, method, nm, nc):
         return 1
     return cuda_qspa.pick_groups(plan, lambda g: smem_bytes(plan, g))
 
 
 def blocks_per_sm(plan: Plan, method: str, groups: int,
-                  device: torch.device) -> int:
+                  device: torch.device, nm: int = 2, nc: int = 2) -> int:
     """Blocks of the kernel an SM of ``device`` holds with ``groups`` row
-    groups (CUDA's occupancy calculator)."""
+    groups (CUDA's occupancy calculator; EMS's nm, nc size the budget
+    region)."""
     return _build.load().ldpc_nbms_blocks_per_sm(
-        plan.q, METHOD_IDS[method], groups, plan.N, plan.max_dc, device.index)
+        plan.q, METHOD_IDS[method], groups, plan.N, plan.max_dc, int(nm),
+        int(nc), device.index)
 
 
 def supports(code: NBCode, nm: int = 2, nc: int = 2) -> bool:
     """True when the kernel takes the code (module docstring) and EMS's
-    ``nm``/``nc``: every pair that ``nb_decode.check_ems`` accepts (full
-    EMS and TMM callers pass the defaults)."""
+    ``nm``/``nc``: every pair that ``nb_decode.check_ems`` accepts and
+    whose budget region fits the block (full EMS and TMM callers pass the
+    defaults)."""
     try:
         nb_decode.check_ems(nm, nc, code.q, code.max_dc)
     except ValueError:
@@ -144,24 +196,26 @@ def supports(code: NBCode, nm: int = 2, nc: int = 2) -> bool:
     if not code.cn_mask.all():
         return False
     plan = make_plan(code)
-    return 2 <= plan.max_dc <= 32 and smem_bytes(plan) <= SMEM_LIMIT
+    return 2 <= plan.max_dc <= 32 and smem_bytes(
+        plan, 1, group_budget(plan, "ems_nmnc", nm, nc)) <= SMEM_LIMIT
 
 
-def _grid(plan: Plan, method: str, G: int, B: int, dev: torch.device) -> int:
+def _grid(plan: Plan, method: str, G: int, B: int, dev: torch.device,
+          nm: int, nc: int) -> int:
     """The blocks the card holds at once for the kernel, at most B."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return min(B, max(1, blocks_per_sm(plan, method, G, dev)) * sms)
+    return min(B, max(1, blocks_per_sm(plan, method, G, dev, nm, nc)) * sms)
 
 
 def _decode(L_ch: torch.Tensor, code: NBCode, max_iters: int, method: str,
             early_stop: bool, nm: int = 2, nc: int = 2) -> NBDecodeResult:
     if L_ch.device.type == "cpu":
-        return nb_decode.decode(L_ch, code, "ems" if method == "ems_nmnc"
-                                else method, max_iters, nm=nm, nc=nc,
+        return nb_decode.decode(L_ch, code, PLAIN.get(method, method),
+                                max_iters, nm=nm, nc=nc,
                                 early_stop=early_stop)
     if L_ch.device.type != "cuda":
         raise ValueError(f"unsupported device {L_ch.device}")
-    if method == "ems_nmnc":
+    if PLAIN.get(method) == "ems":
         nb_decode.check_ems(nm, nc, code.q, code.max_dc)
     if not supports(code, nm, nc):
         raise ValueError(f"the nbms kernel does not take {code.name} "
@@ -182,10 +236,11 @@ def _decode(L_ch: torch.Tensor, code: NBCode, max_iters: int, method: str,
                                      device=dev),
                          torch.empty(B, dtype=torch.bool, device=dev),
                          torch.empty(B, dtype=torch.int32, device=dev))
-    G, grid, scratch = groups(plan, method), B, None
-    if method == "ems_nmnc" and ems_branch(nm, nc, plan.max_dc) == "budget":
-        grid = _grid(plan, method, G, B, dev)
-        scratch = torch.empty(grid * G * budget_floats(plan, nc),
+    G, grid, scratch = groups(plan, method, nm, nc), B, None
+    if (method == "ems_nmnc_dense"
+            and ems_branch(nm, nc, plan.max_dc) == "budget"):
+        grid = _grid(plan, method, G, B, dev, nm, nc)
+        scratch = torch.empty(grid * G * dense_budget_floats(plan, nc),
                               dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = cuda_qspa._ptr
@@ -222,6 +277,24 @@ def decode_ems_full(L_ch: torch.Tensor, code: NBCode, max_iters: int,
     [B, N, q] float32 symbol LLRs; drop-in for ops/nb_decode.decode_ems at
     ``full=True``."""
     return _decode(L_ch, code, max_iters, "ems_full", early_stop)
+
+
+def decode_ems_full_dense(L_ch: torch.Tensor, code: NBCode, max_iters: int,
+                          early_stop: bool = True) -> NBDecodeResult:
+    """``decode_ems_full`` through the earlier design of its mode (every
+    convolution, the identity's too): the yardstick, for chip_smoke.py and
+    the card tests only."""
+    return _decode(L_ch, code, max_iters, "ems_full_dense", early_stop)
+
+
+def decode_ems_nmnc_dense(L_ch: torch.Tensor, code: NBCode, max_iters: int,
+                          nm: int, nc: int,
+                          early_stop: bool = True) -> NBDecodeResult:
+    """EMS at (nm, nc) through the earlier design of the mode ``ems_nmnc``
+    (every level and term of the chains, the budget states in device
+    memory): the yardstick, for chip_smoke.py and the card tests only."""
+    return _decode(L_ch, code, max_iters, "ems_nmnc_dense", early_stop, nm,
+                   nc)
 
 
 def decode_tmm(L_ch: torch.Tensor, code: NBCode, max_iters: int,

@@ -28,7 +28,10 @@ K8's full EMS counts its forward/backward chains under ``search`` and its
 exclusive convolutions under ``merge``; its EMS at ``--nm``/``--nc``
 (``nbms_ems_nmnc``, the mode ``ems_nmnc``) the single deviations and the
 top Nm - 1 selection under ``mins``, the pairs or the chains under
-``search``, the exclusive convolutions under ``merge``.  The call's time
+``search``, the exclusive convolutions under ``merge``; the earlier
+designs of both (``nbms_ems_full_dense``, ``nbms_ems_nmnc_dense``, the
+yardstick) on counters of their own, for the two designs' phases side by
+side.  The call's time
 with the counters and without them (the library the package builds) and
 the blocks an SM holds (CUDA's occupancy calculator) are printed beside it.
 ``--groups`` also times K7's and K8's row groups at each listed number of
@@ -59,7 +62,7 @@ PHASES = ("setup", "totals", "decide", "edges", "edges_wait", "mins",
 # the instrumented sources and their counter readers: (file, function,
 # counters)
 SOURCES = (("qspa.cu", "ldpc_qspa_phase_clocks", 2),
-           ("nbms.cu", "ldpc_nbms_phase_clocks", 5),
+           ("nbms.cu", "ldpc_nbms_phase_clocks", 7),
            ("qspa_stream.cu", "ldpc_qspa_stream_phase_clocks", 2))
 # kernel -> (counter reader, its row, K8's decoder or K5's / K7's schedule)
 KERNELS = {
@@ -73,12 +76,18 @@ KERNELS = {
                           "decode_glayered_tmm"),
     "nbms_ems_full": ("ldpc_nbms_phase_clocks", 3, "decode_ems_full"),
     "nbms_ems_nmnc": ("ldpc_nbms_phase_clocks", 4, "decode_ems"),
+    "nbms_ems_full_dense": ("ldpc_nbms_phase_clocks", 5,
+                            "decode_ems_full_dense"),
+    "nbms_ems_nmnc_dense": ("ldpc_nbms_phase_clocks", 6,
+                            "decode_ems_nmnc_dense"),
     "qspa_stream": ("ldpc_qspa_stream_phase_clocks", 0, "flooding"),
     "qspa_stream_layered": ("ldpc_qspa_stream_phase_clocks", 1, "layered"),
     "qspa_stream_glayered": ("ldpc_qspa_stream_phase_clocks", 1,
                              "glayered"),
 }
 DESIGNS = ("groups", "warp")
+# the kernels that take EMS's Nm and Nc
+NMNC = ("nbms_ems_nmnc", "nbms_ems_nmnc_dense")
 
 
 def phase_names(src: str) -> tuple:
@@ -142,7 +151,7 @@ def _calls(code, L, passes, kernels, nm=16, nc=2):
                            for d in designs}
             continue
         if kernel.startswith("nbms"):
-            kw = {"nm": nm, "nc": nc} if kernel == "nbms_ems_nmnc" else {}
+            kw = {"nm": nm, "nc": nc} if kernel in NMNC else {}
             out[kernel] = {"groups": (lambda f=getattr(cuda_nbms, what), kw=kw:
                                       f(L, code, passes, **kw))}
             continue
@@ -202,7 +211,7 @@ def measure(batch: int = 4096, passes: int = 10, ebn0: float = 0.0,
                 else kernel.endswith("layered"))
 
     def extra(kernel):
-        return {"nm": nm, "nc": nc} if kernel == "nbms_ems_nmnc" else {}
+        return {"nm": nm, "nc": nc} if kernel in NMNC else {}
 
     def shape(kernel, design):
         """The design's groups or warps, and the blocks an SM holds."""
@@ -212,9 +221,9 @@ def measure(batch: int = 4096, passes: int = 10, ebn0: float = 0.0,
             got = ({"warps": width, "c_on_chip": cuda_qspa.c_on_chip(lay)}
                    if design == "warp" else {"groups": width})
             return got, cuda_qspa.blocks_per_sm(plan, lay, design, dev)
-        G = module(kernel).groups(plan, arg(kernel))
-        return {"groups": G}, module(kernel).blocks_per_sm(plan, arg(kernel),
-                                                           G, dev)
+        G = module(kernel).groups(plan, arg(kernel), **extra(kernel))
+        return {"groups": G}, module(kernel).blocks_per_sm(
+            plan, arg(kernel), G, dev, **extra(kernel))
 
     point = {"code": code.name, "batch": batch, "max_passes": passes,
              "ebn0": ebn0}
@@ -252,7 +261,7 @@ def measure(batch: int = 4096, passes: int = 10, ebn0: float = 0.0,
     try:
         for G in groups:
             for mod in (cuda_nbms, cuda_qspa_stream):
-                mod.groups = lambda plan, method, G=G: G
+                mod.groups = lambda plan, method, *_, G=G: G
             for kernel, call in calls.items():
                 if module(kernel) is cuda_qspa or module(kernel).smem_bytes(
                         plan, G) > cuda_qspa.SMEM_LIMIT \

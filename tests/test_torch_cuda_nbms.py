@@ -1,9 +1,10 @@
 """The CUDA GF(q) max-domain decoder (cuda_ldpc_torch.ops.cuda_nbms, K8:
 EMS Nm=2/Nc=2, EMS at other Nm/Nc, full EMS, TMM, layered TMM,
-grouped-layered TMM) against its
-plain PyTorch version.  Tolerance: none — the kernel does the plain version's fp32
-operations in its order (ops/nb_decode.py's docstring fixes them; max, min
-and the GF tables are exact), so hard, ok and iters must be exactly equal.
+grouped-layered TMM, and the earlier designs of full EMS and EMS at Nm/Nc
+kept as their yardstick) against its plain PyTorch version.  Tolerance:
+none — the kernel does the plain version's fp32 operations in its order
+(ops/nb_decode.py's docstring fixes them; max, min and the GF tables are
+exact), so hard, ok and iters must be exactly equal.
 
 The kernel cases need a card and skip without one.  The file imports only
 the port, so on a machine with a card and no JAX it runs on its own:
@@ -20,9 +21,14 @@ from cuda_ldpc_torch import NBCode
 from cuda_ldpc_torch.ops import channel, cuda_nbms, demod, nb_decode
 from cuda_ldpc_torch.utils.constellations import constellation
 
-def _ems(nm, nc):
+def _ems(nm, nc, dense=False):
     """EMS at (nm, nc): the kernel's wrapper and the plain version, K8's
-    mode ems_nmnc."""
+    mode ems_nmnc (``dense``: its earlier design, the yardstick)."""
+    if dense:
+        return (functools.partial(cuda_nbms.decode_ems_nmnc_dense, nm=nm,
+                                  nc=nc),
+                functools.partial(nb_decode.decode_ems, nm=nm, nc=nc),
+                "nbms_ems_nmnc_dense")
     return (functools.partial(cuda_nbms.decode_ems, nm=nm, nc=nc),
             functools.partial(nb_decode.decode_ems, nm=nm, nc=nc),
             "nbms_ems_nmnc")
@@ -41,9 +47,16 @@ METHODS = {"ems": (cuda_nbms.decode_ems, nb_decode.decode_ems, "nbms_ems"),
                                 L, code, "glayered_tmm", iters),
                             "nbms_glayered_tmm"),
            # conf(q,1) only; the pairs; the chains (unbudgeted on dc = 4,
-           # budgeted on LDPC_N576_K480_GF256_exp's dc = 12)
+           # budgeted on LDPC_N576_K480_GF256_exp's dc = 12; listed
+           # messages at 8/3, dense at 64/3)
            "ems_nm1_nc2": _ems(1, 2), "ems_nm3_nc2": _ems(3, 2),
-           "ems_nm8_nc3": _ems(8, 3)}
+           "ems_nm8_nc3": _ems(8, 3), "ems_nm64_nc3": _ems(64, 3),
+           # the yardstick
+           "ems_full_dense": (cuda_nbms.decode_ems_full_dense,
+                              functools.partial(nb_decode.decode_ems,
+                                                full=True),
+                              "nbms_ems_full_dense"),
+           "ems_nm8_nc3_dense": _ems(8, 3, dense=True)}
 
 
 def _llr(code, ebn0, batch, seed, device, n_qam=2):
@@ -100,8 +113,10 @@ def test_what_the_kernel_takes():
     in device memory.  On BDS flooding blocks (EMS at any Nm/Nc, full EMS,
     TMM) hold 4 row groups of 4 warps: 3 blocks an SM by registers, 12
     groups an SM, as many as 2 or 3 groups give; layered TMM runs one
-    group, and so does grouped-layered TMM.  The budgeted chains [2, dc,
-    Nc + 1, q] of a row group live in device memory."""
+    group, and so does grouped-layered TMM.  The budgeted chains of a row
+    group keep their levels in the group's shared memory (20 vectors a
+    chain at Nc = 10 on LDPC_N576_K480_GF256_exp, 36 at Nc = 6); the
+    yardstick's keep [2, dc, Nc + 1, q] in device memory."""
     for name in ("BDS.576.288.GF.64", "LDPC_N576_K288_GF64_d1_exp",
                  "LDPC_N96_K48_GF256_d1_exp", "LDPC_N576_K480_GF256_exp"):
         assert cuda_nbms.supports(NBCode.from_registry(name))
@@ -129,10 +144,46 @@ def test_what_the_kernel_takes():
                 "conf1", "conf1", "pairs", "pairs", "chains", "chains"]
     assert [cuda_nbms.ems_branch(8, nc, 12) for nc in (2, 3, 10, 11)] == [
         "pairs", "budget", "budget", "chains"]
-    assert cuda_nbms.budget_floats(cuda_nbms.make_plan(k480), 10) == (
-        2 * 12 * 11 * 256)
+    k480_plan = cuda_nbms.make_plan(k480)
+    assert [cuda_nbms.budget_levels(12, nc) for nc in range(3, 11)] == [
+        27, 32, 35, 36, 35, 32, 27, 20]
+    assert cuda_nbms.budget_floats(k480_plan, 10) == (1 + 2 * 20) * 256
+    assert cuda_nbms.dense_budget_floats(k480_plan, 10) == 2 * 12 * 11 * 256
+    assert cuda_nbms.smem_bytes(k480_plan, 1, cuda_nbms.group_budget(
+        k480_plan, "ems_nmnc", 8, 6)) == 189_080
+    assert cuda_nbms.group_budget(k480_plan, "ems_nmnc_dense", 8, 6) == 0
     assert not cuda_nbms.supports(NBCode.from_registry(
         "Tanner_74_9_Z128_GF16"))                  # q = 16, rows of 20/21
+
+
+def _took_before(code, nm, nc):
+    """supports() as it stood while the budgeted chains lived in device
+    memory: the shared memory of a block without any budget region."""
+    try:
+        nb_decode.check_ems(nm, nc, code.q, code.max_dc)
+    except ValueError:
+        return False
+    plan = cuda_nbms.make_plan(code)
+    return (not code.q & (code.q - 1) and 32 <= code.q <= 256
+            and bool(code.cn_mask.all()) and 2 <= plan.max_dc <= 32
+            and cuda_nbms.smem_bytes(plan) <= cuda_nbms.SMEM_LIMIT)
+
+
+@pytest.mark.parametrize("name", ["BDS.576.288.GF.64",
+                                  "LDPC_N576_K288_GF64_d1_exp",
+                                  "LDPC_N96_K48_GF256_d1_exp",
+                                  "LDPC_N576_K480_GF256_exp",
+                                  "Tanner_74_9_Z128_GF16"])
+def test_supports_takes_what_it_took_with_the_budget_in_device_memory(name):
+    """The budget region in shared memory (156-189 KB blocks on
+    LDPC_N576_K480_GF256_exp at Nc 3 to 10) leaves supports() taking every
+    (code, Nm, Nc) it took before and nothing else, on each registry
+    adjacency code and on the Tanner code it refuses."""
+    code = NBCode.from_registry(name)
+    for nm in (0, 1, 2, 3, 8, 16, 64, 65, 66, 100, 256, 257, 258):
+        for nc in range(0, 14):
+            assert cuda_nbms.supports(code, nm=nm, nc=nc) == _took_before(
+                code, nm, nc), (nm, nc)
 
 
 # --------------------------------------------------------------- card side

@@ -1,19 +1,23 @@
-"""The layout of K8's full-EMS check row (csrc/nbms.cu ``maxconvs`` and
-``ems_full_row``) on the CPU.
+"""The layout of K8's full-EMS check row (csrc/nbms.cu ``maxconv_terms``,
+``maxconvs``, ``chains`` and ``ems_full_row``) on the CPU.
 
-``maxconvs`` spreads the (max,+) convolutions out[x] = max_u A[u] + B[u ^ x]
-of a phase over a row group's threads.  A unit is a tile of 4 outputs x0 + k
-of one job and one of S interleaved parts of the 4-symbol u tiles u0 = 4 t;
-it reads A[u0 + i] and B[(u0 ^ x0) + (i ^ k)].  S is the largest power of 2
-up to 32 and q / 4 whose njobs * q / 4 * S units fit the group's threads,
-and the parts' maxima meet by shuffles.  A torch emulation of that mapping
-(each unit's terms gathered by the kernel's indices, its maximum taken over
-its part's tiles, then over the parts) must equal nb_decode's ``_maxconv``
-bit for bit, and the row's wiring (U, the forward and backward chains from
-the identity two jobs at a time, the exclusive convolutions over U, the
-output) ``_ems_full_cn_core``.  Tolerance: none: each term is one add and
-a maximum is exact.  Inputs are seeded numpy.  No JAX here: the plain core
-is held to the JAX package by tests/test_torch_nb_maxdomain.py.
+``maxconv_terms`` spreads the (max,+) convolutions out[x] = max_u A[u] +
+B[u ^ x] of a phase over a row group's threads (``maxconvs`` is it with
+one term a job).  A unit is a tile of 4 outputs x0 + k of one job and one
+of S interleaved parts of the 4-symbol u tiles u0 = 4 t; it reads A[u0 +
+i] and B[(u0 ^ x0) + (i ^ k)].  S is the largest power of 2 up to 32 and q
+/ 4 whose njobs * q / 4 * S units fit the group's threads, and the parts'
+maxima meet by shuffles.  A torch emulation of that mapping (each unit's
+terms gathered by the kernel's indices, its maximum taken over its part's
+tiles, then over the parts) must equal nb_decode's ``_maxconv`` bit for
+bit, and the row's wiring ``_ems_full_cn_core``: U; fwd[1] = 0 + U[0] and
+bwd[dc - 2] = 0 + U[dc - 1] (the convolutions with the identity, as
+copies); the chains' steps s = 1 .. dc - 2, two jobs a phase; the inner
+edges' exclusive convolutions over U, dc - 2 jobs; the end edges' 0 +
+bwd[0] and 0 + fwd[dc - 1]; the output.  Tolerance: none: each term is one
+add and a maximum is exact, and the signs of zero must agree too.  Inputs
+are seeded numpy.  No JAX here: the plain core is held to the JAX package
+by tests/test_torch_nb_maxdomain.py.
 """
 
 import functools
@@ -57,19 +61,19 @@ def _identity(q: int) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("q,dc,splits", [
-    (64, 4, (4, 2)),      # BDS.576.288.GF.64: chains S = 4, excl S = 2
+    (64, 4, (4, 4)),      # BDS.576.288.GF.64: chains and excl S = 4
     (256, 4, (1, 1)),     # LDPC_N96_K48_GF256_d1_exp
     (256, 12, (2, 1)),    # LDPC_N576_K480_GF256_exp (excl: two rounds)
-    (32, 3, (4, 4)),
+    (32, 3, (4, 8)),
 ])
 def test_units_equal_the_plain_maxconv(q, dc, splits):
     """Each phase's units, against ``_maxconv`` on the same operands,
     the identity among them; S for the chains (2 jobs) and for the
-    exclusive convolutions (dc jobs)."""
+    exclusive convolutions (dc - 2 jobs)."""
     nth = 32 * dc
-    assert (split(q, nth, 2), split(q, nth, dc)) == splits
+    assert (split(q, nth, 2), split(q, nth, dc - 2)) == splits
     rng = np.random.default_rng(q + dc)
-    for njobs in (2, dc):
+    for njobs in (2, dc - 2):
         A = torch.from_numpy(rng.normal(0, 6, (3, njobs, q)).astype(np.float32))
         B = torch.from_numpy(rng.normal(0, 6, (3, njobs, q)).astype(np.float32))
         A[0, 0] = _identity(q)
@@ -81,33 +85,44 @@ def test_units_equal_the_plain_maxconv(q, dc, splits):
                                   "LDPC_N576_K288_GF64_d1_exp",
                                   "LDPC_N96_K48_GF256_d1_exp"])
 def test_row_wiring_equals_the_plain_row(name):
-    """ems_full_row: U over X, fwd[0] and bwd[dc - 1] the identity, one
-    step of each chain a phase (fwd in Y, bwd in A), the exclusive
-    convolutions over X, then c2v[k] = (X[h k] - X[0]) * f32(1/1.2), the
+    """ems_full_row: U over X; fwd[1] = 0 + U[0] in Y[1], bwd[dc - 2] = 0 +
+    U[dc - 1] in A[dc - 2]; for s = 1 .. dc - 2 one step of each chain a
+    phase (fwd in Y, bwd in A); the inner edges' exclusive convolutions
+    over X; then c2v[k] = (e[h k] - e[0]) * f32(1/1.2) with e = 0 + the
+    edge's exclusive values (A[0] and Y[dc - 1] for the end edges), the
     kernel's index h ? h k : 0 (LDPC_N576_K288_GF64_d1_exp has two
-    coefficient-0 edges)."""
+    coefficient-0 edges).  Messages in eighth steps at or below 0, zeros
+    of both signs among them, so that the maxima are often a zero and a
+    sign the copies got wrong would show in c2v."""
     code = NBCode.from_registry(name)
     g = nb_decode.build_graph(code)
     q, dc, nth = g.q, g.dc, 32 * g.dc
     h_perm = torch.as_tensor(g.h_perm)
     mask = torch.as_tensor(g.cn_mask)
     rng = np.random.default_rng(dc * q)
-    v2c = torch.from_numpy(rng.normal(0, 4, (2, g.M, dc, q)).astype(np.float32))
+    v2c = -np.abs(np.round(rng.normal(0, 0.1, (2, g.M, dc, q)) * 8) / 8)
+    v2c = np.where(v2c == 0, np.where(rng.random(v2c.shape) < 0.5, 0.0,
+                                      -0.0), v2c)
+    v2c = torch.from_numpy(v2c.astype(np.float32))
     X = nb_decode._to_cn_domain(v2c, h_perm)             # [B, M, dc, q]
-    ident = _identity(q).expand(X[:, :, 0].shape)
-    Y, A = [ident], [ident]                              # fwd, bwd reversed
-    for s in range(dc - 1):
+    Y = {1: 0.0 + X[:, :, 0]}                            # fwd
+    A = {dc - 2: 0.0 + X[:, :, dc - 1]}                  # bwd
+    for s in range(1, dc - 1):
         d = dc - 1 - s
-        out = maxconvs(torch.stack([Y[-1], A[-1]], dim=2),
+        out = maxconvs(torch.stack([Y[s], A[d]], dim=2),
                        torch.stack([X[:, :, s], X[:, :, d]], dim=2), nth)
-        Y.append(out[:, :, 0])
-        A.append(out[:, :, 1])
-    Y, A = torch.stack(Y, dim=2), torch.stack(A[::-1], dim=2)
-    X = maxconvs(Y, A, nth)                              # excl over U
+        Y[s + 1], A[d - 1] = out[:, :, 0], out[:, :, 1]
+    inner = list(range(1, dc - 1))
+    excl = maxconvs(torch.stack([Y[d] for d in inner], dim=2),
+                    torch.stack([A[d] for d in inner], dim=2), nth)
+    E = 0.0 + torch.stack([A[0]] + [excl[:, :, i] for i in range(dc - 2)]
+                          + [Y[dc - 1]], dim=2)
     idx = torch.where(h_perm[..., 1:2] != 0, h_perm, 0)
-    out = torch.gather(X, -1, idx[None].expand(X.shape))
-    c2v = (out - X[..., :1]) * nb_decode.EMS_SCALE
+    out = torch.gather(E, -1, idx[None].expand(E.shape))
+    c2v = (out - E[..., :1]) * nb_decode.EMS_SCALE
     plain = nb_decode._ems_full_cn_core(v2c, mask, h_perm, dc, q)
     assert bool((h_perm[..., 1] == 0).any()) == (
         name == "LDPC_N576_K288_GF64_d1_exp")
+    assert torch.signbit(X).any() and (X == 0).any()
     assert torch.equal(c2v, plain)
+    assert torch.equal(torch.signbit(c2v), torch.signbit(plain))

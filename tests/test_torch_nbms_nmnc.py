@@ -3,25 +3,34 @@ refuses, and the design of K8's mode ``ems_nmnc`` (csrc/nbms.cu
 ``ems_nmnc_row``) emulated in torch against the plain ``_ems_cn_core``.
 
 ``ems_nmnc_row`` finds the set of an edge's top K = Nm - 1 non-zero
-offsets in min(K, q - K) rounds: K first-index maxima over the offsets
-not taken yet (K <= q - K), or all but the q - K last offsets (smallest
-value, largest index) found one at a time.  That must be the set of
+offsets in min(K, q - K) rounds on order keys (the float's bits, -0 as
++0): K maxima of the keys not taken yet, each at its smallest index (K <=
+q - K), or all but the q - K last offsets (smallest key, largest index)
+found one at a time (``top_offsets``).  That must be the set of
 ``jax.lax.top_k`` and ``_top_first`` on rows full of ties (a
 coefficient-0 edge's W is all ties but one); the pairs list it in index
 order (only the set matters to their maxima).  Then the branch
 ``ems_branch`` names: the pairs (each listed offset o of edge a against
-the whole clipped message of edge b, dev_b[o ^ x]), the unbudgeted chains,
-or the budgeted chains, whose states the kernel keeps in device memory at
-F[(d (Nc + 1) + c) q], Bk after F, level 0 and the ends the identity,
-F[s + 1][c] = max(F[s][c], maxconv(F[s][c - 1], dev_s)) and Bk likewise
-from the right, the exclusive values max over c of maxconv(F[d][c],
-Bk[d][Nc - c]) from c = 0 up.  The torch emulation follows those indices
-and must equal ``_ems_cn_core`` bit for bit (tolerance: none; each term
-is one add and a maximum is exact; the convolutions' split over threads is
+the whole clipped message of edge b, dev_b[o ^ x]); the unbudgeted chains
+(``chains``: fwd[1] = 0 + msg[0] in A[0], bwd[dc - 2] = 0 + msg[dc - 1] in
+A[dc - 1], one step of each a phase against the inner edges' messages,
+dense or, with n = K + 1 entries where 4 n <= q, as (offset, value) lists
+whose step is max over the entries of A[t ^ x] + v; the inner edges'
+exclusive convolutions, the end edges' 0 + bwd[0] and 0 + fwd[dc - 1]);
+or the budgeted chains (``budget_chains``), whose states keep only the
+levels max(1, Nc - (dc - 1 - s)) .. min(s, Nc) of a state of s messages,
+laid out in one region as the kernel's shared memory (the identity, then
+F's levels, then Bk's, at ``level_base``), F_1[1] and Bk's first state
+max(identity, 0 + dev), each step over the kept levels, and each inner
+edge's exclusive value the max of F_d[Nc] and Bk_d[Nc] where its term
+range reaches c = Nc or c = 0 and of its dense terms between.  The torch
+emulation follows those indices and must equal ``_ems_cn_core`` bit for
+bit, the signs of zero too (tolerance: none; each term is one add and a
+maximum is exact; the convolutions' split over threads is
 tests/test_torch_nbms_layout.py's).  Then the plain decoder against the
 JAX package at two (Nm, Nc) on registry codes, exactly.  Last, the levels
-and terms of the budgeted chains that chip_smoke's bound leaves out
-change nothing.  Inputs are seeded numpy.
+and terms of the budgeted chains that the kernel and chip_smoke's bound
+leave out change nothing.  Inputs are seeded numpy.
 """
 
 import jax
@@ -72,20 +81,28 @@ def test_an_nm_beyond_q_is_refused_as_the_jax_package_refuses_it(name, nm,
 
 # ------------------------------------------------------- the selection
 
+def order_key(x: torch.Tensor) -> torch.Tensor:
+    """csrc/nbms.cu ``order_key``: the float's bits as an order (int64
+    holding the unsigned key), -0 made +0 by adding 0."""
+    b = (x + 0.0).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(b >= 2 ** 31, b ^ 0xFFFFFFFF, b | 2 ** 31)
+
+
 def rounds(W0: torch.Tensor, K: int) -> torch.Tensor:
-    """The kernel's rounds: K first-index maxima of the offsets not taken
-    yet, or (K > q - K) all but the q - K last ones, each the smallest
-    value left with the largest index; the taken mask [..., q]."""
+    """The kernel's rounds (``top_offsets``): K maxima of the keys not
+    taken yet, each at its smallest index, or (K > q - K) all but the q - K
+    last ones, each the smallest key left at its largest index; the taken
+    mask [..., q]."""
     q = W0.shape[-1]
     up = K <= q - K
-    cur = W0.clone()
+    key = order_key(W0)
+    y = torch.arange(q)
     taken = torch.full_like(W0, not up, dtype=torch.bool)
     for _ in range(K if up else q - K):
-        if up:
-            o = cur.argmax(-1, keepdim=True)        # the first maximum
-        else:                                       # the last minimum
-            o = q - 1 - cur.flip(-1).argmin(-1, keepdim=True)
-        cur.scatter_(-1, o, float("-inf") if up else float("inf"))
+        best = (key.amax if up else key.amin)(-1, keepdim=True)
+        at = torch.where(key == best, y, q if up else -1)
+        o = (at.amin if up else at.amax)(-1, keepdim=True)
+        key.scatter_(-1, o, 0 if up else 2 ** 32 - 1)   # out of the race
         taken.scatter_(-1, o, up)
     return taken
 
@@ -143,12 +160,36 @@ def identity(q: int) -> torch.Tensor:
     return torch.where(torch.arange(q) == 0, 0.0, NEG)
 
 
+def listed_conv(A, entries, P=None):
+    """``listed_convs``: out[x] = max(P[x], max over the entries (t, v) of
+    A[t ^ x] + v); A [B, M, q], entries [B, M, n] offsets and values."""
+    t, v = entries
+    x = torch.arange(A.shape[-1])
+    out = torch.full_like(A, float("-inf")) if P is None else P.clone()
+    for k in range(t.shape[-1]):
+        term = torch.gather(A, -1, t[..., k, None] ^ x) + v[..., k, None]
+        out = torch.maximum(out, term)
+    return out
+
+
+def level_lo(s, nc, dc):
+    return max(1, nc - (dc - 1 - s))
+
+
+def level_base(s, nc, dc):
+    """csrc/nbms.cu ``level_base``, its closed form."""
+    n, m = s - 1, s + nc - dc - 1
+    mins = n * (n + 1) // 2 if n <= nc else nc * (nc + 1) // 2 + (n - nc) * nc
+    return mins - (m * (m + 1) // 2 if m > 0 else 0)
+
+
 def kernel_row(v2c, h_perm, nm, nc):
     """ems_nmnc_row on every row [B, M] at once, in the kernel's steps and
     indices: v2c [B, M, dc, q] -> c2v [B, M, dc, q]."""
     Bn, M, dc, q = v2c.shape
     K = nm - 1
     x = torch.arange(q)
+    ident = identity(q).expand(Bn, M, q)
     U = nb_decode._to_cn_domain(v2c, h_perm)
     v0 = U.amax(-1)
     c0 = U.argmax(-1)
@@ -157,10 +198,20 @@ def kernel_row(v2c, h_perm, nm, nc):
     D = [torch.stack([W[:, :, d] for d in range(dc) if d != w]).amax(0)
          for w in range(dc)]
     branch = cuda_nbms.ems_branch(nm, nc, dc)
+    n = K + 1 if branch == "chains" else K
+    listed = branch in ("chains", "budget") and 4 * n <= q
     if branch != "conf1":
         W0 = torch.where(x == 0, NEG, W)
         taken, lst = select(W0, K)
         dev = torch.where(taken, W0, NEG)
+        # a listed message: (offsets, values) in index order (the chains'
+        # offset 0, value 0, first)
+        order = torch.where(taken, x, q).sort(-1).values[..., :min(K, q)]
+        vals = torch.gather(dev, -1, order.clamp(max=q - 1))
+        if branch == "chains":
+            order = torch.cat([torch.zeros_like(order[..., :1]), order], -1)
+            vals = torch.cat([torch.zeros_like(vals[..., :1]), vals], -1)
+    ev = None
     if branch == "pairs":
         for w in range(dc):
             for a in range(dc):
@@ -175,49 +226,64 @@ def kernel_row(v2c, h_perm, nm, nc):
                         D[w] = torch.maximum(D[w], t)
     elif branch == "chains":
         msg = torch.maximum(dev, identity(q))
-        Y = [identity(q).expand(Bn, M, q)] + [None] * (dc - 1)   # fwd
-        X = [None] * (dc - 1) + [identity(q).expand(Bn, M, q)]   # bwd
-        for s in range(dc - 1):
+
+        def conv(Am, d):
+            if listed:
+                return listed_conv(Am, (order[:, :, d], vals[:, :, d]))
+            return nb_decode._maxconv(Am, msg[:, :, d])
+
+        fwd = {1: 0.0 + msg[:, :, 0]}                  # A[0]
+        bwd = {dc - 2: 0.0 + msg[:, :, dc - 1]}        # A[dc - 1]
+        for s in range(1, dc - 1):
             d = dc - 1 - s
-            Y[s + 1] = nb_decode._maxconv(Y[s], msg[:, :, s])
-            X[d - 1] = nb_decode._maxconv(X[d], msg[:, :, d])
-        for w in range(dc):
-            D[w] = torch.maximum(D[w], nb_decode._maxconv(Y[w], X[w]))
+            fwd[s + 1] = conv(fwd[s], s)
+            bwd[d - 1] = conv(bwd[d], d)
+        excl = {d: nb_decode._maxconv(fwd[d], bwd[d]) for d in range(1, dc - 1)}
+        excl[0], excl[dc - 1] = bwd[0], fwd[dc - 1]
+        ev = [0.0 + excl[w] for w in range(dc)]
     elif branch == "budget":
-        L1, Q = nc + 1, q
-        St = torch.empty(Bn, M, 2 * dc * L1 * Q)
-        F, Bk = 0, dc * L1 * Q                      # offsets into St
+        nl = level_base(dc, nc, dc)
+        Sb = torch.full((Bn, M, (1 + 2 * nl) * q), float("nan"))
+        Sb[..., :q] = identity(q)
+        F, Bk = q, (1 + nl) * q                  # offsets into the region
 
-        def at(base, d, c):
-            return slice(base + (d * L1 + c) * Q, base + (d * L1 + c + 1) * Q)
+        def lev(chain, s, c):
+            c = min(c, s, nc)
+            at = chain + (level_base(s, nc, dc) + c - level_lo(s, nc, dc)) * q
+            return slice(at, at + q)
 
-        ident = identity(q)
+        def state(chain, s, c):
+            return Sb[..., :q] if c == 0 else Sb[..., lev(chain, s, c)]
+
+        Sb[..., lev(F, 1, 1)] = torch.maximum(ident, 0.0 + dev[:, :, 0])
+        Sb[..., lev(Bk, 1, 1)] = torch.maximum(ident, 0.0 + dev[:, :, dc - 1])
+        for s in range(1, dc - 1):
+            lo = level_lo(s + 1, nc, dc)
+            for chain, d in ((F, s), (Bk, dc - 1 - s)):
+                for c in range(lo, min(s + 1, nc) + 1):
+                    A, P = state(chain, s, c - 1), state(chain, s, c)
+                    if listed:
+                        out = listed_conv(A, (order[:, :, d],
+                                              vals[:, :, d]), P)
+                    else:
+                        out = torch.maximum(P, nb_decode._maxconv(
+                            A, dev[:, :, d]))
+                    Sb[..., lev(chain, s + 1, c)] = out
+        ev = []
         for d in range(dc):
-            for c in range(L1):
-                if d == 0 or c == 0:
-                    St[..., at(F, d, c)] = ident
-                if d == dc - 1 or c == 0:
-                    St[..., at(Bk, d, c)] = ident
-        for s in range(dc - 1):
-            d = dc - 1 - s
-            for job in range(2 * nc):
-                if job < nc:
-                    c = job + 1
-                    a, bb = at(F, s, c - 1), dev[:, :, s]
-                    o, p = at(F, s + 1, c), at(F, s, c)
-                else:
-                    c = job - nc + 1
-                    a, bb = at(Bk, d, c - 1), dev[:, :, d]
-                    o, p = at(Bk, d - 1, c), at(Bk, d, c)
-                St[..., o] = torch.maximum(
-                    St[..., p], nb_decode._maxconv(St[..., a], bb))
-        Xe = [nb_decode._maxconv(St[..., at(F, d, 0)], St[..., at(Bk, d, nc)])
-              for d in range(dc)]
-        for c in range(1, nc + 1):
-            Xe = [torch.maximum(Xe[d], nb_decode._maxconv(
-                St[..., at(F, d, c)], St[..., at(Bk, d, nc - c)]))
-                for d in range(dc)]
-        D = [torch.maximum(D[w], Xe[w]) for w in range(dc)]
+            r = dc - 1 - d
+            lo, hi = max(0, nc - r), min(d, nc)
+            e = torch.full((Bn, M, q), float("-inf"))
+            if lo == 0:
+                e = torch.maximum(e, state(Bk, r, nc))
+            if hi == nc:
+                e = torch.maximum(e, state(F, d, nc))
+            for c in range(max(lo, 1), min(hi, nc - 1) + 1):
+                e = torch.maximum(e, nb_decode._maxconv(
+                    state(F, d, c), state(Bk, r, nc - c)))
+            ev.append(0.0 + e)
+    if ev is not None:
+        D = [torch.maximum(D[w], ev[w]) for w in range(dc)]
     D = torch.stack(D, dim=2)                                # [B, M, dc, q]
     g0 = torch.zeros_like(c0[:, :, 0])
     for d in range(dc):
@@ -238,6 +304,7 @@ ROW_CASES = [
     ("LDPC_N576_K288_GF64_d1_exp", 40, 2),
     ("LDPC_N96_K48_GF256_d1_exp", 256, 3),
     ("LDPC_N576_K480_GF256_exp", 3, 3), ("LDPC_N576_K480_GF256_exp", 8, 10),
+    ("LDPC_N576_K480_GF256_exp", 100, 6), ("LDPC_N576_K480_GF256_exp", 8, 11),
 ]
 
 
@@ -246,10 +313,14 @@ ROW_CASES = [
 def test_kernel_row_equals_the_plain_row(name, nm, nc):
     """Every branch of ems_nmnc_row and its selections (as the complement
     at Nm = 40, 64 and 256, every offset at Nm = q + 1, as first maxima
-    below), the budget states at both ends of LDPC_N576_K480_GF256_exp's
-    Nc = 3 .. 10 among them, against _ems_cn_core on one pass of messages
-    with ties (quarter steps) on 12 rows and every row with a
-    coefficient-0 edge (LDPC_N576_K288_GF64_d1_exp has two)."""
+    below), the chains with listed messages (BDS 8/3, K480 8/11) and dense
+    ones (Nm 64 and up), the budget states at both ends of
+    LDPC_N576_K480_GF256_exp's Nc = 3 .. 10 and at its most levels (Nc =
+    6) among them, listed (Nm 3, 8) and dense (Nm 100), against
+    _ems_cn_core on one pass of messages with ties (quarter steps, -0
+    among them) on 12 rows and every row with a coefficient-0 edge
+    (LDPC_N576_K288_GF64_d1_exp has two): equal values and equal signs of
+    zero."""
     code, _ = codes(name)
     g = nb_decode.build_graph(code)
     zero = np.nonzero((g.h_perm[..., 1] == 0).any(-1))[0]
@@ -262,7 +333,9 @@ def test_kernel_row_equals_the_plain_row(name, nm, nc):
     v2c[..., 0] = 0.0
     v2c = torch.from_numpy(v2c.astype(np.float32))
     plain = nb_decode._ems_cn_core(v2c, mask, h_perm, nm, nc, g.dc, g.q)
-    assert torch.equal(kernel_row(v2c, h_perm, nm, nc), plain)
+    ours = kernel_row(v2c, h_perm, nm, nc)
+    assert torch.equal(ours, plain)
+    assert torch.equal(torch.signbit(ours), torch.signbit(plain))
 
 
 # ------------------------------------------------------- the plain decoder
